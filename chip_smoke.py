@@ -23,12 +23,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    relation]] the same way, and run ``python -m mpgnn_tpu_torch.serve`` on
    ``data/synthetic_multiclass`` with saved parameters;
 5. profile 5 refreshes of each predictor (torch.profiler): device time by
-   kernel and the device's busy share.
+   kernel and the device's busy share;
+6. kernels K3 (``dense_conv``) and K4 (``dense_matmul``): on relation 1 of
+   ``data/synthetic_multiclass`` (N = 5,000) at F = 2 and 64, H = 64, and
+   on a random graph at N = 32,768 (A = 2.1 GB bf16, far past the 50 MB
+   L2) at F = 64, hold each against its plain version (rtol = atol = 1e-5:
+   the same bf16 operands, float32 against float64 sums) and time it (L2
+   flushed before each launch, as training finds A) beside its bound, its
+   plain version and one cuBLAS call (``torch.mm`` over the same bf16
+   operands, plus the epilogue in torch for K3), which the port never
+   calls;
+7. train through ``train_mpgnn``, hidden 64, dropout 0.6, seed 0:
+   (a) ``data/synthetic_multiclass``, metapaths [[1, 0], [2, 3]], 1000
+   epochs, backends 'pallas', 'csr' and 'segment' (csr against segment and
+   pallas against segment at the tolerances below; epoch time between CUDA
+   events recorded after each optimizer step); (b) the uniform graph
+   with ``bench.py``'s bench_train_at_scale labels and metapath [0, 1], 100
+   epochs, 'csr' against 'segment'; (c) the power-law KG with the serving
+   metapaths, 20 epochs, 'csr'. Then one torch.profiler window of 5 epochs
+   of (a)-pallas and (b)-csr.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
-just after phase 4; both kernels must have launched there. The last lines
-are the card's name and power limit, one JSON line with a record per
-kernel, and ``{"ok": true, "device": {...}}``.
+just after phase 4 (K1 and K2 must have launched there), and set to 0 again
+just before phase 7 and read just after it (K1, K2, K3, K4 and the csr
+backward must have launched there). The last lines are the card's name and
+power limit, one JSON line with a record per kernel, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,11 +67,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12                  # dense, tensor cores
 
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 SERVE_ATOL = 1e-4
 REFRESH_CALLS = 20
 HIDDEN = 64
+SYNTH = os.path.join(ROOT, "data", "synthetic_multiclass")
+SYNTH_PATHS = [[1, 0], [2, 3]]            # metapath.dat, metapath2.dat
+# Phase 7: csr and segment draw the same dropout masks from the same seed
+# and differ only in float32 sum order, which 1000 Adam steps amplify; the
+# pallas backend also rounds A and h to bf16, a different model function.
+CSR_LOSS_ATOL = 1e-2
+PALLAS_LOSS_ATOL = 5e-2
+PALLAS_F1_ATOL = 3e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -79,22 +108,44 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(num_bytes: float, flops: float):
-    """(least ms, 'bytes' or 'operations') at the published peaks."""
+def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
+    """Mean device time of ``fn`` with the L2 cache flushed (a 256 MB
+    write) before each call, each call between its own CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(num_bytes: float, flops: float, bf16_flops: float = 0.0):
+    """(least ms, 'bytes' or 'operations') at the published peaks: float32
+    operations at the float32 rate, bf16 tensor-core operations at the bf16
+    dense rate."""
     t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def uniform_graph(HeteroGraph, n=200_000, avg_deg=50):
-    """The bench.py bench_train_at_scale graph: seed 0, 4 relations, F=16."""
+    """The bench.py bench_train_at_scale graph (seed 0, 4 relations, F=16)
+    and its labels, drawn after x from the same stream."""
     rng = np.random.default_rng(0)
     e = n * avg_deg
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
     rel = rng.integers(0, 4, e)
     x = rng.normal(size=(n, 16)).astype(np.float32)
-    return HeteroGraph(x, src, dst, rel, num_relations=4)
+    labels = rng.integers(0, 2, n)
+    return HeteroGraph(x, src, dst, rel, num_relations=4), labels
 
 
 def powerlaw_graph(HeteroGraph, generate_powerlaw_kg):
@@ -102,7 +153,7 @@ def powerlaw_graph(HeteroGraph, generate_powerlaw_kg):
     kg = generate_powerlaw_kg(200_000, 2_000_000, 237, metapath_len=3, seed=5)
     x = kg["node_features"].astype(np.float32)
     graph = HeteroGraph(x, kg["src"], kg["dst"], kg["rel"], num_relations=237)
-    return graph, [int(r) for r in kg["metapath_relations"]]
+    return graph, [int(r) for r in kg["metapath_relations"]], kg
 
 
 def kernel_phase(torch, csr, graph_u, graph_k, rel_u, rel_k):
@@ -237,10 +288,10 @@ def cli_phase(torch, MetapathPredictor, init_mpgnn):
     from mpgnn_tpu_torch.serve import main as serve_main
     from mpgnn_tpu_torch.utils.checkpoint import save_params
 
-    folder = os.path.join(ROOT, "data", "synthetic_multiclass")
+    folder = SYNTH
     graph, _, _ = load_dat_files(*(os.path.join(folder, f) for f in
                                    ("node.dat", "link.dat", "label.dat")))
-    paths = [[1, 0], [2, 3]]                 # metapath.dat, metapath2.dat
+    paths = SYNTH_PATHS
     model = init_mpgnn(graph.feat_dim, HIDDEN, 3, paths,
                        generator=torch.Generator().manual_seed(0),
                        device="cuda")
@@ -260,10 +311,22 @@ def cli_phase(torch, MetapathPredictor, init_mpgnn):
     log(phase="serve_cli", dataset="data/synthetic_multiclass", output=got)
 
 
+def device_rows(prof):
+    """(name, device us, count) of every kernel and copy in a profile, the
+    longest first. Kernel-level rows only: an operator's row, and a user
+    range such as the optimizer step's, repeat their kernels' time."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_phase(torch, pred, tag, calls=5):
     """Device time by kernel over ``calls`` refreshes (torch.profiler), and
     the device's busy share of the host wall time of those calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     pred.refresh()
@@ -273,11 +336,7 @@ def profile_phase(torch, pred, tag, calls=5):
         for _ in range(calls):
             pred.refresh()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernel-level rows only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(phase="profile", graph=tag, calls=calls,
         wall_ms_per_refresh=wall_us / calls / 1e3,
@@ -285,6 +344,229 @@ def profile_phase(torch, pred, tag, calls=5):
         device_busy_share=busy_us / wall_us if rows else None,
         top=[dict(name=k[:80], ms_per_refresh=t / calls / 1e3,
                   launches_per_refresh=c / calls) for k, t, c in rows[:8]])
+
+
+def dense_phase(torch, conv, graph_s):
+    """Hold K3 and K4 against their plain versions and time them."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    s, d = graph_s.rel_edges(1)
+    small = conv.build_dense_conv_operand(s, d, graph_s.num_nodes, dev)
+    big_n = 32_768
+    rng = np.random.default_rng(1)
+    big_src, big_dst = rng.integers(0, big_n, 10 * big_n), \
+        rng.integers(0, big_n, 10 * big_n)
+    records = {"dense_conv": [], "dense_matmul": []}
+    for tag, op, f in (("synthetic_multiclass rel 1", small, 2),
+                       ("synthetic_multiclass rel 1", small, 64),
+                       ("random N=32768", None, 64)):
+        if op is None:
+            op = conv.build_dense_conv_operand(big_src, big_dst, big_n, dev)
+        n = op.num_rows
+        h = torch.randn(n, f, generator=gen, device=dev)
+        w = torch.randn(f, HIDDEN, generator=gen, device=dev) / f ** 0.5
+        root = torch.randn(f, HIDDEN, generator=gen, device=dev) / f ** 0.5
+        b = 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
+        dz = torch.randn(n, f, generator=gen, device=dev)
+        out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+        dh = conv.dense_matmul(op.a_t, dz)
+        want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+        want_dh = conv.dense_matmul_plain(op.a_t, dz)
+        torch.cuda.synchronize()
+        for name, got, want in (("dense_conv out", out, want_out),
+                                ("dense_conv agg", agg, want_agg),
+                                ("dense_matmul", dh, want_dh)):
+            check(bool(torch.isfinite(got).all()), f"{name} {tag} F={f}: "
+                                                   f"non-finite")
+            check(torch.allclose(got, want, **KERNEL_TOL),
+                  f"{name} {tag} F={f}: max abs err "
+                  f"{float((got - want).abs().max())} vs plain version")
+
+        def lib_conv():
+            a_h = torch.mm(op.a, h.bfloat16()).float()
+            return torch.relu(a_h @ w + h @ root + b)
+
+        def lib_matmul():
+            return torch.mm(op.a_t, dz.bfloat16())
+
+        # the yardsticks round their product to bf16: held loosely, only to
+        # show they compute the same function
+        lib_err = max(float((lib_conv() - want_out).abs().max()),
+                      float((lib_matmul().float() - want_dh).abs().max()))
+        check(lib_err < 5e-2, f"{tag} F={f}: cuBLAS yardstick off by "
+                              f"{lib_err}")
+        a_bytes = 2.0 * n * n
+        k3_bound = bound(a_bytes + 4.0 * (n * f * 2 + n * HIDDEN
+                                          + 2 * f * HIDDEN + HIDDEN),
+                         4.0 * n * f * HIDDEN, 2.0 * n * n * f)
+        k4_bound = bound(a_bytes + 8.0 * n * f, 0.0, 2.0 * n * n * f)
+        for name, kernel, plain, lib, (b_ms, b_by), err in (
+            ("dense_conv", lambda: conv.dense_conv_fwd(op.a, h, w, root, b),
+             lambda: conv.dense_conv_plain(op.a, h, w, root, b), lib_conv,
+             k3_bound, max(float((out - want_out).abs().max()),
+                           float((agg - want_agg).abs().max()))),
+            ("dense_matmul", lambda: conv.dense_matmul(op.a_t, dz),
+             lambda: conv.dense_matmul_plain(op.a_t, dz), lib_matmul,
+             k4_bound, float((dh - want_dh).abs().max())),
+        ):
+            rec = dict(
+                graph=tag, N=n, F=f, H=HIDDEN, max_abs_err=err,
+                library_max_abs_err=lib_err,
+                ms=cuda_ms_cold(torch, kernel, 20, flush),
+                warm_ms=cuda_ms(torch, kernel, 20),
+                plain_ms=cuda_ms(torch, plain, 3),
+                library_ms=cuda_ms_cold(torch, lib, 20, flush),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+            log(phase="kernels", kernel=name, **rec)
+            records[name].append(rec)
+        del op
+    del flush
+    torch.cuda.empty_cache()
+    return records
+
+
+def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
+              backend):
+    """One ``train_mpgnn`` run on the card. A CUDA event is recorded after
+    every optimizer step (a global step hook, no synchronisation), so the
+    epoch time is device-timeline time between the first and the last step,
+    idle gaps included; the set-up is the rest of the host wall time."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train import train_mpgnn
+
+    events = []
+
+    def after_step(*_):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    cfg = MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN)
+    torch.cuda.synchronize()
+    hook = register_optimizer_step_post_hook(after_step)
+    try:
+        t0 = time.perf_counter()
+        res = train_mpgnn(graph, metapaths, split, num_classes, cfg, seed=0,
+                          backend=backend, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    check(len(events) == epochs, f"{tag}/{backend}: {len(events)} steps")
+    epoch_ms = events[0].elapsed_time(events[-1]) / (epochs - 1)
+    edges = int(sum(graph.rel_counts[r] for mp in metapaths for r in mp))
+    rec = dict(
+        phase="train", graph=tag, backend=backend, metapaths=metapaths,
+        epochs=epochs, hidden=HIDDEN, nodes=graph.num_nodes,
+        final_loss=res.final_loss, train_f1=res.train_f1,
+        val_f1=res.val_f1, test_f1=res.test_f1, wall_s=wall,
+        setup_s=wall - epochs * epoch_ms / 1e3, epoch_ms=epoch_ms,
+        edges_per_epoch=edges, edges_per_s=edges / (epoch_ms / 1e3),
+    )
+    log(**rec)
+    check(np.isfinite(res.final_loss), f"{tag}/{backend}: non-finite loss")
+    check(all(0.0 <= v <= 1.0 for v in (res.train_f1, res.val_f1,
+                                        res.test_f1)),
+          f"{tag}/{backend}: F1 out of range")
+    return rec
+
+
+def train_phase(torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg,
+                planted, largest):
+    """(a), (b) and (c) of phase 7, with their cross-backend checks."""
+    from mpgnn_tpu_torch.graph.io import split_nodes
+
+    split_s = split_nodes(labels_s)
+    runs = {b: train_run(torch, "synthetic_multiclass", graph_s, SYNTH_PATHS,
+                         split_s, 3, 1000, b)
+            for b in ("pallas", "csr", "segment")}
+    seg = runs["segment"]
+    d_csr = abs(runs["csr"]["final_loss"] - seg["final_loss"])
+    d_pal = abs(runs["pallas"]["final_loss"] - seg["final_loss"])
+    d_f1 = abs(runs["pallas"]["test_f1"] - seg["test_f1"])
+    log(phase="train_check", graph="synthetic_multiclass",
+        csr_vs_segment_loss=d_csr, pallas_vs_segment_loss=d_pal,
+        pallas_vs_segment_test_f1=d_f1)
+    check(d_csr <= CSR_LOSS_ATOL, f"csr vs segment final loss {d_csr}")
+    check(d_pal <= PALLAS_LOSS_ATOL, f"pallas vs segment final loss {d_pal}")
+    check(d_f1 <= PALLAS_F1_ATOL, f"pallas vs segment test F1 {d_f1}")
+    check(seg["test_f1"] > 0.9, f"segment test F1 {seg['test_f1']}")
+
+    split_u = split_nodes(labels_u)
+    uni = {b: train_run(torch, "uniform", graph_u, [[0, 1]], split_u, 2, 100,
+                        b)
+           for b in ("csr", "segment")}
+    d_uni = abs(uni["csr"]["final_loss"] - uni["segment"]["final_loss"])
+    log(phase="train_check", graph="uniform", csr_vs_segment_loss=d_uni)
+    check(d_uni <= CSR_LOSS_ATOL, f"uniform csr vs segment loss {d_uni}")
+
+    label_nodes = kg["label_nodes"]
+    split_k = split_nodes(kg["labels"][label_nodes], node_idx=label_nodes)
+    train_run(torch, "powerlaw_kg", graph_k, [planted, largest], split_k, 2,
+              20, "csr")
+    return (split_s, split_u, runs["pallas"]["epoch_ms"],
+            uni["csr"]["epoch_ms"])
+
+
+def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
+                  epoch_ms, epochs=5):
+    """Device time by kernel over ``epochs`` epochs of ``fit_mpgnn`` (the
+    loop inside ``train_mpgnn``), and the device's busy share: of the
+    profiled host wall time (which the profiler itself slows), and of
+    ``epoch_ms``, the unprofiled epoch time of the same run in phase 7."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
+    from mpgnn_tpu_torch.train import build_hop_arrays, fit_mpgnn
+    from mpgnn_tpu_torch.train.loops import split_tensors
+
+    dev = torch.device("cuda")
+    model = init_mpgnn(graph.feat_dim, HIDDEN, num_classes, metapaths,
+                       device=dev)
+    hop_ops = build_hop_arrays(graph, metapaths, backend=backend, device=dev)
+    x = torch.as_tensor(graph.x, device=dev)
+    parts = split_tensors(split, dev)
+    cw = torch.ones(num_classes, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fit(n):
+        return fit_mpgnn(model, hop_ops, x, parts, cw,
+                         MPGNNConfig(epochs=n, hidden_dim=HIDDEN), gen,
+                         num_classes)
+
+    fit(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(epochs)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    log(phase="train_profile", graph=tag, backend=backend, epochs=epochs,
+        wall_ms_per_epoch=wall_us / epochs / 1e3,
+        device_ms_per_epoch=busy_us / epochs / 1e3,
+        device_busy_share=busy_us / wall_us if rows else None,
+        unprofiled_epoch_ms=epoch_ms,
+        device_share_of_unprofiled_epoch=busy_us / epochs / 1e3 / epoch_ms,
+        top=[dict(name=k[:80], ms_per_epoch=t / epochs / 1e3,
+                  launches_per_epoch=c / epochs) for k, t, c in rows[:10]])
+
+
+def reset_counts(csr, conv) -> None:
+    csr.SCATTER_LAUNCHES = csr.DEDUP_LAUNCHES = 0
+    csr.CSR_BACKWARD_LAUNCHES = 0
+    conv.CONV_LAUNCHES = conv.MATMUL_LAUNCHES = 0
+
+
+def read_counts(csr, conv) -> dict:
+    return {"csr_scatter": csr.SCATTER_LAUNCHES,
+            "csr_dedup": csr.DEDUP_LAUNCHES,
+            "csr_backward": csr.CSR_BACKWARD_LAUNCHES,
+            "dense_conv": conv.CONV_LAUNCHES,
+            "dense_matmul": conv.MATMUL_LAUNCHES}
 
 
 def main() -> int:
@@ -296,8 +578,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mpgnn_tpu_torch.graph.generate import generate_powerlaw_kg
     from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+    from mpgnn_tpu_torch.graph.io import load_dat_files
     from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
-    from mpgnn_tpu_torch.ops import _kernels, csr
+    from mpgnn_tpu_torch.ops import _kernels, conv, csr
     from mpgnn_tpu_torch.serve import MetapathPredictor
 
     t_start = time.perf_counter()
@@ -320,8 +603,8 @@ def main() -> int:
 
     # 2. kernels
     t0 = time.perf_counter()
-    graph_u = uniform_graph(HeteroGraph)
-    graph_k, planted = powerlaw_graph(HeteroGraph, generate_powerlaw_kg)
+    graph_u, labels_u = uniform_graph(HeteroGraph)
+    graph_k, planted, kg = powerlaw_graph(HeteroGraph, generate_powerlaw_kg)
     order = np.argsort(-graph_k.rel_counts, kind="stable")
     largest = [int(order[0]), int(order[1])]
     log(phase="graphs", seconds=time.perf_counter() - t0, planted=planted,
@@ -329,9 +612,8 @@ def main() -> int:
         largest_edges=[int(graph_k.rel_counts[r]) for r in largest])
     records = kernel_phase(torch, csr, graph_u, graph_k, 0, largest[0])
 
-    # 3 and 4: the main path, through the entry points a user calls
-    csr.SCATTER_LAUNCHES = 0
-    csr.DEDUP_LAUNCHES = 0
+    # 3 and 4: the serving path, through the entry points a user calls
+    reset_counts(csr, conv)
     preds = {
         "uniform": serve_phase(torch, csr, MetapathPredictor, init_mpgnn,
                                graph_u, [[0, 1]], "uniform"),
@@ -339,27 +621,57 @@ def main() -> int:
                                    graph_k, [planted, largest], "powerlaw_kg"),
     }
     cli_phase(torch, MetapathPredictor, init_mpgnn)
-    launches = {"csr_scatter": csr.SCATTER_LAUNCHES,
-                "csr_dedup": csr.DEDUP_LAUNCHES}
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel did not launch on the main path: {launches}")
+    serve_launches = read_counts(csr, conv)
+    log(phase="serve_launches", **serve_launches)
+    check(serve_launches["csr_scatter"] > 0 and serve_launches["csr_dedup"] > 0,
+          f"a kernel did not launch on the serving path: {serve_launches}")
 
     # 5. where the refresh time goes
     for tag, pred in preds.items():
         profile_phase(torch, pred, tag)
+    del preds
+
+    # 6. K3 and K4
+    graph_s, labels_s, _ = load_dat_files(
+        *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                           "label.dat")))
+    records.update(dense_phase(torch, conv, graph_s))
+
+    # 7. the training path, through train_mpgnn
+    reset_counts(csr, conv)
+    split_s, split_u, pallas_ms, csr_ms = train_phase(
+        torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg, planted,
+        largest)
+    train_launches = read_counts(csr, conv)
+    log(phase="train_launches", **train_launches)
+    check(all(v > 0 for v in train_launches.values()),
+          f"a kernel did not launch on the training path: {train_launches}")
+    train_profile(torch, "synthetic_multiclass", graph_s, SYNTH_PATHS,
+                  split_s, 3, "pallas", pallas_ms)
+    train_profile(torch, "uniform", graph_u, [[0, 1]], split_u, 2, "csr",
+                  csr_ms)
 
     meta = {
         "csr_scatter": ("mpgnn_tpu_torch/csrc/csr_scatter.cu",
                         "mpgnn_tpu/ops/pallas_csr.py:372"),
         "csr_dedup": ("mpgnn_tpu_torch/csrc/csr_dedup.cu",
                       "mpgnn_tpu/ops/pallas_csr.py:434"),
+        "dense_conv": ("mpgnn_tpu_torch/csrc/dense_conv.cu",
+                       "mpgnn_tpu/ops/pallas_conv.py:57"),
+        "dense_matmul": ("mpgnn_tpu_torch/csrc/dense_conv.cu",
+                         "mpgnn_tpu/ops/pallas_conv.py:71"),
     }
     kernels = []
     for name, recs in records.items():
-        wide = recs[-1]                       # F = 64, the hidden width
+        # F = 64, the hidden width; for K3/K4 on the training graph (N =
+        # 5,000), the shape of the training path's hop 1
+        wide = recs[1]
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
-            replaces=meta[name][1], launches=launches[name],
+            replaces=meta[name][1],
+            launches=serve_launches[name] + train_launches[name],
+            launches_serve=serve_launches[name],
+            launches_train=train_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],

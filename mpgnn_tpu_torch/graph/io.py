@@ -8,11 +8,12 @@ Formats:
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+from mpgnn_tpu_torch.graph.hetero import HeteroGraph, NodeSplit
 from mpgnn_tpu_torch.native import load_int_tsv
 
 
@@ -105,3 +106,121 @@ def load_fb15k237(
     label_nodes, labels = read_labels(label_file)
     return (_graph(node_file, link_file, labels), labels,
             binarize_labels(labels), [int(v) for v in label_nodes])
+
+
+# --------------------------------------------------------------------- split
+def _find_unique_indices(nums: Sequence[int]) -> List[int]:
+    """Indices of values occurring exactly once, in first-occurrence order
+    (reference find_unique_indices, main.py:254-270)."""
+    count = {}
+    for i, num in enumerate(nums):
+        if num in count:
+            count[num][0] += 1
+        else:
+            count[num] = [1, i]
+    return [idx for _, (occ, idx) in count.items() if occ == 1]
+
+
+def _approximate_mode(class_counts: np.ndarray, n_draws: int,
+                      rng: np.random.RandomState) -> np.ndarray:
+    """Per-class draw counts, as sklearn's ``utils.extmath._approximate_mode``:
+    floor each class's share, then hand the remaining draws out by largest
+    remainder, breaking ties with ``rng.choice`` (called for every tie group
+    that is reached, even one taken whole)."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def _stratified_split(labels: Sequence[int], test_size: float,
+                      seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(train, test) positions of sklearn's ``train_test_split(...,
+    stratify=labels, test_size=test_size, random_state=seed)``: the draws of
+    ``StratifiedShuffleSplit._iter_indices`` on ``RandomState(seed)``, in
+    the same order, so the index sets are identical."""
+    y = np.asarray(labels)
+    n = len(y)
+    n_test = math.ceil(test_size * n)
+    n_train = n - n_test
+    classes, y_indices, class_counts = np.unique(
+        y, return_inverse=True, return_counts=True)
+    if class_counts.min() < 2:
+        raise ValueError("The least populated class in y has only 1 member, "
+                         "which is too few for a stratified split")
+    if n_train < len(classes) or n_test < len(classes):
+        raise ValueError(f"train ({n_train}) and test ({n_test}) sizes must "
+                         f"reach the number of classes ({len(classes)})")
+    class_indices = np.split(np.argsort(y_indices, kind="stable"),
+                             np.cumsum(class_counts)[:-1])
+    rng = np.random.RandomState(seed)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train: List[int] = []
+    test: List[int] = []
+    for i in range(len(classes)):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]),
+                                     mode="clip")
+        train.extend(perm[: n_i[i]])
+        test.extend(perm[n_i[i]: n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
+
+
+def split_nodes(
+    labels: np.ndarray,
+    node_idx: Optional[Sequence[int]] = None,
+    seed: int = 415,
+) -> NodeSplit:
+    """Stratified 90/10 then 80/20 split of the reference
+    (splitting_node_and_labels, main.py:277-345): singleton-class members
+    are pulled out first and appended to train; both stratified splits use
+    ``seed`` as sklearn's ``random_state``, so the index sets are those of
+    the reference (and of the JAX package) for the same inputs."""
+    labels = np.asarray(labels)
+    if node_idx is None:
+        node_idx = list(range(len(labels)))
+    else:
+        node_idx = [int(v) for v in node_idx]
+    lab = [int(v) for v in labels]
+
+    unique_indices = _find_unique_indices(lab)
+    nodes_removed: List[int] = []
+    lab_removed: List[int] = []
+    for idx in sorted(unique_indices, reverse=True):
+        nodes_removed.append(node_idx.pop(idx))
+        lab_removed.append(lab.pop(idx))
+
+    node_arr = np.asarray(node_idx, dtype=np.int64)
+    lab_arr = np.asarray(lab, dtype=np.int64)
+    tr, te = _stratified_split(lab_arr, 0.1, seed)
+    train_idx, test_idx = node_arr[tr], node_arr[te]
+    train_y, test_y = lab_arr[tr], lab_arr[te]
+    tr, va = _stratified_split(train_y, 0.2, seed)
+    train_idx, val_idx = train_idx[tr], train_idx[va]
+    train_y, val_y = train_y[tr], train_y[va]
+    train_idx = np.concatenate([train_idx, np.asarray(nodes_removed,
+                                                      dtype=np.int64)])
+    train_y = np.concatenate([train_y, np.asarray(lab_removed,
+                                                  dtype=np.int64)])
+    return NodeSplit(node_idx=node_arr, train_idx=train_idx, train_y=train_y,
+                     val_idx=val_idx, val_y=val_y, test_idx=test_idx,
+                     test_y=test_y)
+
+
+def mask_label_leak(x: np.ndarray, split: NodeSplit) -> np.ndarray:
+    """Zero the feature rows of every split node (reference ``sn``,
+    main.py:357-364), used where labels derive from features."""
+    x = x.copy()
+    for idx in (split.test_idx, split.val_idx, split.train_idx):
+        x[np.asarray(idx, dtype=np.int64)] = 0.0
+    return x

@@ -3,20 +3,22 @@
 Per metapath m, a stack of single-relation RelConvs: hop j aggregates only
 relation metapaths[m][j]; the first hop maps input_dim -> hidden, later
 hops hidden -> hidden, each followed by ReLU. The per-metapath embeddings
-are concatenated, then fc1 -> ReLU -> fc2 -> log_softmax. ``forward`` is
-the eval forward; dropout comes with training.
+are concatenated, then fc1 -> ReLU -> fc2 -> log_softmax. With
+``train=True`` dropout follows every hop, as in the reference
+(model.py:210-214).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.models.relconv import RelConv, init_relconv, uniform
+from mpgnn_tpu_torch.ops.conv import dense_conv
 from mpgnn_tpu_torch.ops.csr import csr_mean_aggregate
 from mpgnn_tpu_torch.ops.spmm import rel_mean_aggregate
 
@@ -28,7 +30,9 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
       ('segment', src, dst, inv_deg)  gather + index_add_ segment mean
       ('csr', fwd, bwd)               the sorted-CSR kernels (ops/csr.py)
 
-    Both compute the same mean, with zero rows for edgeless sources."""
+    Both compute the same mean, with zero rows for edgeless sources. A
+    ``('fused', operand)`` hop has no separate aggregation: its kernel
+    (ops/conv.py) runs the whole conv."""
     kind = op[0]
     if kind == "segment":
         _, src, dst, inv = op
@@ -61,19 +65,50 @@ class MPNetm(nn.Module):
         self.fc2 = nn.utils.skip_init(nn.Linear, hidden_dim, num_classes,
                                       device=device)
 
-    def forward(self, x: torch.Tensor, hop_ops) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hop_ops, *,
+                dropout_rate: float = 0.6,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False,
+                first_hop_agg: Optional[List] = None) -> torch.Tensor:
         """[N, C] log-probabilities; ``hop_ops[m][j]`` is hop j of metapath
-        m (``build_hop_arrays``)."""
+        m (``build_hop_arrays``).
+
+        With ``train`` and ``dropout_rate > 0`` each hop's output is kept
+        with probability 1 - p and scaled by 1 / (1 - p); the masks are
+        drawn from ``generator`` (on x's device), one draw per hop in hop
+        order. ``first_hop_agg`` (``precompute_first_hop``) holds each
+        metapath's cached hop-0 aggregation, or None to compute it."""
         num_nodes = x.shape[0]
         embeddings = []
-        for stack, ops in zip(self.convs, hop_ops):
+        for i, (stack, ops) in enumerate(zip(self.convs, hop_ops)):
             h = x
-            for conv, op in zip(stack, ops):
-                h = torch.relu(conv(hop_aggregate(h, op, num_nodes), h))
+            for j, (conv, op) in enumerate(zip(stack, ops)):
+                cached = first_hop_agg[i] if j == 0 and first_hop_agg else None
+                if cached is not None:
+                    h = torch.relu(conv(cached, h))
+                elif op[0] == "fused":
+                    h = dense_conv(op[1], h, conv.weight, conv.root, conv.bias)
+                else:
+                    h = torch.relu(conv(hop_aggregate(h, op, num_nodes), h))
+                if train and dropout_rate > 0.0:
+                    keep = torch.rand(h.shape, generator=generator,
+                                      device=h.device) < 1.0 - dropout_rate
+                    h = torch.where(keep, h / (1.0 - dropout_rate),
+                                    torch.zeros_like(h))
             embeddings.append(h)
         h = torch.relu(self.fc1(torch.cat(embeddings, dim=1)))
         h = self.fc2(h)
         return torch.log_softmax(h.float(), dim=1)
+
+
+@torch.no_grad()
+def precompute_first_hop(x: torch.Tensor, hop_ops) -> List:
+    """Per-metapath hop-0 aggregation of the input features, which are
+    constant for a whole training run (dropout comes after each conv), so it
+    is computed once outside the epoch loop. None for a fused hop, whose
+    kernel owns its aggregation: it runs on x every epoch."""
+    return [None if ops[0][0] == "fused"
+            else hop_aggregate(x, ops[0], x.shape[0]) for ops in hop_ops]
 
 
 @torch.no_grad()

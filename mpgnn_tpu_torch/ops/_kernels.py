@@ -24,7 +24,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("csr_scatter", "csr_dedup")
+SOURCES = ("csr_scatter", "csr_dedup", "dense_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -32,10 +32,16 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # name: (function, argtypes)
-    "csr_scatter": ("mpgnn_csr_scatter", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "csr_dedup": ("mpgnn_csr_dedup",
+    # kernel name: (source in csrc/, C function, argtypes); one source may
+    # hold several entry points (dense_conv.cu holds K3 and K4)
+    "csr_scatter": ("csr_scatter", "mpgnn_csr_scatter",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "csr_dedup": ("csr_dedup", "mpgnn_csr_dedup",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "dense_conv": ("dense_conv", "mpgnn_dense_conv",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "dense_matmul": ("dense_conv", "mpgnn_dense_matmul",
+                     [_P, _P, _P, _P, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -99,28 +105,31 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it at first use."""
+def lib(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, building it at first
+    use, with the argument types of every entry point it holds."""
     with _LOCK:
-        if name not in _LIBS:
-            path = build_all()[name]
+        if source not in _LIBS:
+            path = build_all()[source]
             cdll = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(cdll, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for src, fn_name, argtypes in _SIGNATURES.values():
+                if src == source:
+                    fn = getattr(cdll, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             cdll.mpgnn_error_string.argtypes = [ctypes.c_int]
             cdll.mpgnn_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = cdll
-        return _LIBS[name]
+            _LIBS[source] = cdll
+        return _LIBS[source]
 
 
 def launch(name: str, *args) -> None:
-    """Call the C entry point of ``csrc/<name>.cu`` and raise if it
-    returned a CUDA error (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    cdll = lib(name)
-    code = getattr(cdll, _SIGNATURES[name][0])(*args)
+    """Call the C entry point of kernel ``name`` and raise if it returned a
+    CUDA error (a refused launch never runs, and a later synchronize would
+    not report it)."""
+    source, fn_name, _ = _SIGNATURES[name]
+    cdll = lib(source)
+    code = getattr(cdll, fn_name)(*args)
     if code != 0:
         msg = cdll.mpgnn_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")

@@ -18,6 +18,13 @@ and launches its kernel for a CUDA tensor; there is no fallback from one to
 the other. ``SCATTER_LAUNCHES`` and ``DEDUP_LAUNCHES`` count the kernels'
 launches.
 
+``csr_mean_aggregate`` is a ``torch.autograd.Function``: its backward runs
+the same kernels (or, on the CPU, the same plain versions) on the
+destination-sorted blocking, as the JAX package's ``custom_vjp`` does.
+Autograd never differentiates the plain versions' ``index_add_``.
+``CSR_BACKWARD_LAUNCHES`` counts the backward passes that launched a
+kernel.
+
 The blockings are the port's own: no edge padding, no [16, 128] edge
 panels, no column padding of gathered rows and no trailing gather dummy.
 """
@@ -51,6 +58,7 @@ DEDUP_PIECE = 32
 
 SCATTER_LAUNCHES = 0
 DEDUP_LAUNCHES = 0
+CSR_BACKWARD_LAUNCHES = 0
 
 
 def _i32(a) -> torch.Tensor:
@@ -339,14 +347,33 @@ def _apply_direction(blk: Blocking, x: torch.Tensor) -> torch.Tensor:
     return csr_scatter(blk, x)
 
 
+class _CsrMeanAggregate(torch.autograd.Function):
+    """Forward on ``fwd``; the input gradient is the same aggregation on
+    ``bwd`` (``dx[d] = sum over edges (s, d) of g[s] / deg(s)``). The
+    blockings get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return _apply_direction(fwd, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _apply_direction(ctx.bwd, g.contiguous())
+        if g.device.type == "cuda":
+            global CSR_BACKWARD_LAUNCHES
+            CSR_BACKWARD_LAUNCHES += 1
+        return dx, None, None
+
+
 def csr_mean_aggregate(x: torch.Tensor, fwd: Blocking,
                        bwd: Blocking) -> torch.Tensor:
     """out[s] = mean over edges (s, d) of x[d]; rows without edges give 0.
 
-    Forward only: ``bwd`` is the destination-sorted blocking that the
-    gradient will run on, carried so that callers pass one operand."""
-    del bwd
-    return _apply_direction(fwd, x)
+    Differentiable in ``x``: the backward runs the kernel of ``bwd``, the
+    destination-sorted blocking that ``build_csr_blocking`` returns beside
+    ``fwd``."""
+    return _CsrMeanAggregate.apply(x, fwd, bwd)
 
 
 def ref_mean(x: torch.Tensor, src, dst, num_nodes: int) -> torch.Tensor:

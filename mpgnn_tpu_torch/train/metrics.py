@@ -5,6 +5,24 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def macro_f1(preds: torch.Tensor, labels: torch.Tensor,
+             num_classes: int) -> torch.Tensor:
+    """Macro-averaged F1 on the tensors' device, as sklearn's
+    ``average='macro'``: classes absent from both predictions and labels are
+    left out of the average. A 0-d float32 tensor."""
+    c = torch.arange(num_classes, device=preds.device)[:, None]
+    p = preds[None, :] == c
+    t = labels[None, :] == c
+    tp = (p & t).sum(1)
+    fp = (p & ~t).sum(1)
+    fn = (~p & t).sum(1)
+    denom = 2 * tp + fp + fn
+    f1 = 2.0 * tp / denom.clamp_min(1)
+    present = (denom > 0).float()
+    return (f1 * present).sum() / present.sum().clamp_min(1.0)
 
 
 def macro_f1_np(preds, labels, num_classes: Optional[int] = None) -> float:

@@ -69,8 +69,8 @@ def test_csr_matches_jax(n, e, f, bm, skew, dedup):
 @pytest.mark.parametrize("skew", [False, True])
 def test_backward_blocking_matches_transposed_mean(skew):
     """The backward blocking computes dx[d] = sum over edges (s, d) of
-    g[s] / deg(s) on both sides (the gradient does not run it yet; the
-    plain versions hold its layout)."""
+    g[s] / deg(s) on both sides (the gradient of csr_mean_aggregate runs
+    it; tests/test_torch_conv.py holds that gradient against JAX)."""
     n, e, f = 400, 4000, 8
     src, dst, g = _rand_graph(n, e, f, seed=2, skew=skew)
     deg = np.maximum(np.bincount(src, minlength=n), 1).astype(np.float64)

@@ -1,12 +1,15 @@
-"""The CUDA kernels K1 (csrc/csr_scatter.cu) and K2 (csrc/csr_dedup.cu)
-against their plain PyTorch versions on the GPU, at the edge cases of the
-blocking layout. Marked ``cuda``: they skip where no GPU is found. This
+"""The CUDA kernels K1 (csrc/csr_scatter.cu), K2 (csrc/csr_dedup.cu), K3
+and K4 (csrc/dense_conv.cu) against their plain PyTorch versions on the GPU,
+at the edge cases of their layouts, and the gradients that run them. Marked ``cuda``: they skip where no GPU is found. This
 file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance rtol = atol = 1e-5: the kernels sum compensated float32 and the
-plain versions float64, in other orders."""
+Tolerance rtol = atol = 1e-5: the kernels sum (compensated, for K1 and K2)
+float32 and the plain versions float64, in other orders; K3 and K4 sum the
+same bf16-rounded operands as their plain versions. Gradients through K3
+and K4 are held at 1e-4: their small GEMMs are float32 on the card and on
+the CPU, in other orders."""
 
 import numpy as np
 import pytest
@@ -70,3 +73,114 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         csr.csr_scatter(fwd, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         csr.csr_scatter(fwd, x.t().contiguous().t())
+
+
+# ------------------------------------------------------------- K3 and K4
+def _conv_inputs(n, e, f, hdim, dev, seed=0):
+    """A random relation whose node 0 has no out-edge (an empty row of A),
+    its operand on ``dev`` and numpy-seeded h, w, root, b; w and root are
+    scaled by 1/sqrt(f) as glorot's are, so that the epilogue's float32
+    sums of 2f terms stay inside the tolerance at any f."""
+    from mpgnn_tpu_torch.ops import conv
+
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(1, n, e), rng.integers(0, n, e)
+    op = conv.build_dense_conv_operand(src, dst, n, dev)
+    scale = (1.0, f ** -0.5, f ** -0.5, 1.0)
+    t = [torch.from_numpy((c * rng.normal(size=s)).astype(np.float32)).to(dev)
+         for c, s in zip(scale, ((n, f), (f, hdim), (f, hdim), (hdim,)))]
+    return op, t
+
+
+@pytest.mark.parametrize("n,e,f,hdim", [
+    (100, 400, 8, 16),
+    (257, 1500, 2, 64),       # n not a multiple of 8 (2-byte loads), nor 32
+    (1000, 4000, 1, 64),      # F = 1
+    (1000, 4000, 64, 64),
+    (5000, 5000, 2, 64),      # the shipped dataset's shapes, hop 0
+    (5000, 5000, 64, 64),     # and hop 1
+    (600, 3000, 200, 16),     # the widest tile (F padded to 256)
+])
+def test_dense_kernels_match_plain(dev, n, e, f, hdim):
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, w, root, b) = _conv_inputs(n, e, f, hdim, dev)
+    assert not op.a[0].any()
+    before = (conv.CONV_LAUNCHES, conv.MATMUL_LAUNCHES)
+    out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+    dh = conv.dense_matmul(op.a_t, h)
+    torch.cuda.synchronize()
+    assert (conv.CONV_LAUNCHES, conv.MATMUL_LAUNCHES) == (before[0] + 1,
+                                                          before[1] + 1)
+    want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+    torch.testing.assert_close(agg, want_agg, **TOL)
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(dh, conv.dense_matmul_plain(op.a_t, h), **TOL)
+    assert not agg[0].any()
+
+
+@pytest.mark.parametrize("h_grad", [False, True])
+def test_dense_conv_backward_launches_k4_only_for_dh(dev, h_grad):
+    """Hop 0's input needs no gradient: K4 does not run there. The
+    gradients equal the CPU path's (plain versions) on the same inputs."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, ts = _conv_inputs(300, 1200, 16, 64, dev, seed=1)
+    g = torch.randn(300, 64, device=dev)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        o = op if where == "cuda" else conv.DenseConvOperand(
+            op.a.cpu(), op.a_t.cpu(), op.num_rows)
+        leaves = [t.detach().to(where, copy=True).requires_grad_(
+            i > 0 or h_grad) for i, t in enumerate(ts)]
+        before = conv.MATMUL_LAUNCHES
+        (conv.dense_conv(o, *leaves) * g.to(where)).sum().backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert conv.MATMUL_LAUNCHES == before + h_grad
+        grads[where] = [None if t.grad is None else t.grad.cpu()
+                        for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert (got is None) == (want is None)
+        if got is not None:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, w, root, b) = _conv_inputs(64, 200, 4, 8, dev)
+    with pytest.raises(TypeError):
+        conv.dense_conv_fwd(op.a.float(), h, w, root, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.dense_matmul(op.a_t, torch.randn(4, 64, device=dev).t())
+    with pytest.raises(ValueError, match="tensors on"):
+        conv.dense_conv_fwd(op.a, h.cpu(), w, root, b)
+    with pytest.raises(ValueError):
+        conv.dense_matmul(op.a_t, torch.randn(64, 300, device=dev))
+
+
+# ------------------------------------------------------- csr backward
+@pytest.mark.parametrize("dedup", ["never", "always"])
+def test_csr_backward_runs_the_kernels(dev, dedup):
+    """The gradient of csr_mean_aggregate runs K1 or K2 on the backward
+    blocking and equals the CPU path's (plain versions)."""
+    src, dst = _graph(3000, 40000, True, seed=3)
+    fwd, bwd = csr.build_csr_blocking(src, dst, 3000, dedup=dedup)
+    x = torch.randn(3000, 64, generator=torch.Generator().manual_seed(0))
+    g = torch.randn(3000, 64, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for where, f, b in (("cuda", fwd.to(dev), bwd.to(dev)), ("cpu", fwd, bwd)):
+        xl = x.to(where).requires_grad_(True)
+        before = (csr.CSR_BACKWARD_LAUNCHES, csr.SCATTER_LAUNCHES,
+                  csr.DEDUP_LAUNCHES)
+        (csr.csr_mean_aggregate(xl, f, b) * g.to(where)).sum().backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            k = 2 if dedup == "always" else 1
+            after = (csr.CSR_BACKWARD_LAUNCHES, csr.SCATTER_LAUNCHES,
+                     csr.DEDUP_LAUNCHES)
+            assert after[0] == before[0] + 1
+            assert after[k] == before[k] + 2          # forward and backward
+        grads.append(xl.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], **TOL)
