@@ -11,8 +11,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the 200k-node north-star shape of ``bench.py``) and the power-law KG
    (200k nodes / 2M edges / 237 relations / planted path of 3 / seed 5),
    run K1 (``csr_scatter``) on a uniform relation and K2 (``csr_dedup``) on
-   the KG's largest relation at F = 16 and 64, hold each against its plain
-   PyTorch version (rtol = atol = 1e-5: float32 sums in another order), and
+   the KG's largest relation at F = 16 and 64, and each on the backward
+   blocking that training gives it (uniform relation 1, the KG's second
+   largest relation, K2 with its pre-scale) at F = 64, hold each against
+   its plain PyTorch version (rtol = atol = 1e-5: float32 sums in another
+   order), and
    time it beside its byte bound, its plain version and one
    ``torch.sparse.mm`` call on the same CSR matrix (a yardstick the port
    never calls);
@@ -33,7 +36,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    plain version and one cuBLAS call (``torch.mm`` over the same bf16
    operands, plus the epilogue in torch for K3), which the port never
    calls;
-7. train through ``train_mpgnn``, hidden 64, dropout 0.6, seed 0:
+7. hold the first training step's gradient of every parameter, on the
+   three graphs below, against a reference (csr against segment on the
+   card; pallas against the same autograd Function on the CPU, with the
+   kernels' plain versions inside), relative to each gradient's largest
+   entry within 1e-2, and show that csr with a zeroed backward fails that
+   check; then train through ``train_mpgnn``, hidden 64, dropout 0.6, seed 0:
    (a) ``data/synthetic_multiclass``, metapaths [[1, 0], [2, 3]], 1000
    epochs, backends 'pallas', 'csr' and 'segment' (csr against segment and
    pallas against segment at the tolerances below; epoch time between CUDA
@@ -45,9 +53,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), and set to 0 again
-just before phase 7 and read just after it (K1, K2, K3, K4 and the csr
-backward must have launched there). The last lines are the card's name and
-power limit, one JSON line with a record per kernel, and
+after phase 7's gradient checks and read after its training runs (K1, K2,
+K3, K4 and the csr backward must have launched there). The last lines are
+the card's name and power limit, one JSON line with a record per kernel,
+and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -75,9 +84,19 @@ REFRESH_CALLS = 20
 HIDDEN = 64
 SYNTH = os.path.join(ROOT, "data", "synthetic_multiclass")
 SYNTH_PATHS = [[1, 0], [2, 3]]            # metapath.dat, metapath2.dat
-# Phase 7: csr and segment draw the same dropout masks from the same seed
-# and differ only in float32 sum order, which 1000 Adam steps amplify; the
-# pallas backend also rounds A and h to bf16, a different model function.
+# Phase 7, first step: every parameter's gradient, max abs error over the
+# reference's largest entry. csr against segment and the card's pallas
+# against the CPU's (plain versions, float64 sums) differ in float32 sum
+# order, and where that moves a pre-activation across ReLU's kink, by one
+# row's whole term: 1.0e-4 on the 200k-node uniform graph, whose random
+# labels make the weight gradients cancel. A control with the csr backward
+# zeroed, slice 1's fault, reads 0.88-0.92. The limit sits between the two.
+GRAD_RTOL = 1e-2
+# Phase 7, after the run: csr and segment draw the same dropout masks from
+# the same seed and differ only in float32 sum order, which 1000 Adam steps
+# amplify; the pallas backend also rounds A and h to bf16, a different model
+# function. These bound the drift of a whole run; the first-step gradients
+# above are what hold the backward.
 CSR_LOSS_ATOL = 1e-2
 PALLAS_LOSS_ATOL = 5e-2
 PALLAS_F1_ATOL = 3e-2
@@ -156,81 +175,98 @@ def powerlaw_graph(HeteroGraph, generate_powerlaw_kg):
     return graph, [int(r) for r in kg["metapath_relations"]], kg
 
 
-def kernel_phase(torch, csr, graph_u, graph_k, rel_u, rel_k):
-    """Hold K1 and K2 against their plain versions and time them."""
+def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
+    """Hold K1 and K2 against their plain versions and time them, on the
+    blockings the serving and training paths give them: forward on hop 0's
+    relation (uniform ``rels_u[0]``, the KG hub ``rels_k[0]``) at F = 16 and
+    64, and backward, the destination-sorted blocking that training runs
+    (K2 with its pre-scale), on hop 1's relation at F = 64."""
     dev = torch.device("cuda")
-    n = graph_u.num_nodes
-    s_u, d_u = graph_u.rel_edges(rel_u)
-    s_k, d_k = graph_k.rel_edges(rel_k)
-    fwd_u, _ = csr.build_csr_blocking(s_u, d_u, n)
-    fwd_k, _ = csr.build_csr_blocking(s_k, d_k, graph_k.num_nodes)
+    n_u, n_k = graph_u.num_nodes, graph_k.num_nodes
+    s_u, d_u = graph_u.rel_edges(rels_u[0])
+    s_k, d_k = graph_k.rel_edges(rels_k[0])
+    s_u1, d_u1 = graph_u.rel_edges(rels_u[1])
+    s_k1, d_k1 = graph_k.rel_edges(rels_k[1])
+    fwd_u, _ = csr.build_csr_blocking(s_u, d_u, n_u)
+    fwd_k, _ = csr.build_csr_blocking(s_k, d_k, n_k)
+    _, bwd_u = csr.build_csr_blocking(s_u1, d_u1, n_u)
+    _, bwd_k = csr.build_csr_blocking(s_k1, d_k1, n_k)
     check(isinstance(fwd_u, csr.CsrBlocking),
-          f"uniform relation {rel_u} did not route to K1")
+          f"uniform relation {rels_u[0]} did not route to K1")
     check(isinstance(fwd_k, csr.DedupCsrBlocking),
-          f"hub relation {rel_k} did not route to K2")
-    # the same relation as one CSR matrix: K1 on hub data and the yardstick
-    csr_k, _ = csr.build_csr_blocking(s_k, d_k, graph_k.num_nodes,
-                                      dedup="never")
-    fwd_u, fwd_k, csr_k = fwd_u.to(dev), fwd_k.to(dev), csr_k.to(dev)
+          f"hub relation {rels_k[0]} did not route to K2")
+    check(isinstance(bwd_u, csr.CsrBlocking),
+          f"uniform relation {rels_u[1]} backward did not route to K1")
+    check(isinstance(bwd_k, csr.DedupCsrBlocking) and bwd_k.scale_is_pre,
+          f"hub relation {rels_k[1]} backward did not route to K2")
+    # the hub relations as one CSR matrix: K1 on hub data and the yardstick
+    csr_k, _ = csr.build_csr_blocking(s_k, d_k, n_k, dedup="never")
+    _, csr_k1 = csr.build_csr_blocking(s_k1, d_k1, n_k, dedup="never")
+    fwd_u, fwd_k, bwd_u, bwd_k, csr_k, csr_k1 = (
+        b.to(dev) for b in (fwd_u, fwd_k, bwd_u, bwd_k, csr_k, csr_k1))
+    # (kernel, direction, blocking, yardstick's CSR matrix, gathered
+    # columns, F)
+    cases = [c for f in (16, 64) for c in (
+        ("csr_scatter", "fwd", fwd_u, fwd_u, d_u, f),
+        ("csr_dedup", "fwd", fwd_k, csr_k, d_k, f))]
+    cases += [("csr_scatter", "bwd", bwd_u, bwd_u, s_u1, 64),
+              ("csr_dedup", "bwd", bwd_k, csr_k1, s_k1, 64)]
     gen = torch.Generator(device=dev).manual_seed(0)
     records = {"csr_scatter": [], "csr_dedup": []}
-    for f in (16, 64):
-        for name, blk, kernel, plain, mat_blk, cols in (
-            ("csr_scatter", fwd_u, csr.csr_scatter, csr.csr_scatter_plain,
-             fwd_u, d_u),
-            ("csr_dedup", fwd_k, csr.csr_dedup, csr.csr_dedup_plain,
-             csr_k, d_k),
-        ):
-            x = torch.randn(blk.num_cols, f, generator=gen, device=dev)
-            got = kernel(blk, x)
-            want = plain(blk, x)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()), f"{name} F={f}: non-finite")
-            check(torch.allclose(got, want, **KERNEL_TOL),
-                  f"{name} F={f}: max abs err {err} vs plain version")
-            mat = torch.sparse_csr_tensor(
-                mat_blk.row_ptr, mat_blk.col, mat_blk.weight,
-                size=(mat_blk.num_rows, mat_blk.num_cols))
-            # the yardstick sums in float32 in its own order: held loosely,
-            # only to show it computes the same function
-            lib_err = float((torch.sparse.mm(mat, x) - want).abs().max())
-            check(lib_err < 1e-3, f"{name} F={f}: torch.sparse.mm off by "
-                                  f"{lib_err}")
-            e = len(cols)
-            rows_read = len(np.unique(cols))
-            if name == "csr_scatter":
-                index_bytes = 8 * e + 4 * (blk.num_rows + 1)
-                gathered = e
-            else:
-                index_bytes = 4 * sum(
-                    t.numel() for t in (blk.block_tile_ptr, blk.tile_uniq_ptr,
-                                        blk.uniq_col, blk.tile_seg_ptr,
-                                        blk.seg_row, blk.seg_ptr, blk.slot,
-                                        blk.scale))
-                gathered = blk.uniq_col.numel()
-            out_bytes = 4 * blk.num_rows * f
-            # each input read once: the distinct rows of x the edges name
-            b_ms, b_by = bound(4 * rows_read * f + index_bytes + out_bytes,
-                               2.0 * e * f)
-            # the row gather as the kernel does it, one row per edge (K1) or
-            # per tile-unique column (K2)
-            g_ms, _ = bound(4 * gathered * f + index_bytes + out_bytes, 0.0)
-            rec = dict(
-                F=f, edges=e, rows=blk.num_rows, max_abs_err=err,
-                library_max_abs_err=lib_err,
-                ms=cuda_ms(torch, lambda: kernel(blk, x), 50),
-                plain_ms=cuda_ms(torch, lambda: plain(blk, x), 5),
-                library_ms=cuda_ms(torch, lambda: torch.sparse.mm(mat, x), 20),
-                bound_ms=b_ms, bound_by=b_by, gather_bound_ms=g_ms,
-            )
-            if name == "csr_dedup":
-                rec["k1_same_data_ms"] = cuda_ms(
-                    torch, lambda: csr.csr_scatter(csr_k, x), 50)
-                rec["tile_unique_rows"] = gathered
-                rec["dedup_ratio"] = e / gathered
-            log(phase="kernels", kernel=name, **rec)
-            records[name].append(rec)
+    for name, direction, blk, mat_blk, cols, f in cases:
+        kernel, plain = {
+            "csr_scatter": (csr.csr_scatter, csr.csr_scatter_plain),
+            "csr_dedup": (csr.csr_dedup, csr.csr_dedup_plain)}[name]
+        tag = f"{name} {direction} F={f}"
+        x = torch.randn(blk.num_cols, f, generator=gen, device=dev)
+        got = kernel(blk, x)
+        want = plain(blk, x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+        check(torch.allclose(got, want, **KERNEL_TOL),
+              f"{tag}: max abs err {err} vs plain version")
+        mat = torch.sparse_csr_tensor(
+            mat_blk.row_ptr, mat_blk.col, mat_blk.weight,
+            size=(mat_blk.num_rows, mat_blk.num_cols))
+        # the yardstick sums in float32 in its own order: held loosely,
+        # only to show it computes the same function
+        lib_err = float((torch.sparse.mm(mat, x) - want).abs().max())
+        check(lib_err < 1e-3, f"{tag}: torch.sparse.mm off by {lib_err}")
+        e = len(cols)
+        rows_read = len(np.unique(cols))
+        if name == "csr_scatter":
+            index_bytes = 8 * e + 4 * (blk.num_rows + 1)
+            gathered = e
+        else:
+            index_bytes = 4 * sum(
+                t.numel() for t in (blk.block_tile_ptr, blk.tile_uniq_ptr,
+                                    blk.uniq_col, blk.tile_seg_ptr,
+                                    blk.seg_row, blk.seg_ptr, blk.slot,
+                                    blk.scale))
+            gathered = blk.uniq_col.numel()
+        out_bytes = 4 * blk.num_rows * f
+        # each input read once: the distinct rows of x the edges name
+        b_ms, b_by = bound(4 * rows_read * f + index_bytes + out_bytes,
+                           2.0 * e * f)
+        # the row gather as the kernel does it, one row per edge (K1) or
+        # per tile-unique column (K2)
+        g_ms, _ = bound(4 * gathered * f + index_bytes + out_bytes, 0.0)
+        rec = dict(
+            direction=direction, F=f, edges=e, rows=blk.num_rows,
+            max_abs_err=err, library_max_abs_err=lib_err,
+            ms=cuda_ms(torch, lambda: kernel(blk, x), 50),
+            plain_ms=cuda_ms(torch, lambda: plain(blk, x), 5),
+            library_ms=cuda_ms(torch, lambda: torch.sparse.mm(mat, x), 20),
+            bound_ms=b_ms, bound_by=b_by, gather_bound_ms=g_ms,
+        )
+        if name == "csr_dedup":
+            rec["k1_same_data_ms"] = cuda_ms(
+                torch, lambda: csr.csr_scatter(mat_blk, x), 50)
+            rec["tile_unique_rows"] = gathered
+            rec["dedup_ratio"] = e / gathered
+        log(phase="kernels", kernel=name, **rec)
+        records[name].append(rec)
     return records
 
 
@@ -427,6 +463,83 @@ def dense_phase(torch, conv, graph_s):
     return records
 
 
+def first_step_grads(torch, graph, metapaths, split, num_classes, backend,
+                     device, zero_csr_backward=False):
+    """{parameter name: float64 CPU gradient} of ``fit_mpgnn``'s first step
+    with dropout off, from the parameters of seed 0: hop 0 cached as
+    ``fit_mpgnn`` caches it, the NLL over the train split. With
+    ``zero_csr_backward`` every csr hop's backward blocking has zero weights:
+    the kernels run and give a zero input gradient, slice 1's fault."""
+    import dataclasses
+
+    from mpgnn_tpu_torch.models.mpgnn import init_mpgnn, precompute_first_hop
+    from mpgnn_tpu_torch.ops import csr
+    from mpgnn_tpu_torch.train import build_hop_arrays
+    from mpgnn_tpu_torch.train.loops import split_tensors, weighted_nll
+
+    model = init_mpgnn(graph.feat_dim, HIDDEN, num_classes, metapaths,
+                       device=device)
+    hop_ops = build_hop_arrays(graph, metapaths, backend=backend,
+                               device=device)
+    if zero_csr_backward:
+        def zeroed(b):
+            field = "scale" if isinstance(b, csr.DedupCsrBlocking) else "weight"
+            return dataclasses.replace(
+                b, **{field: torch.zeros_like(getattr(b, field))})
+        hop_ops = [[(op[0], op[1], zeroed(op[2])) for op in ops]
+                   for ops in hop_ops]
+    x = torch.as_tensor(np.asarray(graph.x, dtype=np.float32), device=device)
+    idx, y = split_tensors(split, device)[:2]
+    logp = model(x, hop_ops, first_hop_agg=precompute_first_hop(x, hop_ops))
+    weighted_nll(logp, idx, y, torch.ones(len(idx), device=device)).backward()
+    return {k: p.grad.detach().double().cpu()
+            for k, p in model.named_parameters()}
+
+
+def grad_rel_err(got, want, tag):
+    """(largest error over the reference's largest entry, its parameter);
+    fails if a reference gradient is all zero, where the ratio says
+    nothing."""
+    errs = {}
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        check(scale > 0.0, f"{tag}: the reference gradient of {k} is zero")
+        errs[k] = float((got[k] - w).abs().max()) / scale
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def grad_phase(torch, cases):
+    """Phase 7's first check: the first step's gradient of every parameter,
+    through the training path's kernels (K1/K2 forward and backward, K3/K4)
+    on the card, against the segment backend on the card (csr) or the same
+    autograd Function on the CPU, with the kernels' plain versions inside
+    (pallas). A control, csr with zeroed backward blockings, must fail the
+    same comparison."""
+    for tag, graph, metapaths, split, c, backend, ref_backend, ref_dev in cases:
+        got = first_step_grads(torch, graph, metapaths, split, c, backend,
+                               "cuda")
+        want = first_step_grads(torch, graph, metapaths, split, c,
+                                ref_backend, ref_dev)
+        err, worst = grad_rel_err(got, want, f"{tag}/{backend}")
+        rec = dict(phase="train_grads", graph=tag, backend=backend,
+                   against=f"{ref_backend} on {ref_dev}", rtol=GRAD_RTOL,
+                   max_rel_err=err, worst_param=worst)
+        if backend == "csr":
+            bad = first_step_grads(torch, graph, metapaths, split, c,
+                                   backend, "cuda", zero_csr_backward=True)
+            rec["control_zeroed_backward_rel_err"], _ = grad_rel_err(
+                bad, want, f"{tag}/control")
+        log(**rec)
+        check(err <= GRAD_RTOL, f"{tag}: {backend} first-step gradient of "
+                                f"{worst} off by {err} of its largest entry")
+        if backend == "csr":
+            check(rec["control_zeroed_backward_rel_err"] > GRAD_RTOL,
+                  f"{tag}: the gradient check did not see a zeroed csr "
+                  f"backward")
+    torch.cuda.empty_cache()
+
+
 def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
               backend):
     """One ``train_mpgnn`` run on the card. A CUDA event is recorded after
@@ -473,12 +586,9 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
     return rec
 
 
-def train_phase(torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg,
+def train_phase(torch, graph_s, split_s, graph_u, split_u, graph_k, split_k,
                 planted, largest):
     """(a), (b) and (c) of phase 7, with their cross-backend checks."""
-    from mpgnn_tpu_torch.graph.io import split_nodes
-
-    split_s = split_nodes(labels_s)
     runs = {b: train_run(torch, "synthetic_multiclass", graph_s, SYNTH_PATHS,
                          split_s, 3, 1000, b)
             for b in ("pallas", "csr", "segment")}
@@ -494,7 +604,6 @@ def train_phase(torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg,
     check(d_f1 <= PALLAS_F1_ATOL, f"pallas vs segment test F1 {d_f1}")
     check(seg["test_f1"] > 0.9, f"segment test F1 {seg['test_f1']}")
 
-    split_u = split_nodes(labels_u)
     uni = {b: train_run(torch, "uniform", graph_u, [[0, 1]], split_u, 2, 100,
                         b)
            for b in ("csr", "segment")}
@@ -502,12 +611,9 @@ def train_phase(torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg,
     log(phase="train_check", graph="uniform", csr_vs_segment_loss=d_uni)
     check(d_uni <= CSR_LOSS_ATOL, f"uniform csr vs segment loss {d_uni}")
 
-    label_nodes = kg["label_nodes"]
-    split_k = split_nodes(kg["labels"][label_nodes], node_idx=label_nodes)
     train_run(torch, "powerlaw_kg", graph_k, [planted, largest], split_k, 2,
               20, "csr")
-    return (split_s, split_u, runs["pallas"]["epoch_ms"],
-            uni["csr"]["epoch_ms"])
+    return runs["pallas"]["epoch_ms"], uni["csr"]["epoch_ms"]
 
 
 def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
@@ -562,9 +668,12 @@ def reset_counts(csr, conv) -> None:
 
 
 def read_counts(csr, conv) -> dict:
+    """Each kernel's launches, and the csr backward passes on the card
+    (``csr_backward_passes``: each launched K1 or K2 once, already counted
+    there)."""
     return {"csr_scatter": csr.SCATTER_LAUNCHES,
             "csr_dedup": csr.DEDUP_LAUNCHES,
-            "csr_backward": csr.CSR_BACKWARD_LAUNCHES,
+            "csr_backward_passes": csr.CSR_BACKWARD_LAUNCHES,
             "dense_conv": conv.CONV_LAUNCHES,
             "dense_matmul": conv.MATMUL_LAUNCHES}
 
@@ -578,7 +687,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mpgnn_tpu_torch.graph.generate import generate_powerlaw_kg
     from mpgnn_tpu_torch.graph.hetero import HeteroGraph
-    from mpgnn_tpu_torch.graph.io import load_dat_files
+    from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
     from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
     from mpgnn_tpu_torch.ops import _kernels, conv, csr
     from mpgnn_tpu_torch.serve import MetapathPredictor
@@ -610,7 +719,7 @@ def main() -> int:
     log(phase="graphs", seconds=time.perf_counter() - t0, planted=planted,
         largest=largest,
         largest_edges=[int(graph_k.rel_counts[r]) for r in largest])
-    records = kernel_phase(torch, csr, graph_u, graph_k, 0, largest[0])
+    records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest)
 
     # 3 and 4: the serving path, through the entry points a user calls
     reset_counts(csr, conv)
@@ -637,11 +746,23 @@ def main() -> int:
                                            "label.dat")))
     records.update(dense_phase(torch, conv, graph_s))
 
-    # 7. the training path, through train_mpgnn
+    # 7. the training path: first-step gradients, then train_mpgnn
+    split_s = split_nodes(labels_s)
+    split_u = split_nodes(labels_u)
+    split_k = split_nodes(kg["labels"][kg["label_nodes"]],
+                          node_idx=kg["label_nodes"])
+    grad_phase(torch, [
+        ("synthetic_multiclass", graph_s, SYNTH_PATHS, split_s, 3, "csr",
+         "segment", "cuda"),
+        ("synthetic_multiclass", graph_s, SYNTH_PATHS, split_s, 3, "pallas",
+         "pallas", "cpu"),
+        ("uniform", graph_u, [[0, 1]], split_u, 2, "csr", "segment", "cuda"),
+        ("powerlaw_kg", graph_k, [planted, largest], split_k, 2, "csr",
+         "segment", "cuda"),
+    ])
     reset_counts(csr, conv)
-    split_s, split_u, pallas_ms, csr_ms = train_phase(
-        torch, graph_s, labels_s, graph_u, labels_u, graph_k, kg, planted,
-        largest)
+    pallas_ms, csr_ms = train_phase(torch, graph_s, split_s, graph_u, split_u,
+                                    graph_k, split_k, planted, largest)
     train_launches = read_counts(csr, conv)
     log(phase="train_launches", **train_launches)
     check(all(v > 0 for v in train_launches.values()),
@@ -663,9 +784,15 @@ def main() -> int:
     }
     kernels = []
     for name, recs in records.items():
-        # F = 64, the hidden width; for K3/K4 on the training graph (N =
-        # 5,000), the shape of the training path's hop 1
-        wide = recs[1]
+        # F = 64, the hidden width, forward; for K3/K4 on the training graph
+        # (N = 5,000), the shape of the training path's hop 1
+        wide = next(r for r in recs
+                    if r["F"] == 64 and r.get("direction", "fwd") == "fwd")
+        bwd = [r for r in recs if r.get("direction") == "bwd"]
+        extra = dict(bwd_ms=bwd[0]["ms"], bwd_plain_ms=bwd[0]["plain_ms"],
+                     bwd_bound_ms=bwd[0]["bound_ms"],
+                     bwd_library_ms=bwd[0]["library_ms"],
+                     bwd_max_abs_err=bwd[0]["max_abs_err"]) if bwd else {}
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
@@ -675,7 +802,7 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
-            library_ms=wide["library_ms"],
+            library_ms=wide["library_ms"], **extra,
         ))
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)

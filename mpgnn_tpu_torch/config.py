@@ -69,10 +69,11 @@ class MPGNNConfig:
     num_bases: Optional[int] = None
     num_blocks: Optional[int] = None
     # Halo (node-sharded) collective: "a2a" or "ppermute" in the JAX
-    # package; not used by the port yet (ROADMAP.md A12).
+    # package. The port has no halo backend yet and refuses any value but
+    # the default (ROADMAP.md A12).
     halo_exchange: str = "a2a"
     # Halo local aggregation: "segment", "csr" or "auto" in the JAX
-    # package; not used by the port yet (ROADMAP.md A12).
+    # package. The port refuses any value but the default (ROADMAP.md A12).
     halo_local: str = "auto"
 
 

@@ -22,8 +22,9 @@ launches.
 the same kernels (or, on the CPU, the same plain versions) on the
 destination-sorted blocking, as the JAX package's ``custom_vjp`` does.
 Autograd never differentiates the plain versions' ``index_add_``.
-``CSR_BACKWARD_LAUNCHES`` counts the backward passes that launched a
-kernel.
+``CSR_BACKWARD_LAUNCHES`` counts the backward passes that ran on the GPU.
+It is not a third kernel's count: each such pass launched K1 or K2 once,
+and that launch is already in ``SCATTER_LAUNCHES`` or ``DEDUP_LAUNCHES``.
 
 The blockings are the port's own: no edge padding, no [16, 128] edge
 panels, no column padding of gathered rows and no trailing gather dummy.

@@ -118,6 +118,14 @@ def make_optimizer(model: torch.nn.Module,
                             weight_decay=cfg.weight_decay)
 
 
+def weighted_nll(logp: torch.Tensor, idx: torch.Tensor, y: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """``sum(per * w) / sum(w)`` of the per-node NLL of ``logp[idx]``
+    against ``y``, ``w`` the [len(idx)] per-node class weights."""
+    per = -logp[idx].gather(1, y[:, None])[:, 0]
+    return (per * w).sum() / w.sum()
+
+
 def fit_mpgnn(
     model: MPNetm,
     hop_ops,
@@ -160,8 +168,7 @@ def fit_mpgnn(
         opt.zero_grad(set_to_none=True)
         logp = model(x, hop_ops, dropout_rate=cfg.dropout,
                      generator=generator, train=True, first_hop_agg=first)
-        per = -logp[train_idx].gather(1, train_y[:, None])[:, 0]
-        loss = (per * w).sum() / w.sum()
+        loss = weighted_nll(logp, train_idx, train_y, w)
         loss.backward()
         opt.step()
         if track_best:
@@ -230,6 +237,11 @@ def train_mpgnn(
     if cfg.num_bases is not None or cfg.num_blocks is not None:
         raise ValueError("num_bases / num_blocks are not ported yet "
                          "(ROADMAP.md A4)")
+    default = MPGNNConfig()
+    if (cfg.halo_exchange, cfg.halo_local) != (default.halo_exchange,
+                                               default.halo_local):
+        raise ValueError("halo_exchange / halo_local are not ported yet "
+                         "(ROADMAP.md A12)")
     device = resolve_device(device)
     metapaths = [list(mp) for mp in metapaths]
     x = torch.as_tensor(np.asarray(

@@ -266,6 +266,8 @@ def test_train_mpgnn_runs_on_the_cpu(planted):
     dict(backend="ell2"), dict(backend="onehot"), dict(backend="halo"),
     dict(cfg=MPGNNConfig(compute_dtype="bfloat16")),
     dict(cfg=MPGNNConfig(num_bases=2)), dict(cfg=MPGNNConfig(num_blocks=2)),
+    dict(cfg=MPGNNConfig(halo_exchange="ppermute")),
+    dict(cfg=MPGNNConfig(halo_local="csr")),
 ])
 def test_train_mpgnn_refuses_what_is_not_ported(planted, change):
     _, tg, g = planted
