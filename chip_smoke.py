@@ -88,9 +88,10 @@ SYNTH_PATHS = [[1, 0], [2, 3]]            # metapath.dat, metapath2.dat
 # reference's largest entry. csr against segment and the card's pallas
 # against the CPU's (plain versions, float64 sums) differ in float32 sum
 # order, and where that moves a pre-activation across ReLU's kink, by one
-# row's whole term: 1.0e-4 on the 200k-node uniform graph, whose random
-# labels make the weight gradients cancel. A control with the csr backward
-# zeroed, slice 1's fault, reads 0.88-0.92. The limit sits between the two.
+# row's whole term: 1.0e-4 and 6.5e-4 in two runs on the 200k-node uniform
+# graph, whose random labels make the weight gradients cancel. A control
+# with the csr backward zeroed, slice 1's fault, reads 0.88-1.01. The limit
+# sits between the two.
 GRAD_RTOL = 1e-2
 # Phase 7, after the run: csr and segment draw the same dropout masks from
 # the same seed and differ only in float32 sum order, which 1000 Adam steps
