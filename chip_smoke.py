@@ -10,15 +10,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. kernels: on the uniform graph (200k nodes / 10M edges / 4 relations,
    the 200k-node north-star shape of ``bench.py``) and the power-law KG
    (200k nodes / 2M edges / 237 relations / planted path of 3 / seed 5),
-   run K1 (``csr_scatter``) on a uniform relation and K2 (``csr_dedup``) on
-   the KG's largest relation at F = 16 and 64, and each on the backward
-   blocking that training gives it (uniform relation 1, the KG's second
-   largest relation, K2 with its pre-scale) at F = 64, hold each against
-   its plain PyTorch version (rtol = atol = 1e-5: float32 sums in another
-   order), and
+   run K1 (``csr_scatter``) on a uniform relation at F = 16 and 64 and K2
+   (``csr_dedup``) on the KG's largest relation at F = 4 (serving hop 0),
+   16 and 64 and on its second largest at F = 64 (hop 1), and each on the
+   backward blocking that training gives it (uniform relation 1, the KG's
+   second largest relation, K2 with its pre-scale) at F = 64; hold each
+   against its plain PyTorch version (rtol = atol = 1e-5: float32 sums in
+   another order) and a second launch against the first (bitwise), and
    time it beside its byte bound, its plain version and one
    ``torch.sparse.mm`` call on the same CSR matrix (a yardstick the port
-   never calls);
+   never calls); time the host build of K2's layout of the largest
+   relation. ``ms`` and ``library_ms`` are device time (CUDA events behind
+   a GPU spin that lets the host enqueue every call first), with K2's time
+   by kernel from torch.profiler; ``dispatch_ms`` is the time per call when
+   the host enqueues as the card runs, as earlier PRs measured it;
 3. serve the uniform graph: ``MetapathPredictor`` with hidden 64, metapaths
    [[0, 1]] and seeded random parameters, ``backend='csr'`` against
    ``backend='segment'`` (atol 1e-4), and refresh() latency over 20 calls;
@@ -31,7 +36,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``data/synthetic_multiclass`` (N = 5,000) at F = 2 and 64, H = 64, and
    on a random graph at N = 32,768 (A = 2.1 GB bf16, far past the 50 MB
    L2) at F = 64, hold each against its plain version (rtol = atol = 1e-5:
-   the same bf16 operands, float32 against float64 sums) and time it (L2
+   the same bf16 operands, float32 against float64 sums) and a second
+   launch against the first (bitwise), and time it (device time, L2
    flushed before each launch, as training finds A) beside its bound, its
    plain version and one cuBLAS call (``torch.mm`` over the same bf16
    operands, plus the epilogue in torch for K3), which the port never
@@ -112,14 +118,27 @@ def log(**kv) -> None:
     print(json.dumps(kv), flush=True)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    warm-up (CUDA events; inputs stay warm in L2 as in serving)."""
+# A GPU spin of this many seconds per timed call is queued ahead of the
+# first event, so the host has enqueued every call (a wrapper takes 40-100 us
+# of host time) before the card reaches them: the events then time the
+# device alone. At the H100's clock, 2e9 cycles a second at most; a slower
+# clock only spins longer.
+SPIN_S_PER_CALL = 300e-6
+SPIN_HZ = 2e9
+
+
+def cuda_ms(torch, fn, reps: int, spin: bool = True) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, after warm-up
+    (CUDA events; inputs stay warm in L2 as in serving): device time behind
+    a GPU spin, else, where the wrapper's host time exceeds its device time,
+    the host's dispatch rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(int(reps * SPIN_S_PER_CALL * SPIN_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -128,14 +147,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
-    """Mean device time of ``fn`` with the L2 cache flushed (a 256 MB
-    write) before each call, each call between its own CUDA events."""
+def cuda_ms_cold(torch, fn, reps: int, flush, spin: bool = True) -> float:
+    """Mean time of ``fn`` with the L2 cache flushed (a 256 MB write)
+    before each call, each call between its own CUDA events: device time
+    behind a GPU spin, else with the card idle while the host enqueues
+    ``fn``, so that the wrapper's host time counts."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(int(SPIN_S_PER_CALL * SPIN_HZ))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -144,6 +167,19 @@ def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def kernel_us(torch, fn, reps: int = 20) -> dict:
+    """{kernel name: device us per call of ``fn``} (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {k[:60]: t / reps for k, t, _ in device_rows(prof)}
 
 
 def bound(num_bytes: float, flops: float, bf16_flops: float = 0.0):
@@ -179,9 +215,11 @@ def powerlaw_graph(HeteroGraph, generate_powerlaw_kg):
 def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
     """Hold K1 and K2 against their plain versions and time them, on the
     blockings the serving and training paths give them: forward on hop 0's
-    relation (uniform ``rels_u[0]``, the KG hub ``rels_k[0]``) at F = 16 and
-    64, and backward, the destination-sorted blocking that training runs
-    (K2 with its pre-scale), on hop 1's relation at F = 64."""
+    relation (uniform ``rels_u[0]`` at F = 16 and 64, the KG hub
+    ``rels_k[0]`` at F = 4, 16 and 64), forward on the KG's hop-1 relation
+    ``rels_k[1]`` at F = 64, and backward, the destination-sorted blocking
+    that training runs (K2 with its pre-scale), on hop 1's relation at
+    F = 64."""
     dev = torch.device("cuda")
     n_u, n_k = graph_u.num_nodes, graph_k.num_nodes
     s_u, d_u = graph_u.rel_edges(rels_u[0])
@@ -189,44 +227,64 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
     s_u1, d_u1 = graph_u.rel_edges(rels_u[1])
     s_k1, d_k1 = graph_k.rel_edges(rels_k[1])
     fwd_u, _ = csr.build_csr_blocking(s_u, d_u, n_u)
+    t0 = time.perf_counter()
     fwd_k, _ = csr.build_csr_blocking(s_k, d_k, n_k)
+    blocking_s = time.perf_counter() - t0
     _, bwd_u = csr.build_csr_blocking(s_u1, d_u1, n_u)
-    _, bwd_k = csr.build_csr_blocking(s_k1, d_k1, n_k)
+    fwd_k1, bwd_k = csr.build_csr_blocking(s_k1, d_k1, n_k)
+    # the forward dedup layout of the largest relation alone, host numpy
+    inv = 1.0 / np.maximum(np.bincount(s_k, minlength=n_k), 1)
+    t0 = time.perf_counter()
+    csr._build_one_direction_dedup(s_k, d_k, inv, n_k, n_k, False)
+    log(phase="dedup_layout", relation=rels_k[0], edges=len(s_k),
+        layout_build_s=time.perf_counter() - t0,
+        both_directions_with_routing_s=blocking_s,
+        passes=len(fwd_k.level_pieces) - 1, pieces=fwd_k.piece_dest.numel(),
+        rows_without_edges=fwd_k.zero_rows.numel(),
+        partials=fwd_k.num_partials)
     check(isinstance(fwd_u, csr.CsrBlocking),
           f"uniform relation {rels_u[0]} did not route to K1")
     check(isinstance(fwd_k, csr.DedupCsrBlocking),
           f"hub relation {rels_k[0]} did not route to K2")
+    check(isinstance(fwd_k1, csr.DedupCsrBlocking),
+          f"hub relation {rels_k[1]} did not route to K2")
     check(isinstance(bwd_u, csr.CsrBlocking),
           f"uniform relation {rels_u[1]} backward did not route to K1")
     check(isinstance(bwd_k, csr.DedupCsrBlocking) and bwd_k.scale_is_pre,
           f"hub relation {rels_k[1]} backward did not route to K2")
     # the hub relations as one CSR matrix: K1 on hub data and the yardstick
     csr_k, _ = csr.build_csr_blocking(s_k, d_k, n_k, dedup="never")
-    _, csr_k1 = csr.build_csr_blocking(s_k1, d_k1, n_k, dedup="never")
-    fwd_u, fwd_k, bwd_u, bwd_k, csr_k, csr_k1 = (
-        b.to(dev) for b in (fwd_u, fwd_k, bwd_u, bwd_k, csr_k, csr_k1))
-    # (kernel, direction, blocking, yardstick's CSR matrix, gathered
-    # columns, F)
-    cases = [c for f in (16, 64) for c in (
-        ("csr_scatter", "fwd", fwd_u, fwd_u, d_u, f),
-        ("csr_dedup", "fwd", fwd_k, csr_k, d_k, f))]
-    cases += [("csr_scatter", "bwd", bwd_u, bwd_u, s_u1, 64),
-              ("csr_dedup", "bwd", bwd_k, csr_k1, s_k1, 64)]
+    csr_k1f, csr_k1 = csr.build_csr_blocking(s_k1, d_k1, n_k, dedup="never")
+    fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k, csr_k, csr_k1f, csr_k1 = (
+        b.to(dev) for b in (fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k, csr_k,
+                            csr_k1f, csr_k1))
+    r_u, r_u1, r_k, r_k1 = rels_u[0], rels_u[1], rels_k[0], rels_k[1]
+    # (kernel, direction, relation, blocking, yardstick's CSR matrix,
+    # gathered columns, F)
+    cases = [("csr_scatter", "fwd", r_u, fwd_u, fwd_u, d_u, f)
+             for f in (16, 64)]
+    cases += [("csr_dedup", "fwd", r_k, fwd_k, csr_k, d_k, f)
+              for f in (4, 16, 64)]
+    cases += [("csr_dedup", "fwd", r_k1, fwd_k1, csr_k1f, d_k1, 64),
+              ("csr_scatter", "bwd", r_u1, bwd_u, bwd_u, s_u1, 64),
+              ("csr_dedup", "bwd", r_k1, bwd_k, csr_k1, s_k1, 64)]
     gen = torch.Generator(device=dev).manual_seed(0)
     records = {"csr_scatter": [], "csr_dedup": []}
-    for name, direction, blk, mat_blk, cols, f in cases:
+    for name, direction, rel, blk, mat_blk, cols, f in cases:
         kernel, plain = {
             "csr_scatter": (csr.csr_scatter, csr.csr_scatter_plain),
             "csr_dedup": (csr.csr_dedup, csr.csr_dedup_plain)}[name]
-        tag = f"{name} {direction} F={f}"
+        tag = f"{name} {direction} rel {rel} F={f}"
         x = torch.randn(blk.num_cols, f, generator=gen, device=dev)
         got = kernel(blk, x)
+        again = kernel(blk, x)
         want = plain(blk, x)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
         check(torch.allclose(got, want, **KERNEL_TOL),
               f"{tag}: max abs err {err} vs plain version")
+        check(torch.equal(got, again), f"{tag}: a second launch differs")
         mat = torch.sparse_csr_tensor(
             mat_blk.row_ptr, mat_blk.col, mat_blk.weight,
             size=(mat_blk.num_rows, mat_blk.num_cols))
@@ -236,36 +294,31 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
         check(lib_err < 1e-3, f"{tag}: torch.sparse.mm off by {lib_err}")
         e = len(cols)
         rows_read = len(np.unique(cols))
-        if name == "csr_scatter":
-            index_bytes = 8 * e + 4 * (blk.num_rows + 1)
-            gathered = e
-        else:
-            index_bytes = 4 * sum(
-                t.numel() for t in (blk.block_tile_ptr, blk.tile_uniq_ptr,
-                                    blk.uniq_col, blk.tile_seg_ptr,
-                                    blk.seg_row, blk.seg_ptr, blk.slot,
-                                    blk.scale))
-            gathered = blk.uniq_col.numel()
+        index_bytes = 4 * sum(t.numel() for _, t in blk.tensors())
         out_bytes = 4 * blk.num_rows * f
         # each input read once: the distinct rows of x the edges name
         b_ms, b_by = bound(4 * rows_read * f + index_bytes + out_bytes,
                            2.0 * e * f)
-        # the row gather as the kernel does it, one row per edge (K1) or
-        # per tile-unique column (K2)
-        g_ms, _ = bound(4 * gathered * f + index_bytes + out_bytes, 0.0)
+        # the row gather as the kernels do it, one row per edge
+        g_ms, _ = bound(4 * e * f + index_bytes + out_bytes, 0.0)
         rec = dict(
-            direction=direction, F=f, edges=e, rows=blk.num_rows,
-            max_abs_err=err, library_max_abs_err=lib_err,
+            direction=direction, relation=rel, F=f, edges=e,
+            rows=blk.num_rows, max_abs_err=err, bitwise_repeat=True,
+            library_max_abs_err=lib_err,
             ms=cuda_ms(torch, lambda: kernel(blk, x), 50),
+            dispatch_ms=cuda_ms(torch, lambda: kernel(blk, x), 50, False),
             plain_ms=cuda_ms(torch, lambda: plain(blk, x), 5),
             library_ms=cuda_ms(torch, lambda: torch.sparse.mm(mat, x), 20),
+            library_dispatch_ms=cuda_ms(
+                torch, lambda: torch.sparse.mm(mat, x), 20, False),
             bound_ms=b_ms, bound_by=b_by, gather_bound_ms=g_ms,
         )
         if name == "csr_dedup":
+            rec["kernel_us"] = kernel_us(torch, lambda: kernel(blk, x))
             rec["k1_same_data_ms"] = cuda_ms(
                 torch, lambda: csr.csr_scatter(mat_blk, x), 50)
-            rec["tile_unique_rows"] = gathered
-            rec["dedup_ratio"] = e / gathered
+            rec["passes"] = len(blk.level_pieces) - 1
+            rec["partials"] = blk.num_partials
         log(phase="kernels", kernel=name, **rec)
         records[name].append(rec)
     return records
@@ -408,9 +461,15 @@ def dense_phase(torch, conv, graph_s):
         dz = torch.randn(n, f, generator=gen, device=dev)
         out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
         dh = conv.dense_matmul(op.a_t, dz)
+        again_out, again_agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+        again_dh = conv.dense_matmul(op.a_t, dz)
         want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
         want_dh = conv.dense_matmul_plain(op.a_t, dz)
         torch.cuda.synchronize()
+        check(torch.equal(out, again_out) and torch.equal(agg, again_agg),
+              f"dense_conv {tag} F={f}: a second launch differs")
+        check(torch.equal(dh, again_dh),
+              f"dense_matmul {tag} F={f}: a second launch differs")
         for name, got, want in (("dense_conv out", out, want_out),
                                 ("dense_conv agg", agg, want_agg),
                                 ("dense_matmul", dh, want_dh)):
@@ -449,13 +508,21 @@ def dense_phase(torch, conv, graph_s):
         ):
             rec = dict(
                 graph=tag, N=n, F=f, H=HIDDEN, max_abs_err=err,
-                library_max_abs_err=lib_err,
+                bitwise_repeat=True, library_max_abs_err=lib_err,
                 ms=cuda_ms_cold(torch, kernel, 20, flush),
                 warm_ms=cuda_ms(torch, kernel, 20),
+                dispatch_ms=cuda_ms_cold(torch, kernel, 20, flush, False),
                 plain_ms=cuda_ms(torch, plain, 3),
                 library_ms=cuda_ms_cold(torch, lib, 20, flush),
+                library_dispatch_ms=cuda_ms_cold(torch, lib, 20, flush,
+                                                 False),
                 bound_ms=b_ms, bound_by=b_by,
             )
+            if name == "dense_matmul":
+                rec["splits"] = conv.matmul_splits(
+                    n, torch.cuda.get_device_properties(dev)
+                    .multi_processor_count)
+                rec["kernel_us"] = kernel_us(torch, kernel)
             log(phase="kernels", kernel=name, **rec)
             records[name].append(rec)
         del op
@@ -780,7 +847,7 @@ def main() -> int:
                       "mpgnn_tpu/ops/pallas_csr.py:434"),
         "dense_conv": ("mpgnn_tpu_torch/csrc/dense_conv.cu",
                        "mpgnn_tpu/ops/pallas_conv.py:57"),
-        "dense_matmul": ("mpgnn_tpu_torch/csrc/dense_conv.cu",
+        "dense_matmul": ("mpgnn_tpu_torch/csrc/dense_matmul.cu",
                          "mpgnn_tpu/ops/pallas_conv.py:71"),
     }
     kernels = []
@@ -803,7 +870,8 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
-            library_ms=wide["library_ms"], **extra,
+            library_ms=wide["library_ms"], dispatch_ms=wide["dispatch_ms"],
+            library_dispatch_ms=wide["library_dispatch_ms"], **extra,
         ))
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)

@@ -1,15 +1,13 @@
-// K3 and K4: the fused dense RelConv and its backward product.
+// K3: the fused dense RelConv.
 //
-//   K3 (mpgnn_dense_conv):   agg = A @ bf16(h)                  [N, F] f32
-//                            out = relu(agg @ W + h @ root + b)  [N, H] f32
-//   K4 (mpgnn_dense_matmul): out = A @ bf16(x)                   [N, F] f32
+//   agg = A @ bf16(h)                  [N, F] f32
+//   out = relu(agg @ W + h @ root + b)  [N, H] f32
 //
-// K3 replaces mpgnn_tpu/ops/pallas_conv.py::_conv_kernel (launched by
-// _conv_fwd_impl); K4 replaces _matmul_kernel (launched by _blocked_matmul
-// in _conv_vjp_bwd, with A = the transposed adjacency). A is the
-// row-normalised mean adjacency of one relation, [N, N] bf16, built by
-// mpgnn_tpu_torch/ops/conv.py::build_dense_conv_operand; h, W, root, b and
-// every output are float32 and contiguous.
+// Replaces mpgnn_tpu/ops/pallas_conv.py::_conv_kernel (launched by
+// _conv_fwd_impl). A is the row-normalised mean adjacency of one relation,
+// [N, N] bf16, built by mpgnn_tpu_torch/ops/conv.py::build_dense_conv_operand;
+// h, W, root, b and every output are float32 and contiguous. Its backward
+// product, K4, is csrc/dense_matmul.cu.
 //
 // Bound on the H100: bytes of A. A is N*N*2 bytes (50 MB at N = 5,000,
 // 2.1 GB at N = 32,768) and is read once; h, the outputs and W/root are
@@ -320,15 +318,6 @@ int mpgnn_dense_conv(const void* a, void* hb, const float* h, const float* w,
   return dispatch<true>(static_cast<const __nv_bfloat16*>(a),
                         static_cast<__nv_bfloat16*>(hb), h, w, root, b, out,
                         agg, n, F, H, stream);
-}
-
-// K4. a: [n, n] bf16; xb: [n, FP] bf16 scratch; x: [n, F]; out: [n, F].
-// F <= 256.
-int mpgnn_dense_matmul(const void* a, void* xb, const float* x, float* out,
-                       int n, int F, void* stream) {
-  return dispatch<false>(static_cast<const __nv_bfloat16*>(a),
-                         static_cast<__nv_bfloat16*>(xb), x, nullptr, nullptr,
-                         nullptr, nullptr, out, n, F, 0, stream);
 }
 
 const char* mpgnn_error_string(int code) {

@@ -9,9 +9,10 @@ the ``'pallas'`` backend is
 
 * K3 (``csrc/dense_conv.cu``, ``mpgnn_dense_conv``) computes ``out`` and
   ``agg`` in one pass over A;
-* K4 (the same source, ``mpgnn_dense_matmul``) computes ``A^T @ bf16(d)``
-  for the backward, over the stored transpose, so no transpose is ever
-  formed during training.
+* K4 (``csrc/dense_matmul.cu``, ``mpgnn_dense_matmul``: TMA and ``wgmma``,
+  the reduction split over CTAs) computes ``A^T @ bf16(d)`` for the
+  backward, over the stored transpose, so no transpose is ever formed
+  during training.
 
 ``dense_conv`` is a ``torch.autograd.Function`` whose backward is
 ``_conv_vjp_bwd`` of the JAX package: the small GEMMs stay ``torch.matmul``
@@ -30,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.ops import _kernels
 
 CONV_LAUNCHES = 0
@@ -43,7 +45,9 @@ MAX_EPILOGUE_WEIGHTS = 16384
 @dataclasses.dataclass(frozen=True)
 class DenseConvOperand:
     """One relation's mean adjacency ``a`` [N, N] bf16 and its transpose
-    ``a_t``, on one device."""
+    ``a_t``, on one device. ``a`` is contiguous; ``a_t``'s row stride is N
+    rounded up to 8 (the 16 bytes K4's TMA copies need), so for N not a
+    multiple of 8 it is a view of the first N columns of its storage."""
 
     a: torch.Tensor
     a_t: torch.Tensor
@@ -52,13 +56,13 @@ class DenseConvOperand:
 
 def build_dense_conv_operand(src, dst, num_nodes: int,
                              device=None) -> DenseConvOperand:
-    """The operand of one relation, built on ``device``: edge counts
-    scattered into [N, N] float32, each row divided by its degree (clamped
-    to 1), then cast to bf16 (round to nearest even) as is and transposed.
-    The values are those of the JAX package's ``build_dense_conv_operand``
-    rows ``[:N]``; its 256-row padding is a TPU block size and is not
-    kept."""
-    device = torch.device("cpu" if device is None else device)
+    """The operand of one relation, built on ``device`` (default the GPU;
+    ``device='cpu'`` for the CPU): edge counts scattered into [N, N]
+    float32, each row divided by its degree (clamped to 1), then cast to
+    bf16 (round to nearest even) as is and transposed. The values are those
+    of the JAX package's ``build_dense_conv_operand`` rows ``[:N]``; its
+    256-row padding is a TPU block size and is not kept."""
+    device = resolve_device(device)
     src = torch.as_tensor(np.asarray(src, dtype=np.int64), device=device)
     dst = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=device)
     a = torch.zeros((num_nodes, num_nodes), dtype=torch.float32,
@@ -67,7 +71,9 @@ def build_dense_conv_operand(src, dst, num_nodes: int,
                  accumulate=True)
     a /= a.sum(dim=1, keepdim=True).clamp_min(1.0)
     a = a.to(torch.bfloat16)
-    return DenseConvOperand(a=a, a_t=a.t().contiguous(), num_rows=num_nodes)
+    a_t = a.new_zeros((num_nodes, -(-num_nodes // 8) * 8))
+    a_t[:, :num_nodes] = a.t()
+    return DenseConvOperand(a=a, a_t=a_t[:, :num_nodes], num_rows=num_nodes)
 
 
 # ------------------------------------------------------------- plain versions
@@ -93,11 +99,16 @@ def _same_device(*xs: torch.Tensor) -> None:
             raise ValueError(f"tensors on {x.device} and {xs[0].device}")
 
 
-def _check(a: torch.Tensor, *xs: torch.Tensor) -> None:
+def _check(a: torch.Tensor, *xs: torch.Tensor, tma: bool = False) -> None:
+    """Types and layouts the kernels take; with ``tma`` (K4), ``a`` needs
+    only 16-byte aligned rows, as ``DenseConvOperand.a_t`` has."""
     if a.dtype != torch.bfloat16 or a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise TypeError(f"kernel takes a square bf16 adjacency, got {a.dtype} "
                         f"{tuple(a.shape)}")
-    for x in (a,) + xs:
+    if tma and (a.stride(1) != 1 or a.stride(0) % 8 or a.data_ptr() % 16):
+        raise ValueError(f"K4 takes 16-byte aligned rows of a, got strides "
+                         f"{a.stride()}: use build_dense_conv_operand's a_t")
+    for x in xs if tma else (a,) + xs:
         if not x.is_contiguous():
             raise ValueError("kernel takes contiguous tensors")
     for x in xs:
@@ -110,8 +121,8 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _bf16_scratch(x: torch.Tensor) -> torch.Tensor:
-    """The kernels' [N, FP] bf16 copy of x, FP = F rounded up to a tile
-    width (16, 32, 64, 128 or 256)."""
+    """K3's [N, FP] bf16 copy of x, FP = F rounded up to a tile width (16,
+    32, 64, 128 or 256)."""
     fp = next(w for w in (16, 32, 64, 128, 256) if w >= x.shape[1])
     return torch.empty((x.shape[0], fp), dtype=torch.bfloat16,
                        device=x.device)
@@ -154,15 +165,29 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     return out, agg
 
 
+def _k4_width(f: int) -> int:
+    """K4's tile width for F: 64, 128, 192 or 256 (one to four 64-wide
+    wgmma products)."""
+    return next(w for w in (64, 128, 192, 256) if w >= f)
+
+
+def matmul_splits(n: int, sms: int) -> int:
+    """How many ranges K4 splits the reduction of N = n into: enough that
+    the ceil(n / 128) row blocks give each of ``sms`` SMs a CTA, and no
+    more; at least 1 and at most one 64-column tile each."""
+    return max(1, min(-(-n // 64), sms // -(-n // 128)))
+
+
 def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a @ bf16(x)``: K4 on CUDA tensors, its plain version on CPU
-    tensors."""
+    tensors. On the card ``a``'s rows must be contiguous and 16-byte
+    aligned (row stride a multiple of 8), as ``DenseConvOperand.a_t`` is."""
     _same_device(a, x)
     if x.device.type == "cpu":
         return dense_matmul_plain(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check(a, x)
+    _check(a, x, tma=True)
     if x.dim() != 2 or a.shape[0] != x.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and x {tuple(x.shape)} do not "
                          f"fit")
@@ -170,10 +195,16 @@ def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if f > MAX_WIDTH:
         raise ValueError(f"K4 takes F <= {MAX_WIDTH}, got {f}")
     out = torch.empty_like(x)
-    xb = _bf16_scratch(x)
+    xt = torch.empty((_k4_width(f), -(-n // 8) * 8), dtype=torch.bfloat16,
+                     device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = matmul_splits(n, sms)
     with torch.cuda.device(x.device):
-        _kernels.launch("dense_matmul", a.data_ptr(), xb.data_ptr(),
-                        x.data_ptr(), out.data_ptr(), n, f, _stream(x))
+        part = out if splits == 1 else torch.empty(
+            (splits, n, f), dtype=x.dtype, device=x.device)
+        _kernels.launch("dense_matmul", a.data_ptr(), a.stride(0),
+                        xt.data_ptr(), x.data_ptr(), out.data_ptr(),
+                        part.data_ptr(), n, f, splits, _stream(x))
     global MATMUL_LAUNCHES
     MATMUL_LAUNCHES += 1
     return out

@@ -9,8 +9,10 @@ runs in one of two forms, chosen per direction by ``build_csr_blocking``:
   neighbours and sums them in registers.
 * ``DedupCsrBlocking`` -> K2 (``csrc/csr_dedup.cu``): for hub-skewed
   relations, where many edges of one row block repeat the same gather
-  column. Each tile of a row block gathers its distinct columns once into
-  shared memory and fans them out to its edges from there.
+  column and a few rows hold most edges. The edges are cut into pieces of
+  at most ``DEDUP_PIECE``, one thread group each, so a hub row is summed by
+  many groups at once; the partial sums of a row cut into several pieces
+  are added in later passes, in a fixed order.
 
 Each kernel has a plain PyTorch version beside it (``index_add_`` over the
 same blocking). A wrapper takes the plain version for a tensor on the CPU
@@ -46,16 +48,12 @@ from mpgnn_tpu_torch.ops.segment import segment_mean
 # (row block, column) pair reach this ratio. The value was measured on the
 # TPU (v5e) for the Pallas kernels and has not yet been measured on the card.
 DEDUP_MIN_RATIO = 2.0
-# Rows per dedup row block (one CTA of K2 owns a block) and the ratio's
-# block size.
+# The row-block size at which ``dedup_ratio`` counts distinct (row block,
+# column) pairs.
 DEDUP_BLOCK_ROWS = 1024
-# Distinct columns per dedup tile: the rows K2 stages in shared memory
-# (512 rows x 64 floats = 128 KB).
-DEDUP_UNIQ = 512
-# A row's edges inside a dedup tile are cut into at most this many
-# segments of at least this many edges, so that K2's thread groups share a
-# hub row.
-DEDUP_PIECE = 32
+# Most items (edges, or partial sums of a cut row) that one piece of K2, one
+# thread group, sums.
+DEDUP_PIECE = 64
 
 SCATTER_LAUNCHES = 0
 DEDUP_LAUNCHES = 0
@@ -93,23 +91,28 @@ class CsrBlocking(_Tensors):
 
 @dataclasses.dataclass(frozen=True)
 class DedupCsrBlocking(_Tensors):
-    """Unique-column tiles of one direction (layout in csrc/csr_dedup.cu):
+    """Pieces of one direction (layout in csrc/csr_dedup.cu):
     ``out[r] = post * sum over edges (r, c) of pre[c] * x[c]`` where
     ``scale`` is the post-scale of output rows (forward) or, with
-    ``scale_is_pre``, the pre-scale of gathered rows (backward)."""
+    ``scale_is_pre``, the pre-scale of gathered rows (backward).
 
-    block_tile_ptr: torch.Tensor  # [nb + 1] tiles of each row block
-    tile_uniq_ptr: torch.Tensor   # [T + 1] offsets into uniq_col
-    uniq_col: torch.Tensor        # [sum of unique counts] gather rows
-    tile_seg_ptr: torch.Tensor    # [T + 1] offsets into seg_row
-    seg_row: torch.Tensor         # [S] output row inside the block
-    seg_ptr: torch.Tensor         # [S + 1] edge offsets of each segment
-    slot: torch.Tensor            # [E] position in the tile's unique list
+    Items are the edges ``[0, E)`` in (row, column) order, then the partial
+    sums ``E + s`` (slot ``s`` of a [num_partials, F] scratch). Piece ``p``
+    sums items ``piece_ptr[p] .. piece_ptr[p+1]`` into output row
+    ``piece_dest[p]`` if that is >= 0, else into slot ``-1 - piece_dest[p]``.
+    Pass ``l`` runs pieces ``level_pieces[l] .. level_pieces[l+1]``; pass 0,
+    which always runs, also writes the rows without edges, ``zero_rows``,
+    as 0."""
+
+    col: torch.Tensor             # [E] gather row of each edge
+    piece_ptr: torch.Tensor       # [P + 1] item offsets of each piece
+    piece_dest: torch.Tensor      # [P] output row, or -1 - partial slot
+    zero_rows: torch.Tensor       # [Z] rows without edges
     scale: torch.Tensor           # [num_rows] or [num_cols] float32
+    level_pieces: Tuple[int, ...]  # [passes + 1] piece offsets
+    num_partials: int
     num_rows: int
     num_cols: int
-    block_rows: int
-    uniq: int
     scale_is_pre: bool
 
 
@@ -129,62 +132,64 @@ def _build_one_direction(rows, cols, weights, num_rows, num_cols) -> CsrBlocking
     )
 
 
-def _build_one_direction_dedup(
-    rows, cols, scale, num_rows, num_cols, bm, scale_is_pre, u=DEDUP_UNIQ,
-) -> DedupCsrBlocking:
-    """Inside each row block (edges sorted by column) a new tile starts at
-    every ``u``-th distinct column, so a column never straddles two tiles of
-    one block. Inside a tile, edges are regrouped by (row, slot) and cut
-    into segments: one per output row, a long row into up to
-    ``DEDUP_PIECE`` segments of at least ``DEDUP_PIECE`` edges."""
-    nb = max(1, -(-num_rows // bm))
-    order = sort_block_col(rows, cols, bm)
-    rows, cols = rows[order], cols[order]
-    blk = rows // bm
-    e = len(rows)
-    new = np.ones(e, dtype=bool)              # first edge of a (block, col)
-    new[1:] = (blk[1:] != blk[:-1]) | (cols[1:] != cols[:-1])
-    pair = np.cumsum(new) - 1                 # distinct-pair index
-    pairs_per_block = np.bincount(blk[new], minlength=nb)
-    pair_off = np.zeros(nb + 1, dtype=np.int64)
-    np.cumsum(pairs_per_block, out=pair_off[1:])
-    rank = pair - pair_off[blk]               # column rank inside the block
-    block_tile_ptr = np.zeros(nb + 1, dtype=np.int64)
-    np.cumsum(-(-pairs_per_block // u), out=block_tile_ptr[1:])
-    t = int(block_tile_ptr[-1])
-    tile = block_tile_ptr[blk] + rank // u
-    slot = rank % u
-    tile_uniq_ptr = np.zeros(t + 1, dtype=np.int64)
-    np.cumsum(np.bincount(tile[new], minlength=t), out=tile_uniq_ptr[1:])
-    uniq_col = cols[new]
+def _cut(counts: np.ndarray, piece: int):
+    """Cut consecutive non-empty item ranges of ``counts`` items each into
+    near-equal pieces of at most ``piece`` items. Returns (range of each
+    piece, first item of each piece counted from the first range's start,
+    pieces of each range)."""
+    n = -(-counts // piece)
+    owner = np.repeat(np.arange(len(counts)), n)
+    j = np.arange(len(owner)) - np.repeat(np.cumsum(n) - n, n)
+    first = np.cumsum(counts) - counts
+    return owner, first[owner] + j * counts[owner] // n[owner], n
 
-    order = np.lexsort((slot, rows, tile))
-    rows, slot, tile = rows[order], slot[order], tile[order]
-    run_new = np.ones(e, dtype=bool)          # first edge of a (tile, row)
-    run_new[1:] = (tile[1:] != tile[:-1]) | (rows[1:] != rows[:-1])
-    run_start = np.flatnonzero(run_new)
-    run_len = np.diff(np.append(run_start, e))
-    piece = np.maximum(DEDUP_PIECE, -(-run_len // DEDUP_PIECE))
-    pieces = -(-run_len // piece)
-    run_of = np.repeat(np.arange(len(run_start)), pieces)
-    k = np.arange(len(run_of)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
-    seg_start = run_start[run_of] + k * piece[run_of]
-    tile_seg_ptr = np.zeros(t + 1, dtype=np.int64)
-    np.cumsum(np.bincount(tile[seg_start], minlength=t), out=tile_seg_ptr[1:])
+
+def _build_one_direction_dedup(
+    rows, cols, scale, num_rows, num_cols, scale_is_pre,
+) -> DedupCsrBlocking:
+    """Pass 0 cuts the edges of every row that has any (sorted by row,
+    then column) into near-equal pieces of at most ``DEDUP_PIECE``. A row of
+    one piece is written by it; a row of several gets one partial slot per
+    piece, and the next pass cuts each such row's slots the same way, until
+    every row has one piece. Rows without edges are listed apart; pass 0
+    runs even without pieces, to write them."""
+    order = sort_block_col(rows, cols, 1)
+    e = len(rows)
+    degree = np.bincount(rows, minlength=num_rows).astype(np.int64)
+    target = np.flatnonzero(degree)          # the output row of each range
+    counts = degree[target]
+    base = slots = end = 0
+    starts, dests, level_pieces = [], [], [0]
+    while len(counts):
+        end = base + int(counts.sum())
+        owner, start, n = _cut(counts, DEDUP_PIECE)
+        dest = target[owner]
+        split = n[owner] > 1
+        k = int(split.sum())
+        dest[split] = -1 - (slots + np.arange(k))
+        starts.append(base + start)
+        dests.append(dest)
+        level_pieces.append(level_pieces[-1] + len(owner))
+        keep = n > 1
+        counts, target = n[keep], target[keep]
+        base, slots = e + slots, slots + k
+    if len(level_pieces) == 1:
+        level_pieces.append(0)
     return DedupCsrBlocking(
-        block_tile_ptr=_i32(block_tile_ptr), tile_uniq_ptr=_i32(tile_uniq_ptr),
-        uniq_col=_i32(uniq_col), tile_seg_ptr=_i32(tile_seg_ptr),
-        seg_row=_i32(rows[seg_start] % bm),
-        seg_ptr=_i32(np.append(seg_start, e)), slot=_i32(slot),
+        col=_i32(cols[order]),
+        piece_ptr=_i32(np.concatenate(starts + [[end]])),
+        piece_dest=_i32(np.concatenate(dests + [np.zeros(0, np.int64)])),
+        zero_rows=_i32(np.flatnonzero(degree == 0)),
         scale=torch.from_numpy(np.ascontiguousarray(scale, dtype=np.float32)),
-        num_rows=num_rows, num_cols=num_cols, block_rows=bm, uniq=u,
-        scale_is_pre=scale_is_pre,
+        level_pieces=tuple(level_pieces), num_partials=slots,
+        num_rows=num_rows, num_cols=num_cols, scale_is_pre=scale_is_pre,
     )
 
 
 def dedup_ratio(rows: np.ndarray, cols: np.ndarray, bm: int) -> float:
     """Edges per distinct (row block, column) pair: the factor by which the
-    dedup tiles cut the rows gathered from device memory."""
+    JAX package's dedup tiles cut the rows gathered, and the measure of hub
+    skew that routes a direction to K2."""
     if len(rows) == 0:
         return 1.0
     rows = np.asarray(rows, dtype=np.int64)
@@ -202,10 +207,11 @@ def build_csr_blocking(
 
     Forward rows are edge sources (mean over out-edges, 1/deg(src));
     backward rows are destinations with the same per-edge weight,
-    ``dx[d] = sum over edges (s, d) of g[s] / deg(s)``. ``bm`` is the dedup
-    row-block size (default ``DEDUP_BLOCK_ROWS``). ``dedup='auto'`` routes a
-    direction to the dedup tiles when its ``dedup_ratio`` at ``bm`` reaches
-    ``DEDUP_MIN_RATIO``; ``'never'`` and ``'always'`` force a side."""
+    ``dx[d] = sum over edges (s, d) of g[s] / deg(s)``. ``bm`` is the
+    row-block size of ``dedup_ratio`` (default ``DEDUP_BLOCK_ROWS``).
+    ``dedup='auto'`` routes a direction to the dedup blocking (K2) when its
+    ``dedup_ratio`` at ``bm`` reaches ``DEDUP_MIN_RATIO``; ``'never'`` and
+    ``'always'`` force a side."""
     if dedup not in ("auto", "never", "always"):
         raise ValueError(f"dedup must be auto, never or always, not {dedup!r}")
     src = np.asarray(src, dtype=np.int64)
@@ -221,11 +227,11 @@ def build_csr_blocking(
 
     n = num_nodes
     if want(src, dst):
-        fwd = _build_one_direction_dedup(src, dst, inv, n, n, bm, False)
+        fwd = _build_one_direction_dedup(src, dst, inv, n, n, False)
     else:
         fwd = _build_one_direction(src, dst, ew, n, n)
     if want(dst, src):
-        bwd = _build_one_direction_dedup(dst, src, inv, n, n, bm, True)
+        bwd = _build_one_direction_dedup(dst, src, inv, n, n, True)
     else:
         bwd = _build_one_direction(dst, src, ew, n, n)
     return fwd, bwd
@@ -247,26 +253,28 @@ def csr_scatter_plain(blk: CsrBlocking, x: torch.Tensor) -> torch.Tensor:
 
 
 def csr_dedup_plain(blk: DedupCsrBlocking, x: torch.Tensor) -> torch.Tensor:
-    """K2's function in PyTorch: gather each tile's unique rows, fan them
-    out to the edges by slot, ``index_add_`` into rows, scale."""
+    """K2's function in PyTorch, pass by pass as the kernel runs it: gather
+    the edges' rows, ``index_add_`` each pass's items into its pieces, and
+    put each piece's sum into its output row or partial slot; scale."""
     dtype = x.dtype
     x = x.double()
     if blk.scale_is_pre:
         x = x * blk.scale.double()[:, None]
-    dev = x.device
-    num_tiles = blk.tile_uniq_ptr.shape[0] - 1
-    y = x[blk.uniq_col.long()]
-    tile_edges = blk.seg_ptr[blk.tile_seg_ptr.long()].diff().long()
-    edge_tile = torch.repeat_interleave(
-        torch.arange(num_tiles, device=dev), tile_edges)
-    tile_block = torch.repeat_interleave(
-        torch.arange(blk.block_tile_ptr.shape[0] - 1, device=dev),
-        blk.block_tile_ptr.diff().long())
-    edge_row = torch.repeat_interleave(
-        blk.seg_row.long(), blk.seg_ptr.diff().long()
-    ) + tile_block[edge_tile] * blk.block_rows
-    vals = y[blk.tile_uniq_ptr[edge_tile].long() + blk.slot.long()]
-    out = x.new_zeros((blk.num_rows, x.shape[1])).index_add_(0, edge_row, vals)
+    e = blk.col.shape[0]
+    items = torch.cat([x[blk.col.long()],
+                       x.new_zeros((blk.num_partials, x.shape[1]))])
+    ptr, dest = blk.piece_ptr.long(), blk.piece_dest.long()
+    item_piece = torch.repeat_interleave(
+        torch.arange(dest.shape[0], device=x.device), ptr.diff())
+    out = x.new_zeros((blk.num_rows, x.shape[1]))
+    lp = blk.level_pieces
+    for p0, p1 in zip(lp[:-1], lp[1:]):
+        i0, i1 = int(ptr[p0]), int(ptr[p1])
+        sums = x.new_zeros((p1 - p0, x.shape[1])).index_add_(
+            0, item_piece[i0:i1] - p0, items[i0:i1])
+        d = dest[p0:p1]
+        out[d[d >= 0]] = sums[d >= 0]
+        items[e - 1 - d[d < 0]] = sums[d < 0]       # slot s is item E + s
     if not blk.scale_is_pre:
         out = out * blk.scale.double()[:, None]
     return out.to(dtype)
@@ -321,21 +329,21 @@ def csr_dedup(blk: DedupCsrBlocking, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda(x, blk)
-    post = blk.scale
-    if blk.scale_is_pre:
-        x = (x * blk.scale[:, None]).contiguous()
-        post = None
-    out = torch.empty((blk.num_rows, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
+    f = x.shape[1]
+    out = torch.empty((blk.num_rows, f), dtype=x.dtype, device=x.device)
+    part = torch.empty((max(blk.num_partials, 1), f), dtype=x.dtype,
+                       device=x.device)
+    scale = blk.scale.data_ptr()
+    pre, post = (scale, None) if blk.scale_is_pre else (None, scale)
+    levels = np.asarray(blk.level_pieces, dtype=np.int32)
+    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
     with torch.cuda.device(x.device):
         _kernels.launch(
-            "csr_dedup", blk.block_tile_ptr.data_ptr(),
-            blk.tile_uniq_ptr.data_ptr(), blk.uniq_col.data_ptr(),
-            blk.tile_seg_ptr.data_ptr(), blk.seg_row.data_ptr(),
-            blk.seg_ptr.data_ptr(), blk.slot.data_ptr(),
-            None if post is None else post.data_ptr(),
-            x.data_ptr(), out.data_ptr(), blk.num_rows, blk.block_rows,
-            x.shape[1], blk.uniq, _stream(x),
+            "csr_dedup", blk.piece_ptr.data_ptr(), blk.piece_dest.data_ptr(),
+            blk.col.data_ptr(), pre, post, x.data_ptr(), part.data_ptr(),
+            out.data_ptr(), blk.zero_rows.data_ptr(),
+            blk.zero_rows.shape[0], levels.ctypes.data, len(levels) - 1,
+            blk.col.shape[0], f, vec, _stream(x),
         )
     global DEDUP_LAUNCHES
     DEDUP_LAUNCHES += 1

@@ -48,6 +48,48 @@ def test_operand_is_bit_equal_to_jax(n, e):
     assert got.num_rows == want.num_rows == n
 
 
+@pytest.mark.parametrize("n", [64, 257])
+def test_operand_rows_are_16_byte_aligned(n):
+    """a is contiguous; a_t's rows start every N rounded up to 8 elements
+    (K4's TMA copies need 16-byte row strides), the padding zero."""
+    src, dst = _relation(n, 4 * n)
+    op = tconv.build_dense_conv_operand(src, dst, n, "cpu")
+    assert op.a.is_contiguous()
+    assert op.a_t.stride() == (-(-n // 8) * 8, 1)
+    assert torch.equal(op.a_t, op.a.t())
+    storage = torch.as_strided(op.a_t, (n, op.a_t.stride(0)),
+                               op.a_t.stride())
+    assert not storage[:, n:].any()
+
+
+def test_operand_builds_on_the_card_unless_asked(monkeypatch):
+    """With no device given the operand goes to the GPU, as every entry
+    point's does; without CUDA that raises instead of building on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, dst = _relation(64, 200)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tconv.build_dense_conv_operand(src, dst, 64)
+    op = tconv.build_dense_conv_operand(src, dst, 64, "cpu")
+    assert op.a.device.type == op.a_t.device.type == "cpu"
+
+
+@pytest.mark.parametrize("n", [257, 1000, 5000, 32768])
+def test_k4_splits_give_every_sm_a_cta(n):
+    """K4 splits the reduction so that its CTAs (row blocks of 128 times
+    splits) give every SM one and no SM two, each split holding at least
+    one 64-column tile."""
+    rows, tiles = -(-n // 128), -(-n // 64)
+    for sms in (114, 132):
+        s = tconv.matmul_splits(n, sms)
+        assert 1 <= s <= tiles
+        assert s == 1 or rows * s <= sms
+        assert s == tiles or rows * (s + 1) > sms
+    assert tconv.matmul_splits(5000, 132) == 3
+    assert tconv.matmul_splits(1000, 132) == 16
+    assert tconv.matmul_splits(32768, 132) == 1
+
+
 def _conv_case(f, seed, n=200, e=700, hdim=16):
     """tests/test_pallas_conv.py's shapes and scales, from numpy."""
     src, dst = _relation(n, e, seed)

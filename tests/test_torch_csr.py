@@ -106,11 +106,88 @@ def test_auto_routing_picks_the_jax_side(skew):
 
 
 def test_dedup_tiles_hold_at_most_uniq_columns():
-    src, dst, _ = _rand_graph(2000, 30000, 1, seed=4)
+    """The dedup layout's bounds: every piece sums 1 to DEDUP_PIECE items,
+    the pieces of one row differ in length by at most one, so no serial
+    chain runs long; the pieces tile the items in order, and every output
+    row (by a piece, or as a row without edges) and every partial slot is
+    written once."""
+    src, dst, _ = _rand_graph(2000, 30000, 1, seed=4, skew=True)
     fwd, _ = tcsr.build_csr_blocking(src, dst, 2000, bm=1024, dedup="always")
-    per_tile = fwd.tile_uniq_ptr.diff()
-    assert int(per_tile.max()) == tcsr.DEDUP_UNIQ and int(per_tile.min()) > 0
-    assert int(fwd.slot.max()) < tcsr.DEDUP_UNIQ
+    ptr = fwd.piece_ptr.numpy()
+    dest = fwd.piece_dest.numpy()
+    lens = np.diff(ptr)
+    assert ptr[0] == 0 and ptr[-1] == len(src) + fwd.num_partials
+    assert lens.min() >= 1 and lens.max() <= tcsr.DEDUP_PIECE
+    edge_row = np.sort(src)
+    first = ptr[:fwd.level_pieces[1]]
+    row_of_piece = edge_row[first]
+    for r in np.unique(row_of_piece):
+        mine = lens[:fwd.level_pieces[1]][row_of_piece == r]
+        assert mine.max() - mine.min() <= 1
+    deg = np.bincount(src, minlength=2000)
+    assert np.array_equal(fwd.zero_rows.numpy(), np.flatnonzero(deg == 0))
+    written = np.bincount(np.concatenate([dest[dest >= 0],
+                                          fwd.zero_rows.numpy()]),
+                          minlength=2000)
+    assert (written == 1).all()
+    assert np.array_equal(np.sort(-1 - dest[dest < 0]),
+                          np.arange(fwd.num_partials))
+    assert fwd.level_pieces[-1] == len(dest)
+
+
+def _walk(blk):
+    """Follow the pieces in numpy: the output row that each edge's gathered
+    row ends up in, the output row of each piece, and the passes' item
+    ranges."""
+    ptr, dest = blk.piece_ptr.numpy(), blk.piece_dest.numpy()
+    e = blk.col.shape[0]
+    item_piece = np.repeat(np.arange(len(dest)), np.diff(ptr))
+    final = np.empty(len(dest), np.int64)
+    for p in range(len(dest) - 1, -1, -1):    # a later pass's pieces last
+        final[p] = dest[p] if dest[p] >= 0 else \
+            final[item_piece[e - 1 - dest[p]]]
+    lp = blk.level_pieces
+    items = [(ptr[a], ptr[b]) for a, b in zip(lp[:-1], lp[1:])]
+    return final[item_piece[:e]], items, final
+
+
+@pytest.mark.parametrize("case", ["uniform", "skew", "hub", "tiny"])
+def test_dedup_pieces_match_numpy_walk(case):
+    """Every host table of the dedup layout against a numpy oracle built
+    from the edge list: edges in (row, column) order; each edge summed into
+    its own row; each row cut into ceil(deg / DEDUP_PIECE) pass-0 pieces,
+    the rows without edges listed apart; pass l + 1 reading exactly the
+    slots pass l wrote; the forward post-scale 1/deg(row), the backward
+    pre-scale 1/deg(source)."""
+    n = {"uniform": 500, "skew": 3000, "hub": 3000, "tiny": 5}[case]
+    e = {"uniform": 4000, "skew": 40000, "hub": 70000, "tiny": 3}[case]
+    src, dst, _ = _rand_graph(n, e, 1, seed=7, skew=case != "uniform")
+    if case == "hub":
+        src[:60000] = 11                     # one row of 60k edges
+    fwd, bwd = tcsr.build_csr_blocking(src, dst, n, dedup="always")
+    deg = np.bincount(src, minlength=n)
+    for blk, rows, cols in ((fwd, src, dst), (bwd, dst, src)):
+        order = np.lexsort((cols, rows))
+        assert np.array_equal(blk.col.numpy(), cols[order])
+        edge_row, items, final = _walk(blk)
+        assert np.array_equal(edge_row, rows[order])
+        first = np.asarray(blk.piece_ptr.numpy())
+        p0 = blk.level_pieces[1]
+        count = np.bincount(rows, minlength=n)
+        assert np.array_equal(np.bincount(final[:p0], minlength=n),
+                              -(-count // tcsr.DEDUP_PIECE))
+        assert np.array_equal(blk.zero_rows.numpy(),
+                              np.flatnonzero(count == 0))
+        assert items[0] == (0, e)
+        for (_, hi), (lo, nxt) in zip(items[:-1], items[1:]):
+            assert lo == hi and nxt > lo
+        assert first[-1] == e + blk.num_partials
+        want_scale = 1.0 / np.maximum(deg, 1)
+        np.testing.assert_array_equal(blk.scale.numpy(),
+                                      want_scale.astype(np.float32))
+    assert not fwd.scale_is_pre and bwd.scale_is_pre
+    if case == "hub":
+        assert len(fwd.level_pieces) - 1 == 3    # 60k -> 938 -> 15 -> 1
 
 
 def test_wrappers_count_no_launch_on_cpu():

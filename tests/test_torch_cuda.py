@@ -1,15 +1,16 @@
 """The CUDA kernels K1 (csrc/csr_scatter.cu), K2 (csrc/csr_dedup.cu), K3
-and K4 (csrc/dense_conv.cu) against their plain PyTorch versions on the GPU,
-at the edge cases of their layouts, and the gradients that run them. Marked ``cuda``: they skip where no GPU is found. This
-file imports no JAX, so it runs on a machine without it:
+(csrc/dense_conv.cu) and K4 (csrc/dense_matmul.cu) against their plain
+PyTorch versions on the GPU, at the edge cases of their layouts, and the
+gradients that run them. Marked ``cuda``: they skip where no GPU is found.
+This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance rtol = atol = 1e-5: the kernels sum (compensated, for K1 and K2)
-float32 and the plain versions float64, in other orders; K3 and K4 sum the
-same bf16-rounded operands as their plain versions. Gradients through K3
-and K4 are held at 1e-4: their small GEMMs are float32 on the card and on
-the CPU, in other orders."""
+Tolerance rtol = atol = 1e-5: the kernels sum float32 (K1 compensated, K2
+in pieces of at most 64) and the plain versions float64, in other orders;
+K3 and K4 sum the same bf16-rounded operands as their plain versions.
+Gradients through K3 and K4 are held at 1e-4: their small GEMMs are
+float32 on the card and on the CPU, in other orders."""
 
 import numpy as np
 import pytest
@@ -42,7 +43,7 @@ def _graph(n, e, skew, seed=0):
     (64, 0, 4, 32, False),           # edgeless relation: all rows zero
     (2000, 9000, 7, 512, False),     # odd width: K1's scalar path
     (3000, 40000, 64, 1024, True),   # hub rows cut into pieces
-    (5000, 60000, 100, 1024, True),  # K2 in two column chunks
+    (5000, 60000, 100, 1024, True),  # F = 100: lanes loop over columns
 ])
 @pytest.mark.parametrize("dedup", ["never", "always"])
 def test_kernels_match_plain(dev, n, e, f, bm, skew, dedup):
@@ -60,6 +61,52 @@ def test_kernels_match_plain(dev, n, e, f, bm, skew, dedup):
         after = (csr.SCATTER_LAUNCHES, csr.DEDUP_LAUNCHES)
         assert after[is_dedup] == before[is_dedup] + 1
         torch.testing.assert_close(got, plain(blk, x), **TOL)
+
+
+def _hub_graph(case):
+    """One row of 60k edges (three passes of K2), rows spread over many
+    pieces, or an edgeless relation."""
+    if case == "hub_row":
+        n = 3000
+        src, dst = _graph(n, 70000, True, seed=2)
+        src[:60000] = 11
+    elif case == "many_pieces":
+        n = 5000
+        src, dst = _graph(n, 60000, True, seed=3)
+    else:
+        n = 300
+        src = dst = np.zeros(0, dtype=np.int64)
+    return n, src, dst
+
+
+@pytest.mark.parametrize("f", [1, 4, 7, 64, 100])
+@pytest.mark.parametrize("case", ["hub_row", "many_pieces", "edgeless"])
+def test_dedup_kernel_cuts_hub_rows(dev, case, f):
+    """K2 in both directions against its plain version, and a second launch
+    on the same input bitwise-equal to the first (no atomics)."""
+    n, src, dst = _hub_graph(case)
+    if case == "edgeless":      # build_csr_blocking routes it to K1
+        inv = np.ones(n, dtype=np.float32)
+        blks = [csr._build_one_direction_dedup(src, dst, inv, n, n, pre)
+                for pre in (False, True)]
+    else:
+        blks = csr.build_csr_blocking(src, dst, n, dedup="always")
+    x = torch.randn(n, f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(f))
+    for blk in blks:
+        assert isinstance(blk, csr.DedupCsrBlocking)
+        blk = blk.to(dev)
+        before = csr.DEDUP_LAUNCHES
+        got = csr.csr_dedup(blk, x)
+        again = csr.csr_dedup(blk, x)
+        torch.cuda.synchronize()
+        assert csr.DEDUP_LAUNCHES == before + 2
+        torch.testing.assert_close(got, csr.csr_dedup_plain(blk, x), **TOL)
+        assert torch.equal(got, again)
+        if case == "hub_row" and not blk.scale_is_pre:
+            assert len(blk.level_pieces) - 1 == 3
+        if case == "edgeless":
+            assert not got.any()
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -119,6 +166,30 @@ def test_dense_kernels_match_plain(dev, n, e, f, hdim):
     assert not agg[0].any()
 
 
+@pytest.mark.parametrize("f", [1, 2, 64, 200])
+@pytest.mark.parametrize("n", [257, 1000, 5000])
+def test_matmul_kernel_splits_the_reduction(dev, n, f):
+    """K4 against its plain version at N not a multiple of 8 (a_t's padded
+    row stride) and reduction lengths that its splits do not divide, and a
+    second launch bitwise-equal to the first."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, _, _, _) = _conv_inputs(n, 4 * n, f, 8, dev, seed=n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = conv.matmul_splits(n, sms)
+    assert splits > 1 and (n % splits or n % 64)
+    before = conv.MATMUL_LAUNCHES
+    got = conv.dense_matmul(op.a_t, h)
+    again = conv.dense_matmul(op.a_t, h)
+    torch.cuda.synchronize()
+    assert conv.MATMUL_LAUNCHES == before + 2
+    torch.testing.assert_close(got, conv.dense_matmul_plain(op.a_t, h), **TOL)
+    assert torch.equal(got, again)
+    if n % 8:
+        with pytest.raises(ValueError, match="aligned"):
+            conv.dense_matmul(op.a_t.contiguous(), h)
+
+
 @pytest.mark.parametrize("h_grad", [False, True])
 def test_dense_conv_backward_launches_k4_only_for_dh(dev, h_grad):
     """Hop 0's input needs no gradient: K4 does not run there. The
@@ -126,7 +197,8 @@ def test_dense_conv_backward_launches_k4_only_for_dh(dev, h_grad):
     from mpgnn_tpu_torch.ops import conv
 
     op, ts = _conv_inputs(300, 1200, 16, 64, dev, seed=1)
-    g = torch.randn(300, 64, device=dev)
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(300, 64)).astype(np.float32)).to(dev)
     grads = {}
     for where in ("cuda", "cpu"):
         o = op if where == "cuda" else conv.DenseConvOperand(
