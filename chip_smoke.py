@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``mpgnn_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -14,16 +15,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (``csr_dedup``) on the KG's largest relation at F = 4 (serving hop 0),
    16 and 64 and on its second largest at F = 64 (hop 1), and each on the
    backward blocking that training gives it (uniform relation 1, the KG's
-   second largest relation, K2 with its pre-scale) at F = 64; hold each
+   second largest relation, K2 with its pre-scale) at F = 64, and K1 on
+   the KG's planted relation 141, whose long rows (up to 1,851 edges) stay
+   on K1, forward at F = 4 and 64 and backward at F = 64; hold each
    against its plain PyTorch version (rtol = atol = 1e-5: float32 sums in
    another order) and a second launch against the first (bitwise), and
    time it beside its byte bound, its plain version and one
    ``torch.sparse.mm`` call on the same CSR matrix (a yardstick the port
    never calls); time the host build of K2's layout of the largest
    relation. ``ms`` and ``library_ms`` are device time (CUDA events behind
-   a GPU spin that lets the host enqueue every call first), with K2's time
-   by kernel from torch.profiler; ``dispatch_ms`` is the time per call when
-   the host enqueues as the card runs, as earlier PRs measured it;
+   a GPU spin that lets the host enqueue every call first), with the time
+   by kernel from torch.profiler (``kernel_us``); ``dispatch_ms`` is the
+   time per call when the host enqueues as the card runs, as earlier PRs
+   measured it;
 3. serve the uniform graph: ``MetapathPredictor`` with hidden 64, metapaths
    [[0, 1]] and seeded random parameters, ``backend='csr'`` against
    ``backend='segment'`` (atol 1e-4), and refresh() latency over 20 calls;
@@ -38,10 +42,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    L2) at F = 64, hold each against its plain version (rtol = atol = 1e-5:
    the same bf16 operands, float32 against float64 sums) and a second
    launch against the first (bitwise), and time it (device time, L2
-   flushed before each launch, as training finds A) beside its bound, its
-   plain version and one cuBLAS call (``torch.mm`` over the same bf16
-   operands, plus the epilogue in torch for K3), which the port never
-   calls;
+   flushed before each launch, as training finds A, and by kernel with the
+   profiler) beside its bound, its plain version and one cuBLAS call
+   (``torch.mm`` over the same bf16 operands, plus the epilogue in torch for
+   K3), which the port never calls;
 7. hold the first training step's gradient of every parameter, on the
    three graphs below, against a reference (csr against segment on the
    card; pallas against the same autograd Function on the CPU, with the
@@ -64,10 +68,16 @@ K3, K4 and the csr backward must have launched there). The last lines are
 the card's name and power limit, one JSON line with a record per kernel,
 and
 ``{"ok": true, "device": {...}}``.
+
+``--kernels-only`` runs phases 1, 2 and 6 alone and prints one JSON line
+per kernel shape; ``--package-root DIR`` takes ``mpgnn_tpu_torch`` from the
+checkout DIR (the parent of a change, say), so that two versions of the
+kernels are timed by the same script on one card, in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -212,14 +222,15 @@ def powerlaw_graph(HeteroGraph, generate_powerlaw_kg):
     return graph, [int(r) for r in kg["metapath_relations"]], kg
 
 
-def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
+def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k, rel_p):
     """Hold K1 and K2 against their plain versions and time them, on the
     blockings the serving and training paths give them: forward on hop 0's
     relation (uniform ``rels_u[0]`` at F = 16 and 64, the KG hub
     ``rels_k[0]`` at F = 4, 16 and 64), forward on the KG's hop-1 relation
     ``rels_k[1]`` at F = 64, and backward, the destination-sorted blocking
     that training runs (K2 with its pre-scale), on hop 1's relation at
-    F = 64."""
+    F = 64; then K1 on the KG's planted relation ``rel_p``, forward at
+    F = 4 (serving hop 0) and 64 and backward at F = 64."""
     dev = torch.device("cuda")
     n_u, n_k = graph_u.num_nodes, graph_k.num_nodes
     s_u, d_u = graph_u.rel_edges(rels_u[0])
@@ -232,6 +243,8 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
     blocking_s = time.perf_counter() - t0
     _, bwd_u = csr.build_csr_blocking(s_u1, d_u1, n_u)
     fwd_k1, bwd_k = csr.build_csr_blocking(s_k1, d_k1, n_k)
+    s_p, d_p = graph_k.rel_edges(rel_p)
+    fwd_p, bwd_p = csr.build_csr_blocking(s_p, d_p, n_k)
     # the forward dedup layout of the largest relation alone, host numpy
     inv = 1.0 / np.maximum(np.bincount(s_k, minlength=n_k), 1)
     t0 = time.perf_counter()
@@ -252,12 +265,15 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
           f"uniform relation {rels_u[1]} backward did not route to K1")
     check(isinstance(bwd_k, csr.DedupCsrBlocking) and bwd_k.scale_is_pre,
           f"hub relation {rels_k[1]} backward did not route to K2")
+    check(isinstance(fwd_p, csr.CsrBlocking)
+          and isinstance(bwd_p, csr.CsrBlocking),
+          f"planted relation {rel_p} did not route to K1")
     # the hub relations as one CSR matrix: K1 on hub data and the yardstick
     csr_k, _ = csr.build_csr_blocking(s_k, d_k, n_k, dedup="never")
     csr_k1f, csr_k1 = csr.build_csr_blocking(s_k1, d_k1, n_k, dedup="never")
-    fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k, csr_k, csr_k1f, csr_k1 = (
-        b.to(dev) for b in (fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k, csr_k,
-                            csr_k1f, csr_k1))
+    fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k, csr_k, csr_k1f, csr_k1, fwd_p, \
+        bwd_p = (b.to(dev) for b in (fwd_u, fwd_k, fwd_k1, bwd_u, bwd_k,
+                                     csr_k, csr_k1f, csr_k1, fwd_p, bwd_p))
     r_u, r_u1, r_k, r_k1 = rels_u[0], rels_u[1], rels_k[0], rels_k[1]
     # (kernel, direction, relation, blocking, yardstick's CSR matrix,
     # gathered columns, F)
@@ -268,6 +284,9 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
     cases += [("csr_dedup", "fwd", r_k1, fwd_k1, csr_k1f, d_k1, 64),
               ("csr_scatter", "bwd", r_u1, bwd_u, bwd_u, s_u1, 64),
               ("csr_dedup", "bwd", r_k1, bwd_k, csr_k1, s_k1, 64)]
+    cases += [("csr_scatter", "fwd", rel_p, fwd_p, fwd_p, d_p, f)
+              for f in (4, 64)]
+    cases += [("csr_scatter", "bwd", rel_p, bwd_p, bwd_p, s_p, 64)]
     gen = torch.Generator(device=dev).manual_seed(0)
     records = {"csr_scatter": [], "csr_dedup": []}
     for name, direction, rel, blk, mat_blk, cols, f in cases:
@@ -312,9 +331,11 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k):
             library_dispatch_ms=cuda_ms(
                 torch, lambda: torch.sparse.mm(mat, x), 20, False),
             bound_ms=b_ms, bound_by=b_by, gather_bound_ms=g_ms,
+            kernel_us=kernel_us(torch, lambda: kernel(blk, x)),
         )
+        if name == "csr_scatter":
+            rec["longest_row"] = int(mat_blk.row_ptr.diff().max())
         if name == "csr_dedup":
-            rec["kernel_us"] = kernel_us(torch, lambda: kernel(blk, x))
             rec["k1_same_data_ms"] = cuda_ms(
                 torch, lambda: csr.csr_scatter(mat_blk, x), 50)
             rec["passes"] = len(blk.level_pieces) - 1
@@ -518,11 +539,9 @@ def dense_phase(torch, conv, graph_s):
                                                  False),
                 bound_ms=b_ms, bound_by=b_by,
             )
-            if name == "dense_matmul":
-                rec["splits"] = conv.matmul_splits(
-                    n, torch.cuda.get_device_properties(dev)
-                    .multi_processor_count)
-                rec["kernel_us"] = kernel_us(torch, kernel)
+            rec["splits"] = conv.matmul_splits(
+                n, torch.cuda.get_device_properties(dev).multi_processor_count)
+            rec["kernel_us"] = kernel_us(torch, kernel)
             log(phase="kernels", kernel=name, **rec)
             records[name].append(rec)
         del op
@@ -747,12 +766,21 @@ def read_counts(csr, conv) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1, 2 and 6 alone")
+    ap.add_argument("--package-root", default=ROOT,
+                    help="checkout whose mpgnn_tpu_torch is driven")
+    args = ap.parse_args()
+    if os.path.abspath(args.package_root) != ROOT and not args.kernels_only:
+        ap.error("--package-root drives the kernel phases only: add "
+                 "--kernels-only")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.package_root))
     from mpgnn_tpu_torch.graph.generate import generate_powerlaw_kg
     from mpgnn_tpu_torch.graph.hetero import HeteroGraph
     from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
@@ -787,7 +815,16 @@ def main() -> int:
     log(phase="graphs", seconds=time.perf_counter() - t0, planted=planted,
         largest=largest,
         largest_edges=[int(graph_k.rel_counts[r]) for r in largest])
-    records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest)
+    records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest,
+                           planted[2])
+    if args.kernels_only:
+        graph_s, _, _ = load_dat_files(
+            *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                               "label.dat")))
+        dense_phase(torch, conv, graph_s)
+        log(phase="done", seconds=time.perf_counter() - t_start,
+            package_root=os.path.abspath(args.package_root))
+        return 0
 
     # 3 and 4: the serving path, through the entry points a user calls
     reset_counts(csr, conv)
@@ -845,7 +882,7 @@ def main() -> int:
                         "mpgnn_tpu/ops/pallas_csr.py:372"),
         "csr_dedup": ("mpgnn_tpu_torch/csrc/csr_dedup.cu",
                       "mpgnn_tpu/ops/pallas_csr.py:434"),
-        "dense_conv": ("mpgnn_tpu_torch/csrc/dense_conv.cu",
+        "dense_conv": ("mpgnn_tpu_torch/csrc/dense_matmul.cu",
                        "mpgnn_tpu/ops/pallas_conv.py:57"),
         "dense_matmul": ("mpgnn_tpu_torch/csrc/dense_matmul.cu",
                          "mpgnn_tpu/ops/pallas_conv.py:71"),
@@ -861,6 +898,17 @@ def main() -> int:
                      bwd_bound_ms=bwd[0]["bound_ms"],
                      bwd_library_ms=bwd[0]["library_ms"],
                      bwd_max_abs_err=bwd[0]["max_abs_err"]) if bwd else {}
+        if "gather_bound_ms" in wide:
+            extra["gather_bound_ms"] = wide["gather_bound_ms"]
+        if "splits" in wide:
+            extra["splits"] = wide["splits"]
+        if name == "csr_scatter":        # the planted relation's long rows
+            kg = next(r for r in recs if r["relation"] == planted[2]
+                      and r["F"] == 64 and r["direction"] == "fwd")
+            extra.update(kg_relation=planted[2], kg_ms=kg["ms"],
+                         kg_bound_ms=kg["bound_ms"],
+                         kg_gather_bound_ms=kg["gather_bound_ms"],
+                         kg_library_ms=kg["library_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],

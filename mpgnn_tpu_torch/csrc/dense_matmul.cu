@@ -1,17 +1,22 @@
-// K4: the backward product of the dense RelConv.
+// K3 and K4: the dense RelConv, forward and backward, on one main loop.
 //
-//   out = A @ bf16(x)        A: [n, n] bf16 (row stride lda), x: [n, F]
-//                            float32, out: [n, F] float32 (float32 sums)
+//   K4: out = A @ bf16(x)          A: [n, n] bf16 (row stride lda), x: [n, F]
+//                                  float32, out: [n, F] float32 (float32 sums)
+//   K3: agg = A @ bf16(h)          the same product over A = a, then
+//       out = relu(agg @ W + h @ root + b)   W, root: [F, H], b: [H] float32
 //
-// Replaces mpgnn_tpu/ops/pallas_conv.py::_matmul_kernel (launched by
-// _blocked_matmul in _conv_vjp_bwd, with A = the transposed adjacency
-// a_t built by mpgnn_tpu_torch/ops/conv.py::build_dense_conv_operand).
+// K4 replaces mpgnn_tpu/ops/pallas_conv.py::_matmul_kernel (launched by
+// _blocked_matmul in _conv_vjp_bwd, with A = the transposed adjacency a_t);
+// K3 replaces pallas_conv.py::_conv_kernel (launched by _conv_fwd_impl, with
+// A = the adjacency a). Both operands are built by
+// mpgnn_tpu_torch/ops/conv.py::build_dense_conv_operand.
 //
 // Bound on the H100: bytes of A, read once (n*n*2 bytes: 50 MB at
 // n = 5,000, 2.1 GB at n = 32,768). The product, 2*n*n*F operations, takes
-// a fifth of A's time at the bf16 tensor-core rate at F = 64.
+// a fifth of A's time at the bf16 tensor-core rate at F = 64; K3's
+// epilogue adds 4*n*F*H float32 operations and a few n*F*4-byte passes.
 //
-// Design (sm_90a):
+// Design of the main loop (sm_90a), shared by K3 and K4:
 //   * a pre-pass rounds x to bf16 with __float2bfloat16_rn (JAX's
 //     x.astype(bfloat16)) into a scratch xt [FP, np] that the wrapper
 //     allocates: transposed, so that both operands are K-major, FP = F
@@ -35,16 +40,23 @@
 //     and the sum order is fixed, so results are deterministic. (A cluster
 //     per row block adding the splits through distributed shared memory
 //     measured slower on the H100 than this pass, and was not kept.)
+// The last pass differs: K4's adds the splits into out; K3's epilogue
+// (conv_epilogue_kernel, one CTA per 32 rows) adds them in the same order
+// (or reads the single split, which the main loop wrote into agg), writes
+// agg, stages W, root and the block's rows of agg and h in shared memory
+// and writes relu((agg @ W + h @ root) + b) with float32 FMA, every output
+// row once.
 // TMA needs a 16-byte row stride: A's row stride lda must be a multiple of
-// 8 elements. build_dense_conv_operand pads the storage of a_t to such a
-// stride when n is not a multiple of 8 (a_t is then a view of its first n
-// columns), and the wrapper refuses any other operand; K3
-// (csrc/dense_conv.cu) keeps its own kernel.
+// 8 elements. build_dense_conv_operand pads the storage of a and a_t to
+// such a stride when n is not a multiple of 8 (each is then a view of its
+// first n columns), and the wrappers refuse any other operand.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -311,6 +323,129 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   }
 }
 
+constexpr int kEpiRows = 32;      // rows of K3's epilogue per CTA
+constexpr int kEpiThreads = 128;
+constexpr int kEpiLd = kEpiRows + 4;   // transposed tile row, 16-byte aligned
+constexpr int kEpiLoads = 8;           // staging loads in flight a thread
+
+size_t epilogue_smem(int F, int H) {
+  return ((size_t)2 * F * kEpiLd + (size_t)2 * F * H) * 4;
+}
+
+// K3's epilogue over rows [32 * blockIdx.x, +32): agg = the splits of part
+// added in split order (part is agg itself when splits == 1), then
+// out = relu((agg @ w + h @ root) + b), each sum a float32 FMA chain over
+// f in order. The block's rows of agg and h are read coalesced, 8 loads in
+// flight a thread, and stored transposed; a thread then takes 4 rows by CW
+// columns (4 where H % 4 == 0), so that each step over f reads shared
+// memory 16 bytes at a time for 8 * CW FMAs.
+template <int CW>
+__global__ void __launch_bounds__(kEpiThreads)
+conv_epilogue_kernel(const float* part, const float* __restrict__ h,
+                     const float* __restrict__ w,
+                     const float* __restrict__ root,
+                     const float* __restrict__ b, float* __restrict__ out,
+                     float* agg, int n, int F, int H, int splits) {
+  extern __shared__ __align__(16) float esm[];
+  float* Ct = esm;                       // [F][kEpiLd] agg, transposed
+  float* Ht = Ct + F * kEpiLd;           // [F][kEpiLd] h, transposed
+  float* Ws = Ht + F * kEpiLd;           // [F][H]
+  float* Rs = Ws + F * H;                // [F][H]
+  const int row0 = blockIdx.x * kEpiRows;
+  const int rows = min(kEpiRows, n - row0);
+  const size_t total = (size_t)n * F, base = (size_t)row0 * F;
+  const int count = rows * F;            // the block's values, contiguous
+  for (int q0 = threadIdx.x; q0 < kEpiRows * F;
+       q0 += kEpiLoads * kEpiThreads) {
+    float a[kEpiLoads], hv[kEpiLoads];
+#pragma unroll
+    for (int u = 0; u < kEpiLoads; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      a[u] = q < count ? part[base + q] : 0.f;
+      hv[u] = q < count ? __ldg(h + base + q) : 0.f;
+    }
+    for (int s = 1; s < splits; ++s) {
+#pragma unroll
+      for (int u = 0; u < kEpiLoads; ++u) {
+        const int q = q0 + u * kEpiThreads;
+        if (q < count) a[u] += part[s * total + base + q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kEpiLoads; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      if (q >= kEpiRows * F) break;
+      if (splits > 1 && q < count) agg[base + q] = a[u];
+      Ct[(q % F) * kEpiLd + q / F] = a[u];
+      Ht[(q % F) * kEpiLd + q / F] = hv[u];
+    }
+  }
+  const int fh = F * H;
+  for (int q0 = threadIdx.x; q0 < fh; q0 += kEpiLoads * kEpiThreads) {
+    float wv[kEpiLoads], rv[kEpiLoads];
+#pragma unroll
+    for (int u = 0; u < kEpiLoads; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      wv[u] = q < fh ? __ldg(w + q) : 0.f;
+      rv[u] = q < fh ? __ldg(root + q) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kEpiLoads; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      if (q < fh) {
+        Ws[q] = wv[u];
+        Rs[q] = rv[u];
+      }
+    }
+  }
+  __syncthreads();
+  const int groups = H / CW;
+  for (int q = threadIdx.x; q < (kEpiRows / 4) * groups; q += blockDim.x) {
+    const int r0 = (q / groups) * 4, j0 = (q % groups) * CW;
+    if (r0 >= rows) continue;
+    float s1[4][CW], s2[4][CW];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int j = 0; j < CW; ++j) s1[k][j] = s2[k][j] = 0.f;
+    }
+    for (int f = 0; f < F; ++f) {
+      const float4 c = *reinterpret_cast<const float4*>(Ct + f * kEpiLd + r0);
+      const float4 hh =
+          *reinterpret_cast<const float4*>(Ht + f * kEpiLd + r0);
+      const float ca[4] = {c.x, c.y, c.z, c.w};
+      const float ha[4] = {hh.x, hh.y, hh.z, hh.w};
+      float wv[CW], rv[CW];
+      if constexpr (CW == 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(Ws + f * H + j0);
+        const float4 r4 = *reinterpret_cast<const float4*>(Rs + f * H + j0);
+        wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
+        rv[0] = r4.x, rv[1] = r4.y, rv[2] = r4.z, rv[3] = r4.w;
+      } else {
+        wv[0] = Ws[f * H + j0];
+        rv[0] = Rs[f * H + j0];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int j = 0; j < CW; ++j) {
+          s1[k][j] = fmaf(ca[k], wv[j], s1[k][j]);
+          s2[k][j] = fmaf(ha[k], rv[j], s2[k][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (r0 + k >= rows) break;
+      float* o = out + (size_t)(row0 + r0 + k) * H + j0;
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        o[j] = fmaxf(s1[k][j] + s2[k][j] + __ldg(b + j0 + j), 0.f);
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -356,10 +491,11 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the bf16 pre-pass and the main loop: A @ bf16(x) into dst ([splits, n, F]
+// when splits > 1, else [n, F])
 template <int FP>
-int launch(const void* a, int lda, __nv_bfloat16* xt, const float* x,
-           float* out, float* part, int n, int F, int splits,
-           cudaStream_t s) {
+int main_loop(const void* a, int lda, __nv_bfloat16* xt, const float* x,
+              float* dst, int n, int F, int splits, cudaStream_t s) {
   const int np = (n + 7) / 8 * 8;
   const dim3 tgrid((np + 31) / 32, FP / 32);
   round_bf16_t_kernel<<<tgrid, dim3(32, 8), 0, s>>>(x, xt, n, F, FP, np);
@@ -378,15 +514,24 @@ int launch(const void* a, int lda, __nv_bfloat16* xt, const float* x,
   if (err != cudaSuccess) return (int)err;
   const int k_tiles = (n + kBK - 1) / kBK;
   const dim3 grid((n + kBM - 1) / kBM, splits);
-  dense_matmul_kernel<FP><<<grid, kThreads, smem, s>>>(
-      map_a, map_b, splits > 1 ? part : out, n, F, k_tiles, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t total = (size_t)n * F;
-  const size_t blocks = (total / 4 + 255) / 256;
-  sum_splits_kernel<<<(int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096),
-                      256, 0, s>>>(part, out, total, splits);
+  dense_matmul_kernel<FP><<<grid, kThreads, smem, s>>>(map_a, map_b, dst, n,
+                                                       F, k_tiles, splits);
   return (int)cudaGetLastError();
+}
+
+// F's tile width: one to four 64-wide wgmma products
+template <typename Fn>
+int by_width(int F, Fn&& fn) {
+  if (F <= 64) return fn(std::integral_constant<int, 64>());
+  if (F <= 128) return fn(std::integral_constant<int, 128>());
+  if (F <= 192) return fn(std::integral_constant<int, 192>());
+  return fn(std::integral_constant<int, 256>());
+}
+
+bool valid(const void* a, int lda, int n, int F, int splits) {
+  return F > 0 && F <= 256 && lda >= n && lda % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 && splits >= 1 &&
+         splits <= (n + kBK - 1) / kBK;
 }
 
 }  // namespace
@@ -402,17 +547,51 @@ int mpgnn_dense_matmul(const void* a, int lda, void* xt, const float* x,
                        float* out, float* part, int n, int F, int splits,
                        void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (F <= 0 || F > 256 || lda < n || lda % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 || splits < 1 ||
-      splits > (n + kBK - 1) / kBK) {
+  if (!valid(a, lda, n, F, splits)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
+  const int err = by_width(F, [&](auto fp) {
+    return main_loop<decltype(fp)::value>(a, lda, xb, x,
+                                          splits > 1 ? part : out, n, F,
+                                          splits, s);
+  });
+  if (err != 0 || splits == 1) return err;
+  const size_t total = (size_t)n * F;
+  const size_t blocks = (total / 4 + 255) / 256;
+  sum_splits_kernel<<<(int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096),
+                      256, 0, s>>>(part, out, total, splits);
+  return (int)cudaGetLastError();
+}
+
+// K3. a: [n, n] bf16 with row stride lda, as for K4; xt, part and splits as
+// for K4; h, agg: [n, F]; w, root: [F, H]; b: [H]; out: [n, H], all float32
+// and contiguous. F * H small enough for the epilogue's shared memory
+// (F = H = 64 takes 49 KB; 227 KB at most).
+int mpgnn_dense_conv(const void* a, int lda, void* xt, const float* h,
+                     const float* w, const float* root, const float* b,
+                     float* out, float* agg, float* part, int n, int F, int H,
+                     int splits, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem = epilogue_smem(F, H);
+  if (!valid(a, lda, n, F, splits) || H <= 0 || smem > (size_t)kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
-  if (F <= 64) return launch<64>(a, lda, xb, x, out, part, n, F, splits, s);
-  if (F <= 128) return launch<128>(a, lda, xb, x, out, part, n, F, splits, s);
-  if (F <= 192) return launch<192>(a, lda, xb, x, out, part, n, F, splits, s);
-  return launch<256>(a, lda, xb, x, out, part, n, F, splits, s);
+  float* dst = splits > 1 ? part : agg;
+  int err = by_width(F, [&](auto fp) {
+    return main_loop<decltype(fp)::value>(a, lda, xb, h, dst, n, F, splits,
+                                          s);
+  });
+  if (err != 0) return err;
+  auto epilogue =
+      H % 4 == 0 ? conv_epilogue_kernel<4> : conv_epilogue_kernel<1>;
+  err = (int)cudaFuncSetAttribute(
+      epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return err;
+  epilogue<<<(n + kEpiRows - 1) / kEpiRows, kEpiThreads, smem, s>>>(
+      dst, h, w, root, b, out, agg, n, F, H, splits);
+  return (int)cudaGetLastError();
 }
 
 const char* mpgnn_error_string(int code) {

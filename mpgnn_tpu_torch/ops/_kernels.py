@@ -24,7 +24,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("csr_scatter", "csr_dedup", "dense_conv", "dense_matmul")
+SOURCES = ("csr_scatter", "csr_dedup", "dense_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -34,11 +34,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # kernel name: (source in csrc/, C function, argtypes)
     "csr_scatter": ("csr_scatter", "mpgnn_csr_scatter",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                    [_P] * 7 + [_I] * 5 + [_P]),
     "csr_dedup": ("csr_dedup", "mpgnn_csr_dedup",
                   [_P] * 9 + [_I, _P, _I, _I, _I, _I, _P]),
-    "dense_conv": ("dense_conv", "mpgnn_dense_conv",
-                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "dense_conv": ("dense_matmul", "mpgnn_dense_conv",
+                   [_P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
     "dense_matmul": ("dense_matmul", "mpgnn_dense_matmul",
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
 }

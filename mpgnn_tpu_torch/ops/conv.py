@@ -7,12 +7,15 @@ the ``'pallas'`` backend is
     agg = A @ bf16(h)                       (float32 sums)
     out = relu(agg @ W + h @ root + b)
 
-* K3 (``csrc/dense_conv.cu``, ``mpgnn_dense_conv``) computes ``out`` and
+* K3 (``csrc/dense_matmul.cu``, ``mpgnn_dense_conv``) computes ``out`` and
   ``agg`` in one pass over A;
-* K4 (``csrc/dense_matmul.cu``, ``mpgnn_dense_matmul``: TMA and ``wgmma``,
-  the reduction split over CTAs) computes ``A^T @ bf16(d)`` for the
-  backward, over the stored transpose, so no transpose is ever formed
-  during training.
+* K4 (the same source, ``mpgnn_dense_matmul``) computes ``A^T @ bf16(d)``
+  for the backward, over the stored transpose, so no transpose is ever
+  formed during training.
+
+Both run one main loop (TMA and ``wgmma``, the reduction split over CTAs by
+``matmul_splits``) and differ in their last pass: K4 adds the splits, K3's
+epilogue adds them and applies W, root, b and the ReLU.
 
 ``dense_conv`` is a ``torch.autograd.Function`` whose backward is
 ``_conv_vjp_bwd`` of the JAX package: the small GEMMs stay ``torch.matmul``
@@ -36,7 +39,7 @@ from mpgnn_tpu_torch.ops import _kernels
 
 CONV_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
-# widest input the kernels take (their shared-memory h tile), and the
+# widest input the kernels take (four 64-wide wgmma products), and the
 # largest F * H whose W and root the K3 epilogue stages in shared memory
 MAX_WIDTH = 256
 MAX_EPILOGUE_WEIGHTS = 16384
@@ -45,9 +48,9 @@ MAX_EPILOGUE_WEIGHTS = 16384
 @dataclasses.dataclass(frozen=True)
 class DenseConvOperand:
     """One relation's mean adjacency ``a`` [N, N] bf16 and its transpose
-    ``a_t``, on one device. ``a`` is contiguous; ``a_t``'s row stride is N
-    rounded up to 8 (the 16 bytes K4's TMA copies need), so for N not a
-    multiple of 8 it is a view of the first N columns of its storage."""
+    ``a_t``, on one device. The row stride of each is N rounded up to 8 (the
+    16 bytes the kernels' TMA copies need), so for N not a multiple of 8
+    each is a view of the first N columns of its storage, the rest zero."""
 
     a: torch.Tensor
     a_t: torch.Tensor
@@ -70,8 +73,13 @@ def build_dense_conv_operand(src, dst, num_nodes: int,
     a.index_put_((src, dst), torch.ones_like(src, dtype=torch.float32),
                  accumulate=True)
     a /= a.sum(dim=1, keepdim=True).clamp_min(1.0)
-    a = a.to(torch.bfloat16)
-    a_t = a.new_zeros((num_nodes, -(-num_nodes // 8) * 8))
+    stride = -(-num_nodes // 8) * 8
+    a_pad = torch.zeros((num_nodes, stride), dtype=torch.bfloat16,
+                        device=device)
+    a_pad[:, :num_nodes] = a
+    del a
+    a = a_pad[:, :num_nodes]
+    a_t = torch.zeros_like(a_pad)
     a_t[:, :num_nodes] = a.t()
     return DenseConvOperand(a=a, a_t=a_t[:, :num_nodes], num_rows=num_nodes)
 
@@ -99,16 +107,17 @@ def _same_device(*xs: torch.Tensor) -> None:
             raise ValueError(f"tensors on {x.device} and {xs[0].device}")
 
 
-def _check(a: torch.Tensor, *xs: torch.Tensor, tma: bool = False) -> None:
-    """Types and layouts the kernels take; with ``tma`` (K4), ``a`` needs
-    only 16-byte aligned rows, as ``DenseConvOperand.a_t`` has."""
+def _check(a: torch.Tensor, *xs: torch.Tensor) -> None:
+    """Types and layouts the kernels take: ``a`` needs 16-byte aligned
+    rows (TMA), as ``DenseConvOperand.a`` and ``a_t`` have, the rest
+    contiguity."""
     if a.dtype != torch.bfloat16 or a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise TypeError(f"kernel takes a square bf16 adjacency, got {a.dtype} "
                         f"{tuple(a.shape)}")
-    if tma and (a.stride(1) != 1 or a.stride(0) % 8 or a.data_ptr() % 16):
-        raise ValueError(f"K4 takes 16-byte aligned rows of a, got strides "
-                         f"{a.stride()}: use build_dense_conv_operand's a_t")
-    for x in xs if tma else (a,) + xs:
+    if a.stride(1) != 1 or a.stride(0) % 8 or a.data_ptr() % 16:
+        raise ValueError(f"kernel takes 16-byte aligned rows of a, got "
+                         f"strides {a.stride()}: use build_dense_conv_operand")
+    for x in xs:
         if not x.is_contiguous():
             raise ValueError("kernel takes contiguous tensors")
     for x in xs:
@@ -120,18 +129,41 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _bf16_scratch(x: torch.Tensor) -> torch.Tensor:
-    """K3's [N, FP] bf16 copy of x, FP = F rounded up to a tile width (16,
-    32, 64, 128 or 256)."""
-    fp = next(w for w in (16, 32, 64, 128, 256) if w >= x.shape[1])
-    return torch.empty((x.shape[0], fp), dtype=torch.bfloat16,
-                       device=x.device)
+def _k4_width(f: int) -> int:
+    """The main loop's tile width for F: 64, 128, 192 or 256 (one to four
+    64-wide wgmma products)."""
+    return next(w for w in (64, 128, 192, 256) if w >= f)
+
+
+def matmul_splits(n: int, sms: int) -> int:
+    """How many ranges K3 and K4 split the reduction of N = n into: enough
+    that the ceil(n / 128) row blocks give each of ``sms`` SMs a CTA, and no
+    more; at least 1 and at most one 64-column tile each."""
+    return max(1, min(-(-n // 64), sms // -(-n // 128)))
+
+
+def _main_loop_scratch(x: torch.Tensor):
+    """(splits, xt): the split count on x's card and the [FP, N8] bf16
+    scratch of the transposed, rounded x that the main loop reads."""
+    n, f = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    xt = torch.empty((_k4_width(f), -(-n // 8) * 8), dtype=torch.bfloat16,
+                     device=x.device)
+    return matmul_splits(n, sms), xt
+
+
+def _split_scratch(out: torch.Tensor, splits: int) -> torch.Tensor:
+    """The [splits, n, F] scratch of the split sums; ``out`` itself for one
+    split (the main loop then writes it directly)."""
+    return out if splits == 1 else out.new_empty((splits,) + out.shape)
 
 
 def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                    root: torch.Tensor,
                    b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, agg): K3 on CUDA tensors, its plain version on CPU tensors."""
+    """(out, agg): K3 on CUDA tensors, its plain version on CPU tensors. On
+    the card ``a``'s rows must be 16-byte aligned (row stride a multiple of
+    8), as ``DenseConvOperand.a`` is."""
     _same_device(a, h, w, root, b)
     if h.device.type == "cpu":
         return dense_conv_plain(a, h, w, root, b)
@@ -153,41 +185,30 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                          f"{MAX_EPILOGUE_WEIGHTS}, got F={f}, H={hdim}")
     out = torch.empty((n, hdim), dtype=h.dtype, device=h.device)
     agg = torch.empty((n, f), dtype=h.dtype, device=h.device)
-    hb = _bf16_scratch(h)
     with torch.cuda.device(h.device):
+        splits, xt = _main_loop_scratch(h)
+        part = _split_scratch(agg, splits)
         _kernels.launch(
-            "dense_conv", a.data_ptr(), hb.data_ptr(), h.data_ptr(),
-            w.data_ptr(), root.data_ptr(), b.data_ptr(), out.data_ptr(),
-            agg.data_ptr(), n, f, hdim, _stream(h),
+            "dense_conv", a.data_ptr(), a.stride(0), xt.data_ptr(),
+            h.data_ptr(), w.data_ptr(), root.data_ptr(), b.data_ptr(),
+            out.data_ptr(), agg.data_ptr(), part.data_ptr(), n, f, hdim,
+            splits, _stream(h),
         )
     global CONV_LAUNCHES
     CONV_LAUNCHES += 1
     return out, agg
 
 
-def _k4_width(f: int) -> int:
-    """K4's tile width for F: 64, 128, 192 or 256 (one to four 64-wide
-    wgmma products)."""
-    return next(w for w in (64, 128, 192, 256) if w >= f)
-
-
-def matmul_splits(n: int, sms: int) -> int:
-    """How many ranges K4 splits the reduction of N = n into: enough that
-    the ceil(n / 128) row blocks give each of ``sms`` SMs a CTA, and no
-    more; at least 1 and at most one 64-column tile each."""
-    return max(1, min(-(-n // 64), sms // -(-n // 128)))
-
-
 def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a @ bf16(x)``: K4 on CUDA tensors, its plain version on CPU
-    tensors. On the card ``a``'s rows must be contiguous and 16-byte
-    aligned (row stride a multiple of 8), as ``DenseConvOperand.a_t`` is."""
+    tensors. On the card ``a``'s rows must be 16-byte aligned (row stride a
+    multiple of 8), as ``DenseConvOperand.a_t`` is."""
     _same_device(a, x)
     if x.device.type == "cpu":
         return dense_matmul_plain(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check(a, x, tma=True)
+    _check(a, x)
     if x.dim() != 2 or a.shape[0] != x.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and x {tuple(x.shape)} do not "
                          f"fit")
@@ -195,13 +216,9 @@ def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if f > MAX_WIDTH:
         raise ValueError(f"K4 takes F <= {MAX_WIDTH}, got {f}")
     out = torch.empty_like(x)
-    xt = torch.empty((_k4_width(f), -(-n // 8) * 8), dtype=torch.bfloat16,
-                     device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = matmul_splits(n, sms)
     with torch.cuda.device(x.device):
-        part = out if splits == 1 else torch.empty(
-            (splits, n, f), dtype=x.dtype, device=x.device)
+        splits, xt = _main_loop_scratch(x)
+        part = _split_scratch(out, splits)
         _kernels.launch("dense_matmul", a.data_ptr(), a.stride(0),
                         xt.data_ptr(), x.data_ptr(), out.data_ptr(),
                         part.data_ptr(), n, f, splits, _stream(x))

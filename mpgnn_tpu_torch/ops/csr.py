@@ -5,8 +5,10 @@ Counterpart of ``mpgnn_tpu/ops/pallas_csr.py``. One relation's aggregation
 runs in one of two forms, chosen per direction by ``build_csr_blocking``:
 
 * ``CsrBlocking`` -> K1 (``csrc/csr_scatter.cu``): a row-sorted CSR with
-  per-edge weights 1/deg; a group of threads per row gathers the row's
-  neighbours and sums them in registers.
+  per-edge weights 1/deg. The merged list of row ends and edges is cut into
+  equal shares (``k1_layout``), one thread group a share (merge-path); a row
+  longer than a share is cut and completed by a second, ordered pass over
+  the shares' carries.
 * ``DedupCsrBlocking`` -> K2 (``csrc/csr_dedup.cu``): for hub-skewed
   relations, where many edges of one row block repeat the same gather
   column and a few rows hold most edges. The edges are cut into pieces of
@@ -300,6 +302,17 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def k1_layout(width: int, vec: int) -> Tuple[int, int]:
+    """(lanes a group, items a share) of K1 for ``width`` columns read
+    ``vec`` floats at a time, as ``csrc/csr_scatter.cu`` lays them out: the
+    lanes a power of two that covers the columns, at most 32; a share 64
+    items (row ends and edges of the merged CSR list), or 16 per lane for
+    fewer than 4 lanes."""
+    chunks = max(width // vec, 1)
+    tpr = min(32, 1 << (chunks - 1).bit_length())
+    return tpr, (64 if tpr >= 4 else 16 * tpr)
+
+
 def csr_scatter(blk: CsrBlocking, x: torch.Tensor) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
     if x.device.type == "cpu":
@@ -307,15 +320,20 @@ def csr_scatter(blk: CsrBlocking, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda(x, blk)
-    out = torch.empty((blk.num_rows, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
     f = x.shape[1]
+    out = torch.empty((blk.num_rows, f), dtype=x.dtype, device=x.device)
+    e = blk.col.shape[0]
     vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    _, share = k1_layout(f, vec)
+    shares = max(-(-(blk.num_rows + e) // share), 1)
+    carry = torch.empty((shares, f), dtype=x.dtype, device=x.device)
+    share_row = torch.empty(shares, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         _kernels.launch(
             "csr_scatter", blk.row_ptr.data_ptr(), blk.col.data_ptr(),
             blk.weight.data_ptr(), x.data_ptr(), out.data_ptr(),
-            blk.num_rows, f, vec, _stream(x),
+            carry.data_ptr(), share_row.data_ptr(), blk.num_rows, e, f, vec,
+            share, _stream(x),
         )
     global SCATTER_LAUNCHES
     SCATTER_LAUNCHES += 1

@@ -50,16 +50,16 @@ def test_operand_is_bit_equal_to_jax(n, e):
 
 @pytest.mark.parametrize("n", [64, 257])
 def test_operand_rows_are_16_byte_aligned(n):
-    """a is contiguous; a_t's rows start every N rounded up to 8 elements
-    (K4's TMA copies need 16-byte row strides), the padding zero."""
+    """The rows of a and a_t start every N rounded up to 8 elements (the
+    TMA copies of K3 and K4 need 16-byte row strides), the padding zero."""
     src, dst = _relation(n, 4 * n)
     op = tconv.build_dense_conv_operand(src, dst, n, "cpu")
-    assert op.a.is_contiguous()
-    assert op.a_t.stride() == (-(-n // 8) * 8, 1)
     assert torch.equal(op.a_t, op.a.t())
-    storage = torch.as_strided(op.a_t, (n, op.a_t.stride(0)),
-                               op.a_t.stride())
-    assert not storage[:, n:].any()
+    for m in (op.a, op.a_t):
+        assert m.stride() == (-(-n // 8) * 8, 1) and m.shape == (n, n)
+        assert m.is_contiguous() == (n % 8 == 0)
+        storage = torch.as_strided(m, (n, m.stride(0)), m.stride())
+        assert not storage[:, n:].any()
 
 
 def test_operand_builds_on_the_card_unless_asked(monkeypatch):

@@ -190,6 +190,144 @@ def test_dedup_pieces_match_numpy_walk(case):
         assert len(fwd.level_pieces) - 1 == 3    # 60k -> 938 -> 15 -> 1
 
 
+def _path_search(ends, d, lo, hi):
+    """csrc/csr_scatter.cu's path_search: how many rows end among the first
+    d items of the merged list, row r ending at item r + ends[r]."""
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ends[mid] <= d - mid - 1:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_path_walk(blk, x, share):
+    """K1 in numpy, share by share as csrc/csr_scatter.cu runs it, summing
+    in float64: the first pass (a row of at most ``share`` edges summed
+    whole by the share where it begins, a longer one cut: its part in the
+    share where it ends written to out, earlier parts to carry slots), then
+    the carry pass. Unwritten entries are NaN, so reading one shows. Returns
+    (out, how often the first pass wrote each row, the rows the carry pass
+    completed, each share's (x0, y0), the most items a share walked)."""
+    rp = blk.row_ptr.numpy().astype(np.int64)
+    col, w = blk.col.numpy(), blk.weight.numpy().astype(np.float64)
+    n, e, f = blk.num_rows, len(col), x.shape[1]
+    total = n + e
+    shares = -(-total // share)
+    out = np.full((n, f), np.nan)
+    carry = np.full((shares, f), np.nan)
+    written = np.zeros(n, np.int64)
+    starts, share_row, most = [], [], 0
+    deg = np.diff(rp)
+    for s in range(shares):
+        d0, d1 = s * share, min((s + 1) * share, total)
+        x0 = _path_search(rp[1:], d0, max(0, d0 - e), min(d0, n))
+        x1 = _path_search(rp[1:], d1, max(0, d1 - e), min(d1, n))
+        y0, y1 = d0 - x0, d1 - x1
+        starts.append((x0, y0))
+        began = x0 < n and x0 + rp[x0] < d0
+        first_done = began and deg[x0] <= share
+        own_tail = (x1 < n and x1 + rp[x1] >= d0 and rp[x1] < y1
+                    and deg[x1] <= share)
+        share_row.append(x0 if began and not first_done and x0 < x1 else -1)
+        r_end = x1 + 1 if own_tail else x1
+        y_end = rp[x1 + 1] if own_tail else y1
+        r = x0 + 1 if first_done else x0
+        y_begin = min(rp[x0 + 1], y1) if first_done else y0
+        most = max(most, y_end - y_begin + max(r_end - r, 0))
+        acc = np.zeros(f)
+        for ed in range(y_begin, y_end):
+            while ed >= (rp[r + 1] if r < r_end else y_end):
+                out[r], acc, written[r] = acc, np.zeros(f), written[r] + 1
+                r += 1
+            acc = acc + w[ed] * x[col[ed]]
+        while r < r_end:
+            out[r], acc, written[r] = acc, np.zeros(f), written[r] + 1
+            r += 1
+        if not own_tail and x1 < n and y1 > max(y_begin, rp[x1]):
+            carry[s] = acc
+    completed = []
+    for s, r in enumerate(share_row if e > share else []):
+        if r >= 0:
+            first = (r + rp[r]) // share
+            out[r] = carry[first:s].sum(0) + out[r]
+            completed.append(r)
+    return out, written, completed, starts, most
+
+
+def _k1_case(case, share):
+    """(src, dst, n) of a relation: one hub row; rows that fill exactly one
+    share, or end on a share's first item, or span two; mostly rows without
+    edges; no edges at all; uniform."""
+    rng = np.random.default_rng(11)
+    if case == "hub":
+        n = 400
+        src = np.concatenate([np.full(3000, 17), rng.integers(0, n, 2000)])
+    elif case == "share_edges":
+        # rows 0-9: share - 1 edges + its end = one share each; row 10:
+        # share edges, its end the next share's first item; row 11: two
+        # shares' worth
+        deg = [share - 1] * 10 + [share, 2 * share - 1, 0, 0, 5]
+        n = len(deg) + 20
+        src = np.repeat(np.arange(len(deg)), deg)
+    elif case == "edgeless_rows":
+        n = 3000
+        src = rng.integers(0, n, 300)
+    elif case == "no_edges":
+        n = 100
+        src = np.zeros(0, np.int64)
+    else:
+        n = 500
+        src = rng.integers(0, n, 4000)
+    return src, rng.integers(0, n, len(src)), n
+
+
+@pytest.mark.parametrize("f", [1, 5])        # shares of 16 and 64 items
+@pytest.mark.parametrize("case", ["hub", "share_edges", "edgeless_rows",
+                                  "no_edges", "uniform"])
+def test_k1_merge_path_matches_numpy_walk(case, f):
+    """K1's merge-path partition and carry order, walked in numpy, against
+    csr_scatter_plain in both directions; each share's start against the
+    merged list built explicitly; every row written once by the first pass,
+    no share walking more than two shares' worth of items, and exactly the
+    rows longer than a share completed by the carry pass."""
+    _, share = tcsr.k1_layout(f, 1)
+    assert share == {1: 16, 5: 64}[f]
+    src, dst, n = _k1_case(case, share)
+    x = np.random.default_rng(3).standard_normal((n, f)).astype(np.float32)
+    fwd, bwd = tcsr.build_csr_blocking(src, dst, n, dedup="never")
+    for blk in (bwd, fwd):                # the forward's tables stay below
+        assert isinstance(blk, tcsr.CsrBlocking)
+        out, written, completed, starts, most = _merge_path_walk(blk, x,
+                                                                 share)
+        want = tcsr.csr_scatter_plain(blk, torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-7)
+        assert (written == 1).all() and most <= 2 * share
+        rp = blk.row_ptr.numpy().astype(np.int64)
+        ends = np.arange(n) + rp[1:]                 # item of each row's end
+        for s, (x0, y0) in enumerate(starts):
+            assert x0 == np.searchsorted(ends, s * share)
+            assert x0 + y0 == s * share
+        long_rows = np.flatnonzero(np.diff(rp) > share)
+        assert completed == long_rows.tolist()
+    if case == "share_edges":
+        assert (ends[:10] % share == share - 1).all()
+        assert ends[10] % share == 0 and long_rows.tolist() == [11]
+    if case == "hub":                     # row 17 spans 3000 / share shares
+        assert 17 in long_rows
+
+
+def test_k1_layout_covers_the_columns():
+    """K1's lanes a group cover a width's 16- or 4-byte chunks with a power
+    of two up to 32, and narrow widths take shorter shares."""
+    for width, vec, want in ((1, 1, (1, 16)), (2, 1, (2, 32)),
+                             (4, 4, (1, 16)), (7, 1, (8, 64)),
+                             (16, 4, (4, 64)), (64, 4, (16, 64)),
+                             (100, 4, (32, 64)), (256, 4, (32, 64))):
+        assert tcsr.k1_layout(width, vec) == want
+
+
 def test_wrappers_count_no_launch_on_cpu():
     src, dst, x = _rand_graph(200, 800, 4)
     before = (tcsr.SCATTER_LAUNCHES, tcsr.DEDUP_LAUNCHES)

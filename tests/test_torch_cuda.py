@@ -1,13 +1,14 @@
 """The CUDA kernels K1 (csrc/csr_scatter.cu), K2 (csrc/csr_dedup.cu), K3
-(csrc/dense_conv.cu) and K4 (csrc/dense_matmul.cu) against their plain
-PyTorch versions on the GPU, at the edge cases of their layouts, and the
-gradients that run them. Marked ``cuda``: they skip where no GPU is found.
+and K4 (both csrc/dense_matmul.cu) against their plain PyTorch versions on
+the GPU, at the edge cases of their layouts, and the gradients that run
+them. Marked ``cuda``: they skip where no GPU is found.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance rtol = atol = 1e-5: the kernels sum float32 (K1 compensated, K2
-in pieces of at most 64) and the plain versions float64, in other orders;
+Tolerance rtol = atol = 1e-5: the kernels sum float32 (K1 and K2
+compensated, in shares or pieces of at most 64 items and ordered passes
+over their parts) and the plain versions float64, in other orders;
 K3 and K4 sum the same bf16-rounded operands as their plain versions.
 Gradients through K3 and K4 are held at 1e-4: their small GEMMs are
 float32 on the card and on the CPU, in other orders."""
@@ -109,6 +110,48 @@ def test_dedup_kernel_cuts_hub_rows(dev, case, f):
             assert not got.any()
 
 
+def _k1_graph(case, share):
+    """One row of 60k edges (about 940 shares of 64 items), rows of
+    share - 1 edges that with their ends fill exactly one share each, or an
+    edgeless relation."""
+    if case == "hub_row":
+        n = 3000
+        src, dst = _graph(n, 70000, True, seed=2)
+        src[:60000] = 11
+    elif case == "one_share_rows":
+        n = 2000
+        src = np.repeat(np.arange(1000), share - 1)
+        dst = np.random.default_rng(4).integers(0, n, len(src))
+    else:
+        n = 300
+        src = dst = np.zeros(0, dtype=np.int64)
+    return n, src, dst
+
+
+@pytest.mark.parametrize("f", [1, 4, 7, 64, 100])
+@pytest.mark.parametrize("case", ["hub_row", "one_share_rows", "edgeless"])
+def test_scatter_kernel_balances_long_rows(dev, case, f):
+    """K1 in both directions against its plain version, and a second launch
+    on the same input bitwise-equal to the first (no atomics, the carries
+    added in share order)."""
+    _, share = csr.k1_layout(f, 4 if f % 4 == 0 else 1)
+    n, src, dst = _k1_graph(case, share)
+    x = torch.randn(n, f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(f))
+    for blk in csr.build_csr_blocking(src, dst, n, dedup="never"):
+        assert isinstance(blk, csr.CsrBlocking)
+        blk = blk.to(dev)
+        before = csr.SCATTER_LAUNCHES
+        got = csr.csr_scatter(blk, x)
+        again = csr.csr_scatter(blk, x)
+        torch.cuda.synchronize()
+        assert csr.SCATTER_LAUNCHES == before + 2
+        torch.testing.assert_close(got, csr.csr_scatter_plain(blk, x), **TOL)
+        assert torch.equal(got, again)
+        if case == "edgeless":
+            assert not got.any()
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     src, dst = _graph(100, 400, False)
     fwd, _ = csr.build_csr_blocking(src, dst, 100)
@@ -141,7 +184,7 @@ def _conv_inputs(n, e, f, hdim, dev, seed=0):
 
 @pytest.mark.parametrize("n,e,f,hdim", [
     (100, 400, 8, 16),
-    (257, 1500, 2, 64),       # n not a multiple of 8 (2-byte loads), nor 32
+    (257, 1500, 2, 64),       # n not a multiple of 8 (padded row stride)
     (1000, 4000, 1, 64),      # F = 1
     (1000, 4000, 64, 64),
     (5000, 5000, 2, 64),      # the shipped dataset's shapes, hop 0
@@ -188,6 +231,33 @@ def test_matmul_kernel_splits_the_reduction(dev, n, f):
     if n % 8:
         with pytest.raises(ValueError, match="aligned"):
             conv.dense_matmul(op.a_t.contiguous(), h)
+
+
+@pytest.mark.parametrize("f", [1, 2, 64, 200])
+@pytest.mark.parametrize("n", [257, 1000, 5000])
+def test_conv_kernel_splits_the_reduction(dev, n, f):
+    """K3 (out and agg) against its plain version on the main loop's split
+    reduction, where the splits do not divide it, and a second launch
+    bitwise-equal to the first; an operand without the padded row stride is
+    refused."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, w, root, b) = _conv_inputs(n, 4 * n, f, 64, dev, seed=n + f)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = conv.matmul_splits(n, sms)
+    assert splits > 1 and (n % splits or n % 64)
+    before = conv.CONV_LAUNCHES
+    out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+    again_out, again_agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+    torch.cuda.synchronize()
+    assert conv.CONV_LAUNCHES == before + 2
+    want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+    torch.testing.assert_close(agg, want_agg, **TOL)
+    torch.testing.assert_close(out, want_out, **TOL)
+    assert torch.equal(out, again_out) and torch.equal(agg, again_agg)
+    if n % 8:
+        with pytest.raises(ValueError, match="aligned"):
+            conv.dense_conv_fwd(op.a.contiguous(), h, w, root, b)
 
 
 @pytest.mark.parametrize("h_grad", [False, True])
