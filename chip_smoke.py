@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [--package-root DIR]
+    python3 chip_smoke.py --search-only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -59,20 +60,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    with ``bench.py``'s bench_train_at_scale labels and metapath [0, 1], 100
    epochs, 'csr' against 'segment'; (c) the power-law KG with the serving
    metapaths, 20 epochs, 'csr'. Then one torch.profiler window of 5 epochs
-   of (a)-pallas and (b)-csr.
+   of (a)-pallas and (b)-csr;
+8. the metapath search: (a) ``python -m mpgnn_tpu_torch.run`` on
+   ``data/synthetic_multiclass`` as users run it (hidden 64, the
+   reference's 3 extension hops, ``--backend csr``, 3 one-vs-rest classes,
+   MPNetm cut from 1000 to 150 epochs, see ``SEARCH_EPOCHS``), in a child
+   process: each class's metapaths, test
+   F1, candidates and stage times (hop-0 sweep, each bag hop, final
+   evaluation, greedy accumulation) from the engine's log lines; (b) class
+   0 again in this process through ``find_metapaths`` with
+   ``backend='segment'``: the same candidates in the same order, every
+   candidate's validation F1 within 3e-2 of (a)'s (``PALLAS_F1_ATOL``),
+   the same selected metapaths unless two of the top candidates lie within
+   that bound, and two hop-0 sweeps bitwise equal; (c) the search on the
+   power-law KG of phase 2 (sources the labeled subset, beam 4, 2
+   extension hops, ``bag_gap_inclusive``, csr, MPNetm cut to 100 epochs),
+   which must discover the planted path, and one torch.profiler window
+   over one restart round of the planted path's hop-1 bag sweep.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
-just after phase 4 (K1 and K2 must have launched there), and set to 0 again
+just after phase 4 (K1 and K2 must have launched there), set to 0 again
 after phase 7's gradient checks and read after its training runs (K1, K2,
-K3, K4 and the csr backward must have launched there). The last lines are
-the card's name and power limit, one JSON line with a record per kernel,
-and
-``{"ok": true, "device": {...}}``.
+K3, K4 and the csr backward must have launched there), and set to 0 before
+phase 8 and read after it (K1 and the csr backward must have launched in
+this process: (c) trains through them; (a) runs in its own process). The
+last lines are the card's name and power limit, one JSON line with a
+record per kernel, and ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 6 alone and prints one JSON line
 per kernel shape; ``--package-root DIR`` takes ``mpgnn_tpu_torch`` from the
 checkout DIR (the parent of a change, say), so that two versions of the
 kernels are timed by the same script on one card, in turns.
+``--search-only`` runs phases 1 and 8 alone.
 """
 
 from __future__ import annotations
@@ -80,6 +99,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -748,6 +768,222 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
                   launches_per_epoch=c / epochs) for k, t, c in rows[:10]])
 
 
+# Phase 8 (a) and (b): the MPNetm evaluation epochs, cut from the
+# reference's 1000 so that phase 8 stays within about 6 minutes: at 1000,
+# (a) took 655 s and (b) 178 s of host-bound training (75 and 15 candidates
+# at 5-8 ms an epoch on an H100 80GB HBM3 at its 700 W limit), at 300 phase
+# 8 took 472 s. The sweeps do not depend on it.
+SEARCH_EPOCHS = 150
+SEARCH_CLI = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
+              "--folder", SYNTH, "--node_file", "node.dat", "--link_file",
+              "link.dat", "--label_file", "label.dat", "--backend", "csr",
+              "--epochs", str(SEARCH_EPOCHS)]
+KG_SEARCH_EPOCHS = 100
+_STAGE_RES = (
+    ("hop0", re.compile(r"hop-0 losses: .* \(([0-9.]+)s\)$")),
+    ("hop", re.compile(r"hop (\d+): swept .* in ([0-9.]+)s$")),
+    ("final_eval", re.compile(r"final eval of \d+ candidates: ([0-9.]+)s$")),
+    ("greedy", re.compile(r"final meta: .* \(greedy ([0-9.]+)s\)$")),
+)
+
+
+def stage_times(stderr: str) -> list:
+    """Per class, the engine's stage times (s) from its log lines."""
+    classes, cur = [], {}
+    for line in stderr.splitlines():
+        for name, pat in _STAGE_RES:
+            m = pat.search(line)
+            if not m:
+                continue
+            if name == "hop":
+                cur[f"hop{m.group(1)}"] = float(m.group(2))
+            else:
+                cur[name] = float(m.group(1))
+            if name == "greedy":
+                classes.append(cur)
+                cur = {}
+    return classes
+
+
+def search_cli_run() -> dict:
+    """Phase 8 (a): ``python -m mpgnn_tpu_torch.run`` on
+    ``data/synthetic_multiclass`` as users run it (3 extension hops, csr,
+    ``SEARCH_EPOCHS`` epochs); the per-class checkpoint gives each class's
+    candidates and their validation F1."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "search.json")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mpgnn_tpu_torch.run", *SEARCH_CLI,
+             "--pickle_filename", ck],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"search CLI failed:\n{out.stderr[-3000:]}")
+        with open(ck) as f:
+            per_class = json.load(f)
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    stages = stage_times(out.stderr)
+    check(set(summary) >= {"dataset", "classes", "wall_s"}
+          and len(summary["classes"]) == 3 and len(stages) == 3,
+          f"search CLI summary {summary}, stage times {stages}")
+    for k, v in summary["classes"].items():
+        check(0.0 <= v["test_f1"] <= 1.0 and v["metapaths"],
+              f"class {k}: {v}")
+    log(phase="search_cli", dataset="data/synthetic_multiclass",
+        epochs=SEARCH_EPOCHS,
+        reduced=[f"MPNetm epochs 1000 -> {SEARCH_EPOCHS}"], max_hops=3,
+        backend="csr", hidden=HIDDEN, process_wall_s=wall, summary=summary,
+        classes={k: dict(metapaths=summary["classes"][k]["metapaths"],
+                         test_f1=summary["classes"][k]["test_f1"],
+                         candidates=len(per_class[k]["discovered"]),
+                         stage_s=stages[int(k)],
+                         stages_total_s=sum(stages[int(k)].values()))
+                 for k in summary["classes"]})
+    return per_class
+
+
+def search_segment_check(torch, per_class) -> None:
+    """Phase 8 (b): class 0's search in-process with ``backend='segment'``
+    against (a)'s csr run, and two hop-0 sweeps on the card bitwise
+    equal."""
+    from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
+    from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
+    from mpgnn_tpu_torch.search import bags as bagmod
+    from mpgnn_tpu_torch.search import find_metapaths, score_relations_flat
+
+    graph, labels, binary = load_dat_files(
+        *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                           "label.dat")))
+    y0 = np.asarray(binary[0], dtype=np.float32)
+    cands = bagmod.connected_relations(graph, node_labels=y0)
+    sweeps = [score_relations_flat(graph, cands, y0, None,
+                                   rng=np.random.default_rng(0),
+                                   device="cuda") for _ in range(2)]
+    for r in cands:
+        check(sweeps[0][r].loss == sweeps[1][r].loss and np.array_equal(
+            sweeps[0][r].weights, sweeps[1][r].weights),
+            f"hop-0 sweeps differ on relation {r}")
+    cfg = SearchConfig(mpgnn=MPGNNConfig(epochs=SEARCH_EPOCHS,
+                                         hidden_dim=HIDDEN))
+    t0 = time.perf_counter()
+    res = find_metapaths(graph, y0, split_nodes(labels), 3, cfg,
+                         dataset="synthetic", seed=0, backend="segment",
+                         device="cuda")
+    wall = time.perf_counter() - t0
+    csr_run = per_class["0"]
+    check(res.discovered == csr_run["discovered"],
+          f"segment discovered {res.discovered}, csr "
+          f"{csr_run['discovered']}")
+    d_val = {p: abs(res.val_f1_by_path[p] - v)
+             for p, v in csr_run["val_f1_by_path"].items()}
+    worst = max(d_val, key=d_val.get)
+    rank_seg = sorted(res.val_f1_by_path.items(), key=lambda kv: -kv[1])
+    rank_csr = sorted(csr_run["val_f1_by_path"].items(),
+                      key=lambda kv: -kv[1])
+    top = [v for _, v in rank_csr[: cfg.top_k_final + 1]]
+    close = any(abs(a - b) <= PALLAS_F1_ATOL for a, b in zip(top, top[1:]))
+    log(phase="search_check", dataset="data/synthetic_multiclass", cls=0,
+        hop0_sweeps_bitwise_equal=True, candidates=len(res.discovered),
+        discovered_equal=True, max_val_f1_diff=d_val[worst],
+        worst_path=worst, val_f1_atol=PALLAS_F1_ATOL,
+        metapaths_segment=res.metapaths, metapaths_csr=csr_run["metapaths"],
+        test_f1_segment=res.test_f1, test_f1_csr=csr_run["test_f1"],
+        top_within_bound=close, segment_wall_s=wall,
+        segment_stage_s=res.stage_s,
+        rankings=dict(segment=rank_seg, csr=rank_csr) if close else None)
+    check(d_val[worst] <= PALLAS_F1_ATOL,
+          f"val F1 of {worst}: segment vs csr {d_val[worst]}")
+    check(close or res.metapaths == csr_run["metapaths"],
+          f"selected metapaths: segment {res.metapaths}, csr "
+          f"{csr_run['metapaths']}")
+
+
+def kg_search(torch, csr, conv, graph, planted, kg) -> None:
+    """Phase 8 (c): the search on the 200k-node power-law KG, sources the
+    labeled subset (examples/run_powerlaw_kg.py), beam 4, 2 extension hops,
+    csr, MPNetm cut to KG_SEARCH_EPOCHS epochs; then one restart round of
+    a hop-1 state's bag sweep under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgnn_tpu_torch.config import (
+        MPGNNConfig,
+        ScorerConfig,
+        SearchConfig,
+    )
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.search import bags as bagmod
+    from mpgnn_tpu_torch.search import find_metapaths, score_bag_tasks
+
+    ln = kg["label_nodes"]
+    labels = kg["labels"][ln]
+    cfg = SearchConfig(
+        max_extension_hops=2, bag_gap_inclusive=True,
+        max_extensions_per_state=4,
+        mpgnn=MPGNNConfig(hidden_dim=HIDDEN, epochs=KG_SEARCH_EPOCHS,
+                          backend="csr"))
+    before = read_counts(csr, conv)
+    t0 = time.perf_counter()
+    res = find_metapaths(graph, labels.astype(np.float32),
+                         split_nodes(labels, node_idx=ln), 2, cfg,
+                         source_nodes=ln, seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in read_counts(csr, conv).items()}
+    found = planted in [list(p) for p in res.discovered]
+    log(phase="search_kg", nodes=graph.num_nodes, edges=graph.num_edges,
+        relations=graph.num_relations, labeled=len(ln), planted=planted,
+        recovered=found, metapaths=res.metapaths, test_f1=res.test_f1,
+        candidates=len(res.discovered), epochs=KG_SEARCH_EPOCHS,
+        reduced=[f"MPNetm epochs 1000 -> {KG_SEARCH_EPOCHS}"], wall_s=wall,
+        stage_s=res.stage_s, launches=launches)
+    check(found, f"planted {planted} not in {res.discovered}")
+    check(0.0 <= res.test_f1 <= 1.0, f"KG test F1 {res.test_f1}")
+
+    # one bag restart round of the planted path's hop-1 state
+    node_labels = np.zeros(graph.num_nodes, np.float32)
+    node_labels[ln] = labels
+    ed, dd = bagmod.build_dictionaries(graph, planted[-1], ln, node_labels)
+    bag_list, bag_labels = bagmod.create_bags(ed, dd)
+    members = sorted(set(m for b in bag_list for m in b))
+    tasks = [(0, bagmod.connected_relations(graph, bag_members=members),
+              bag_list, bag_labels)]
+    one = ScorerConfig(max_restarts=1)
+    score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
+                    device="cuda")
+    torch.cuda.synchronize()
+    stats = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
+                        stats=stats, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    log(phase="search_profile", graph="powerlaw_kg",
+        state=[planted[-1]], instances=len(tasks[0][1]),
+        bags=len(bag_list), chunks=[dict((k, s[k]) for k in (
+            "mode", "R", "E", "C", "B", "M", "P")) for s in stats],
+        epochs=one.epochs_bags, wall_ms=wall_us / 1e3,
+        device_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
+        top=[dict(name=k[:80], ms=t / 1e3, launches=c)
+             for k, t, c in rows[:10]])
+
+
+def search_phase(torch, csr, conv, graph_k, planted, kg) -> dict:
+    """Phase 8: (a), (b) and (c), the launch counts set to 0 before and
+    read after."""
+    reset_counts(csr, conv)
+    per_class = search_cli_run()
+    search_segment_check(torch, per_class)
+    kg_search(torch, csr, conv, graph_k, planted, kg)
+    launches = read_counts(csr, conv)
+    log(phase="search_launches", **launches)
+    check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
+          f"K1 or the csr backward did not launch in the search: {launches}")
+    return launches
+
+
 def reset_counts(csr, conv) -> None:
     csr.SCATTER_LAUNCHES = csr.DEDUP_LAUNCHES = 0
     csr.CSR_BACKWARD_LAUNCHES = 0
@@ -769,6 +1005,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1, 2 and 6 alone")
+    ap.add_argument("--search-only", action="store_true",
+                    help="run phases 1 and 8 alone")
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose mpgnn_tpu_torch is driven")
     args = ap.parse_args()
@@ -815,6 +1053,12 @@ def main() -> int:
     log(phase="graphs", seconds=time.perf_counter() - t0, planted=planted,
         largest=largest,
         largest_edges=[int(graph_k.rel_counts[r]) for r in largest])
+    if args.search_only:
+        t0 = time.perf_counter()
+        search_phase(torch, csr, conv, graph_k, planted, kg)
+        log(phase="done", seconds=time.perf_counter() - t_start,
+            search_s=time.perf_counter() - t0)
+        return 0
     records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest,
                            planted[2])
     if args.kernels_only:
@@ -876,6 +1120,12 @@ def main() -> int:
                   split_s, 3, "pallas", pallas_ms)
     train_profile(torch, "uniform", graph_u, [[0, 1]], split_u, 2, "csr",
                   csr_ms)
+    del graph_u, split_u
+
+    # 8. the search: the CLI, csr against segment, the KG
+    t0 = time.perf_counter()
+    search_launches = search_phase(torch, csr, conv, graph_k, planted, kg)
+    log(phase="search_done", seconds=time.perf_counter() - t0)
 
     meta = {
         "csr_scatter": ("mpgnn_tpu_torch/csrc/csr_scatter.cu",
@@ -912,9 +1162,11 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
-            launches=serve_launches[name] + train_launches[name],
+            launches=(serve_launches[name] + train_launches[name]
+                      + search_launches[name]),
             launches_serve=serve_launches[name],
             launches_train=train_launches[name],
+            launches_search=search_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],

@@ -10,11 +10,11 @@ rows for sources with no edge of the selected relation.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mpgnn_tpu_torch.native import degrees, sort_by_relation
+from mpgnn_tpu_torch.native import build_ell, degrees, sort_by_relation
 
 
 def _as_int32(a) -> np.ndarray:
@@ -85,7 +85,7 @@ class HeteroGraph:
         self.sorted_type = edge_type[order]
         self.rel_ptr = rel_ptr
         self.rel_counts = np.diff(rel_ptr).astype(np.int64)
-        self._cache: Dict[Tuple[str, int], object] = {}
+        self._cache: Dict[tuple, object] = {}
 
     def rel_slice(self, relation: int) -> Tuple[int, int]:
         """(start, end) offsets of a relation's edge segment."""
@@ -106,6 +106,21 @@ class HeteroGraph:
             self._cache[key] = (src[order], dst[order])
         return self._cache[key]
 
+    def present_relations(self) -> List[int]:
+        """Relations with at least one edge."""
+        return [r for r in range(self.num_relations) if self.rel_counts[r] > 0]
+
+    def rel_endpoint_nodes(self, relation: int) -> np.ndarray:
+        """Sorted unique node ids incident to one relation's edges (cached):
+        the relation's compact index space. Every node a per-relation
+        scorer reads or writes is an endpoint, so the segment-form sweeps
+        keep their state in [|endpoints|] instead of [N]."""
+        key = ("nodes", int(relation))
+        if key not in self._cache:
+            src, dst = self.rel_edges(relation)
+            self._cache[key] = np.unique(np.concatenate([src, dst]))
+        return self._cache[key]
+
     def rel_degrees(self, relation: int) -> np.ndarray:
         """Per-node out-degree of one relation (int32, cached)."""
         key = ("deg", int(relation))
@@ -113,6 +128,41 @@ class HeteroGraph:
             self._cache[key] = degrees(self.rel_edges(relation)[0],
                                        self.num_nodes)
         return self._cache[key]
+
+    def rel_max_degree(self, relation: int) -> int:
+        """Largest out-degree of one relation (at least 1)."""
+        deg = self.rel_degrees(relation)
+        return max(int(deg.max()) if deg.size else 0, 1)
+
+    def neighbor_table(
+        self, relation: int, max_degree: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """ELL table of one relation (cached): ``(nbr [N, D], mask [N, D])``,
+        row i the destinations of the edges ``(i, relation, d)`` in file
+        order, D the largest out-degree (or ``max_degree`` if smaller)."""
+        key = ("ell", int(relation), -1 if max_degree is None
+               else int(max_degree))
+        if key not in self._cache:
+            src, dst = self.rel_edges(relation)
+            d_max = self.rel_max_degree(relation)
+            if max_degree is not None:
+                d_max = min(d_max, int(max_degree))
+            nbr, mask, _ = build_ell(src, dst, self.num_nodes, max(d_max, 1))
+            self._cache[key] = (nbr, mask)
+        return self._cache[key]
+
+    def edge_dictionary(
+        self, relation: int, source_nodes: Sequence[int]
+    ) -> Dict[int, List[int]]:
+        """``{src: [dsts]}`` of one relation restricted to ``source_nodes``,
+        in file order; sources without edges are left out."""
+        src, dst = self.rel_edges(relation)
+        wanted = set(int(v) for v in source_nodes)
+        out: Dict[int, List[int]] = {}
+        for s, d in zip(src.tolist(), dst.tolist()):
+            if s in wanted:
+                out.setdefault(s, []).append(d)
+        return out
 
     def __repr__(self) -> str:
         return (

@@ -47,6 +47,33 @@ def degrees(src: np.ndarray, num_nodes: int) -> np.ndarray:
     ).astype(np.int32)
 
 
+def build_ell(
+    src: np.ndarray, dst: np.ndarray, num_nodes: int, max_degree: int
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """ELL neighbour table of one relation: ``(nbr [N, D] int32, mask [N, D]
+    bool, largest out-degree)``. Row i holds the first ``max_degree``
+    destinations of source i in input (file) order; unused slots are 0 and
+    masked."""
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    nbr = np.zeros((num_nodes, max_degree), dtype=np.int32)
+    mask = np.zeros((num_nodes, max_degree), dtype=bool)
+    if len(src) == 0:
+        return nbr, mask, 0
+    deg = np.bincount(src, minlength=num_nodes)
+    # a stable sort by source keeps file order inside each row; an edge's
+    # slot is its rank inside its source's run
+    order = np.argsort(src, kind="stable")
+    rs, cs = src[order], dst[order]
+    starts = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot = np.arange(len(src), dtype=np.int64) - starts[rs]
+    keep = slot < max_degree
+    nbr[rs[keep], slot[keep]] = cs[keep]
+    mask[rs[keep], slot[keep]] = True
+    return nbr, mask, int(deg.max())
+
+
 def sort_block_col(rows: np.ndarray, cols: np.ndarray, bm: int) -> np.ndarray:
     """Edge permutation by (rows // bm, cols, index): edges grouped by row
     block, by column inside a block, stable."""

@@ -1,9 +1,10 @@
-"""Parameters of the JAX package, as numpy arrays, into the port's MPNetm.
+"""Parameters of the JAX package, as numpy arrays, into the port's models.
 
-The input tree has ``convs[i][j].{weight, root, bias}``, ``fc1.{w, b}`` and
-``fc2.{w, b}``; each field is read by attribute or by key, so a NamedTuple
-tree, a dict tree or a mix works, and the port never imports the JAX
-package.
+``params_from_jax``: the MPNetm tree has ``convs[i][j].{weight, root,
+bias}``, ``fc1.{w, b}`` and ``fc2.{w, b}``. ``scorer_params_from_jax``: the
+relation scorer's ``{w, u}``. Each field is read by attribute or by key, so
+a NamedTuple tree, a dict tree or a mix works, and the port never imports
+the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.models.mpgnn import MPNetm
 from mpgnn_tpu_torch.models.relconv import RelConvParams
+from mpgnn_tpu_torch.models.scorer import ScorerParams
 
 
 def _get(node, name: str):
@@ -50,3 +52,11 @@ def params_from_jax(tree, device=None) -> MPNetm:
         fc.weight.copy_(_t(_get(_get(tree, name), "w")).T)
         fc.bias.copy_(_t(_get(_get(tree, name), "b")))
     return model
+
+
+def scorer_params_from_jax(tree, device=None) -> ScorerParams:
+    """The relation scorer's ``w`` [N] and ``u`` [F] as float32 tensors on
+    ``device``."""
+    device = resolve_device(device)
+    return ScorerParams(w=_t(_get(tree, "w")).to(device),
+                        u=_t(_get(tree, "u")).to(device))

@@ -326,3 +326,71 @@ def test_csr_backward_runs_the_kernels(dev, dedup):
             assert after[k] == before[k] + 2          # forward and backward
         grads.append(xl.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], **TOL)
+
+
+# ------------------------------------------------------- search sweeps
+def _sweep_graph():
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+
+    rng = np.random.default_rng(3)
+    n = 400
+    src = np.concatenate([rng.integers(0, 200, 1500), np.zeros(300, int)])
+    dst = rng.integers(200, n, len(src))
+    rel = rng.integers(0, 3, len(src))
+    x = rng.random((n, 3)).astype(np.float32)
+    tasks = [(0, [0, 1, 2], [[200, 201, 202], [203], [204, 205]],
+              np.float32([1, 0, 1])),
+             (1, [1], [[210, 211], [212]], np.float32([1, 0]))]
+    return HeteroGraph(x, src, dst, rel, num_relations=3), tasks
+
+
+def _sweeps(graph, tasks, device):
+    from mpgnn_tpu_torch.config import ScorerConfig
+    from mpgnn_tpu_torch.search import scoring
+
+    labels = np.random.default_rng(0).random(graph.num_nodes).astype(
+        np.float32)
+    cfg = ScorerConfig(epochs_flat=30, epochs_bags=15, max_restarts=4)
+    flat = scoring.score_relations_flat(graph, [0, 1, 2], labels, None, cfg,
+                                        np.random.default_rng(1),
+                                        device=device)
+    bags = scoring.score_bag_tasks(graph, tasks, cfg,
+                                   np.random.default_rng(2), device=device)
+    return flat, bags
+
+
+@pytest.mark.parametrize("form", ["ell", "seg"])
+def test_search_sweeps_on_the_card(dev, monkeypatch, form):
+    """The scoring sweeps on the card against the CPU (losses rtol 1e-5,
+    atol 1e-6; weights and member values rtol 1e-4, atol 1e-5: the
+    gradient's duplicate terms are summed in another order), with equal
+    decisions, and a second run on the card bitwise equal to the first."""
+    from mpgnn_tpu_torch.search import scoring
+
+    monkeypatch.setattr(scoring, "_MEM_BUDGET_ENTRIES", 1_000_000)
+    if form == "seg":
+        monkeypatch.setattr(scoring, "_SEG_RATIO", 0)
+    graph, tasks = _sweep_graph()
+    card = _sweeps(graph, tasks, dev)
+    again = _sweeps(graph, tasks, dev)
+    cpu = _sweeps(graph, tasks, "cpu")
+    for r, s in cpu[0].items():
+        np.testing.assert_allclose(card[0][r].loss, s.loss, rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(card[0][r].weights, s.weights, rtol=1e-4,
+                                   atol=1e-5)
+        assert card[0][r].loss == again[0][r].loss
+        np.testing.assert_array_equal(card[0][r].weights, again[0][r].weights)
+    for tid, scores in cpu[1].items():
+        for r, s in scores.items():
+            c, a = card[1][tid][r], again[1][tid][r]
+            assert (c.degenerate, c.num_restarts) == (s.degenerate,
+                                                      s.num_restarts)
+            np.testing.assert_allclose(c.loss, s.loss, rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(c.member_pred_max, s.member_pred_max,
+                                       rtol=1e-4, atol=1e-5)
+            np.testing.assert_array_equal(c.member_recorded,
+                                          s.member_recorded)
+            assert c.loss == a.loss
+            np.testing.assert_array_equal(c.weights, a.weights)
+            np.testing.assert_array_equal(c.attribution, a.attribution)

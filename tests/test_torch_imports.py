@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "mpgnn_tpu", "pandas", "sklearn", "orbax")
+FORBIDDEN = ("jax", "mpgnn_tpu", "optax", "pandas", "sklearn", "orbax")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -24,8 +24,11 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
+        "mpgnn_tpu_torch.search.engine", "mpgnn_tpu_torch.models.scorer",
+        "mpgnn_tpu_torch.run"}}
+print(len(names), bad, sorted(need - set(names)))
+sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """
 
 
@@ -58,6 +61,12 @@ def test_entry_points_without_device_raise_on_cpu_only():
         init_mpgnn(2, 4, 2, [[0]])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_hop_arrays(g, [[0]], backend="csr")
+    from mpgnn_tpu_torch.search import find_metapaths, score_relations_flat
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        score_relations_flat(g, [0], np.zeros(4, np.float32), None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        find_metapaths(g, np.zeros(4, np.float32), None, 2)
 
 
 def test_chip_smoke_refuses_without_cuda():
