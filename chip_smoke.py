@@ -75,16 +75,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    that bound, and two hop-0 sweeps bitwise equal; (c) the search on the
    power-law KG of phase 2 (sources the labeled subset, beam 4, 2
    extension hops, ``bag_gap_inclusive``, csr, MPNetm cut to 100 epochs),
-   which must discover the planted path, and one torch.profiler window
-   over one restart round of the planted path's hop-1 bag sweep.
+   which must discover the planted path, and one restart round of the
+   planted path's hop-1 bag sweep run twice from one seed, bitwise equal,
+   the second under torch.profiler.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
 after phase 7's gradient checks and read after its training runs (K1, K2,
-K3, K4 and the csr backward must have launched there), and set to 0 before
-phase 8 and read after it (K1 and the csr backward must have launched in
-this process: (c) trains through them; (a) runs in its own process). The
-last lines are the card's name and power limit, one JSON line with a
+K3, K4 and the csr backward must have launched there). In phase 8 the two
+csr searches count their own: (a) in its child process, which starts at
+0 and prints its counts when the CLI ends, (c) set to 0 just before it
+and read just after; K1 and the csr backward must have launched in each.
+The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 6 alone and prints one JSON line
@@ -779,6 +781,23 @@ SEARCH_CLI = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
               "link.dat", "--label_file", "label.dat", "--backend", "csr",
               "--epochs", str(SEARCH_EPOCHS)]
 KG_SEARCH_EPOCHS = 100
+# Phase 8 (a)'s child process: ``python -m mpgnn_tpu_torch.run`` (runpy runs
+# the module as ``-m`` does), then that process's own launch counts as the
+# last line of its stderr.
+_CLI_CHILD = """\
+import json, runpy, sys
+from mpgnn_tpu_torch.ops import conv, csr
+sys.argv = ["mpgnn_tpu_torch.run"] + sys.argv[1:]
+try:
+    runpy.run_module("mpgnn_tpu_torch.run", run_name="__main__",
+                     alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps({
+        "csr_scatter": csr.SCATTER_LAUNCHES, "csr_dedup": csr.DEDUP_LAUNCHES,
+        "csr_backward_passes": csr.CSR_BACKWARD_LAUNCHES,
+        "dense_conv": conv.CONV_LAUNCHES,
+        "dense_matmul": conv.MATMUL_LAUNCHES}), file=sys.stderr, flush=True)
+"""
 _STAGE_RES = (
     ("hop0", re.compile(r"hop-0 losses: .* \(([0-9.]+)s\)$")),
     ("hop", re.compile(r"hop (\d+): swept .* in ([0-9.]+)s$")),
@@ -805,22 +824,25 @@ def stage_times(stderr: str) -> list:
     return classes
 
 
-def search_cli_run() -> dict:
+def search_cli_run() -> tuple:
     """Phase 8 (a): ``python -m mpgnn_tpu_torch.run`` on
     ``data/synthetic_multiclass`` as users run it (3 extension hops, csr,
-    ``SEARCH_EPOCHS`` epochs); the per-class checkpoint gives each class's
-    candidates and their validation F1."""
+    ``SEARCH_EPOCHS`` epochs), in a child process whose launch counts
+    start at 0. Returns (the per-class checkpoint, which gives each
+    class's candidates and their validation F1; the child's launches)."""
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "search.json")
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-m", "mpgnn_tpu_torch.run", *SEARCH_CLI,
+            [sys.executable, "-c", _CLI_CHILD, *SEARCH_CLI,
              "--pickle_filename", ck],
             cwd=ROOT, capture_output=True, text=True, timeout=900)
         wall = time.perf_counter() - t0
         check(out.returncode == 0, f"search CLI failed:\n{out.stderr[-3000:]}")
         with open(ck) as f:
             per_class = json.load(f)
+    launches = json.loads(out.stderr.strip().splitlines()[-1].split(
+        "LAUNCHES ", 1)[1])
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     stages = stage_times(out.stderr)
     check(set(summary) >= {"dataset", "classes", "wall_s"}
@@ -838,8 +860,12 @@ def search_cli_run() -> dict:
                          candidates=len(per_class[k]["discovered"]),
                          stage_s=stages[int(k)],
                          stages_total_s=sum(stages[int(k)].values()))
-                 for k in summary["classes"]})
-    return per_class
+                 for k in summary["classes"]},
+        launches=launches)
+    check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
+          f"K1 or the csr backward did not launch in the CLI's search: "
+          f"{launches}")
+    return per_class, launches
 
 
 def search_segment_check(torch, per_class) -> None:
@@ -898,11 +924,13 @@ def search_segment_check(torch, per_class) -> None:
           f"{csr_run['metapaths']}")
 
 
-def kg_search(torch, csr, conv, graph, planted, kg) -> None:
+def kg_search(torch, csr, conv, graph, planted, kg) -> dict:
     """Phase 8 (c): the search on the 200k-node power-law KG, sources the
     labeled subset (examples/run_powerlaw_kg.py), beam 4, 2 extension hops,
-    csr, MPNetm cut to KG_SEARCH_EPOCHS epochs; then one restart round of
-    a hop-1 state's bag sweep under torch.profiler."""
+    csr, MPNetm cut to KG_SEARCH_EPOCHS epochs, its launch counts set to 0
+    before it and returned; then one restart round of a hop-1 state's bag
+    sweep twice from the same seed, bitwise equal, the second under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpgnn_tpu_torch.config import (
@@ -921,13 +949,13 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> None:
         max_extensions_per_state=4,
         mpgnn=MPGNNConfig(hidden_dim=HIDDEN, epochs=KG_SEARCH_EPOCHS,
                           backend="csr"))
-    before = read_counts(csr, conv)
+    reset_counts(csr, conv)
     t0 = time.perf_counter()
     res = find_metapaths(graph, labels.astype(np.float32),
                          split_nodes(labels, node_idx=ln), 2, cfg,
                          source_nodes=ln, seed=0, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {k: v - before[k] for k, v in read_counts(csr, conv).items()}
+    launches = read_counts(csr, conv)
     found = planted in [list(p) for p in res.discovered]
     log(phase="search_kg", nodes=graph.num_nodes, edges=graph.num_edges,
         relations=graph.num_relations, labeled=len(ln), planted=planted,
@@ -937,6 +965,9 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> None:
         stage_s=res.stage_s, launches=launches)
     check(found, f"planted {planted} not in {res.discovered}")
     check(0.0 <= res.test_f1 <= 1.0, f"KG test F1 {res.test_f1}")
+    check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
+          f"K1 or the csr backward did not launch in the KG search: "
+          f"{launches}")
 
     # one bag restart round of the planted path's hop-1 state
     node_labels = np.zeros(graph.num_nodes, np.float32)
@@ -947,17 +978,26 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> None:
     tasks = [(0, bagmod.connected_relations(graph, bag_members=members),
               bag_list, bag_labels)]
     one = ScorerConfig(max_restarts=1)
-    score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
-                    device="cuda")
+    first = score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
+                            device="cuda")[0]
     torch.cuda.synchronize()
     stats = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
-                        stats=stats, device="cuda")
+        second = score_bag_tasks(graph, tasks, one, np.random.default_rng(0),
+                                 stats=stats, device="cuda")[0]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    check(first.keys() == second.keys(), "bag rounds scored other relations")
+    for r, a in first.items():
+        b = second[r]
+        check(a.loss == b.loss and a.degenerate == b.degenerate
+              and a.num_restarts == b.num_restarts
+              and all(np.array_equal(getattr(a, f), getattr(b, f))
+                      for f in ("weights", "attribution", "member_pred_max",
+                                "member_recorded")),
+              f"two KG bag restart rounds differ on relation {r}")
     rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(phase="search_profile", graph="powerlaw_kg",
@@ -966,21 +1006,21 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> None:
             "mode", "R", "E", "C", "B", "M", "P")) for s in stats],
         epochs=one.epochs_bags, wall_ms=wall_us / 1e3,
         device_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
+        repeat_bitwise_equal=True,
         top=[dict(name=k[:80], ms=t / 1e3, launches=c)
              for k, t, c in rows[:10]])
+    return launches
 
 
 def search_phase(torch, csr, conv, graph_k, planted, kg) -> dict:
-    """Phase 8: (a), (b) and (c), the launch counts set to 0 before and
-    read after."""
-    reset_counts(csr, conv)
-    per_class = search_cli_run()
+    """Phase 8: (a), (b) and (c). The two csr searches, (a) and (c), each
+    count their own launches from 0 and must launch K1 and the csr
+    backward; returns their sum."""
+    per_class, cli = search_cli_run()
     search_segment_check(torch, per_class)
-    kg_search(torch, csr, conv, graph_k, planted, kg)
-    launches = read_counts(csr, conv)
-    log(phase="search_launches", **launches)
-    check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
-          f"K1 or the csr backward did not launch in the search: {launches}")
+    kg_launches = kg_search(torch, csr, conv, graph_k, planted, kg)
+    launches = {k: cli[k] + kg_launches[k] for k in cli}
+    log(phase="search_launches", cli=cli, kg=kg_launches, **launches)
     return launches
 
 

@@ -10,7 +10,7 @@ rows for sources with no edge of the selected relation.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -106,10 +106,6 @@ class HeteroGraph:
             self._cache[key] = (src[order], dst[order])
         return self._cache[key]
 
-    def present_relations(self) -> List[int]:
-        """Relations with at least one edge."""
-        return [r for r in range(self.num_relations) if self.rel_counts[r] > 0]
-
     def rel_endpoint_nodes(self, relation: int) -> np.ndarray:
         """Sorted unique node ids incident to one relation's edges (cached):
         the relation's compact index space. Every node a per-relation
@@ -150,19 +146,6 @@ class HeteroGraph:
             nbr, mask, _ = build_ell(src, dst, self.num_nodes, max(d_max, 1))
             self._cache[key] = (nbr, mask)
         return self._cache[key]
-
-    def edge_dictionary(
-        self, relation: int, source_nodes: Sequence[int]
-    ) -> Dict[int, List[int]]:
-        """``{src: [dsts]}`` of one relation restricted to ``source_nodes``,
-        in file order; sources without edges are left out."""
-        src, dst = self.rel_edges(relation)
-        wanted = set(int(v) for v in source_nodes)
-        out: Dict[int, List[int]] = {}
-        for s, d in zip(src.tolist(), dst.tolist()):
-            if s in wanted:
-                out.setdefault(s, []).append(d)
-        return out
 
     def __repr__(self) -> str:
         return (

@@ -13,13 +13,13 @@ destinations, ties to the first in file order.
   largest member value;
 * the gradient reaches only the selected elements.
 
-The single-relation forwards (``scorer_forward_flat``/``_bags``) are plain
-differentiable PyTorch. The sweeps of ``search/scoring.py`` train R
-relations at once on a leading ``R`` axis and use the ``*_forward_*`` and
-``*_grads`` functions below, whose backward is written out: the gradient is
-a sorted accumulation (``index_put_(..., accumulate=True)``, sequential on
-the CPU, sort-based on the GPU), so two runs give the same bits. ``Adam``
-reproduces ``optax.adam`` to the bit on the CPU.
+The sweeps of ``search/scoring.py`` train R relations at once on a leading
+``R`` axis (one relation is R = 1) with the ``*_forward_*`` and ``*_grad*``
+functions below, whose backward is written out: the gradient is a sorted
+accumulation (``index_put_(..., accumulate=True)``, sequential on the CPU,
+sort-based on the GPU), so two runs give the same bits. ``Adam``
+reproduces ``optax.adam`` to the bit on the CPU. The inits are drawn on the
+host, in numpy.
 """
 
 from __future__ import annotations
@@ -33,8 +33,38 @@ NEG_INF = float("-inf")
 
 
 class ScorerParams(NamedTuple):
-    w: torch.Tensor  # [N] per-node weights (InputLayer, model.py:26-34)
-    u: torch.Tensor  # [F] LinearLayerAttri weight (model.py:41)
+    """One scorer's parameters (or R scorers' on a leading axis): numpy
+    arrays where the inits draw them on the host, tensors in the sweeps."""
+
+    w: torch.Tensor  # [..., N] per-node weights (InputLayer, model.py:26-34)
+    u: torch.Tensor  # [..., F] LinearLayerAttri weight (model.py:41)
+
+
+def init_weights(
+    rng: np.random.Generator,
+    num_nodes: int,
+    dest_nodes: np.ndarray,
+    dest_min_label: np.ndarray,
+    noise: float = 0.2,
+) -> np.ndarray:
+    """Label-informed node weights (main.py:479-497), float32 [N]:
+    ``|min(src labels) + U(-noise, noise)|`` on destination nodes, U(0, 1)
+    elsewhere, drawn from ``rng`` in the JAX package's order."""
+    w = rng.uniform(0.0, 1.0, size=num_nodes).astype(np.float32)
+    if len(dest_nodes):
+        w[dest_nodes] = np.abs(
+            dest_min_label + rng.uniform(-noise, noise, size=len(dest_nodes))
+        ).astype(np.float32)
+    return w
+
+
+def init_attribution(rng: np.random.Generator, feat_dim: int,
+                     rows: Optional[int] = None) -> np.ndarray:
+    """``u`` as ``torch.nn.Linear(F, 1, bias=False)`` draws it,
+    U(-1/sqrt(F), 1/sqrt(F)), float32 [F] (or [rows, F])."""
+    bound = 1.0 / np.sqrt(feat_dim)
+    shape = feat_dim if rows is None else (rows, feat_dim)
+    return rng.uniform(-bound, bound, size=shape).astype(np.float32)
 
 
 def init_scorer_params(
@@ -44,21 +74,11 @@ def init_scorer_params(
     dest_nodes: np.ndarray,
     dest_min_label: np.ndarray,
     noise: float = 0.2,
-    device=None,
 ) -> ScorerParams:
-    """Label-informed init (main.py:479-497): ``w[dst] = |min(src labels) +
-    U(-noise, noise)|`` on destination nodes, U(0, 1) elsewhere; ``u`` as
-    ``torch.nn.Linear(F, 1, bias=False)``, U(-1/sqrt(F), 1/sqrt(F)). Drawn
-    from ``rng`` in the JAX package's order."""
-    w = rng.uniform(0.0, 1.0, size=num_nodes).astype(np.float32)
-    if len(dest_nodes):
-        w[dest_nodes] = np.abs(
-            dest_min_label + rng.uniform(-noise, noise, size=len(dest_nodes))
-        ).astype(np.float32)
-    bound = 1.0 / np.sqrt(feat_dim)
-    u = rng.uniform(-bound, bound, size=feat_dim).astype(np.float32)
-    return ScorerParams(w=torch.as_tensor(w, device=device),
-                        u=torch.as_tensor(u, device=device))
+    """Label-informed init of one scorer (main.py:479-497): ``init_weights``
+    then ``init_attribution``, as host arrays."""
+    w = init_weights(rng, num_nodes, dest_nodes, dest_min_label, noise)
+    return ScorerParams(w=w, u=init_attribution(rng, feat_dim))
 
 
 def reinitialize_scorer_weights(
@@ -69,45 +89,6 @@ def reinitialize_scorer_weights(
     w = rng.uniform(0.0, 1.0, size=len(prev_w)).astype(np.float32)
     w[frozen_mask] = prev_w[frozen_mask]
     return w
-
-
-def scorer_forward_flat(
-    params: ScorerParams,
-    nbr: torch.Tensor,          # [N, D] ELL destinations (int64)
-    nbr_mask: torch.Tensor,     # [N, D] bool
-    source_idx: torch.Tensor,   # [S] nodes whose predictions enter the loss
-    source_mask: torch.Tensor,  # [S] valid-source mask
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flat (hop-0) forward: (pred [S], winner [N]), winner the argmax
-    destination of every node (first occurrence on ties)."""
-    vals = torch.where(nbr_mask, params.w[nbr], NEG_INF)
-    winner = nbr.gather(-1, vals.argmax(-1, keepdim=True)).squeeze(-1)
-    has_edge = nbr_mask.any(-1)
-    value = torch.where(has_edge, params.w[winner], 0.0)
-    return value[source_idx] * source_mask, winner
-
-
-def scorer_forward_bags(
-    params: ScorerParams,
-    x: torch.Tensor,            # [N, F]
-    nbr: torch.Tensor,          # [N, D]
-    nbr_mask: torch.Tensor,     # [N, D]
-    bags: torch.Tensor,         # [B, M] member node ids (padded)
-    member_mask: torch.Tensor,  # [B, M] member valid and has r-edges
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Bag-mode forward (model.py:45-72): (bag_pred [B], bag_winner_dst
-    [B], member_value [N], member_winner_dst [N])."""
-    lin = x @ params.u
-    prod = torch.where(nbr_mask, params.w[nbr] * lin[:, None], NEG_INF)
-    member_winner = nbr.gather(-1, prod.argmax(-1, keepdim=True)).squeeze(-1)
-    has_edge = nbr_mask.any(-1)
-    member_value = torch.where(has_edge, params.w[member_winner] * lin, 0.0)
-    vals = torch.where(member_mask, member_value[bags], NEG_INF)
-    m = vals.argmax(-1, keepdim=True)
-    bag_member = bags.gather(-1, m).squeeze(-1)
-    bag_pred = torch.where(member_mask.any(-1),
-                           vals.gather(-1, m).squeeze(-1), 0.0)
-    return bag_pred, member_winner[bag_member], member_value, member_winner
 
 
 def clamp_params(params: ScorerParams, lo: float = 0.0,

@@ -15,7 +15,9 @@ Differences from the JAX CLI:
 * refused, each with the ROADMAP.md item that brings it: ``--mesh`` (A12),
   ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), the backends other than
   ``segment``, ``csr`` and ``pallas`` (A3), ``--compute_dtype bfloat16``
-  (A1). ``--no_warm`` is accepted and does nothing: the port has no
+  (A1), and ``--dropout_rng threefry|rbg``: the port draws dropout masks
+  from a ``torch.Generator`` only ("What the port does not inherit").
+  ``--no_warm`` is accepted and does nothing: the port has no
   compile-ahead warmer (A13).
 
 Stdout ends with one JSON line: ``dataset``, ``classes.{i: {metapaths,
@@ -132,8 +134,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "test accumulation (reference: 3, main.py:1465)")
     p.add_argument("--dropout_rng", type=str, default="auto",
                    choices=["auto", "threefry", "rbg"],
-                   help="kept for the JAX command lines: every value draws "
-                        "dropout masks from a torch.Generator")
+                   help="only auto is ported: dropout masks come from a "
+                        "torch.Generator")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="MPNetm precision; only float32 is ported")
@@ -157,6 +159,10 @@ def _refusals(args) -> list:
     if args.compute_dtype != "float32":
         out.append(f"compute_dtype {args.compute_dtype!r} is not ported yet "
                    f"(ROADMAP.md A1)")
+    if args.dropout_rng != "auto":
+        out.append(f"dropout_rng {args.dropout_rng!r} is not ported: dropout "
+                   f"masks come from a torch.Generator (ROADMAP.md, 'What "
+                   f"the port does not inherit')")
     return out
 
 

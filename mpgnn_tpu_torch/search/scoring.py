@@ -42,13 +42,20 @@ from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.models.scorer import (
     Adam,
+    ScorerParams,
+    apply_freeze,
     bag_forward_ell,
     bag_forward_seg,
     bag_grads,
+    clamp_params,
     flat_forward_ell,
     flat_forward_seg,
     flat_grad,
     flat_loss,
+    init_attribution,
+    init_scorer_params,
+    init_weights,
+    reinitialize_scorer_weights,
 )
 
 log = logging.getLogger("mpgnn_tpu_torch.scoring")
@@ -307,11 +314,7 @@ def score_relations_flat(
             src_mask = has_edge_rows[i] if fixed_mask is None else fixed_mask
             loss_mask[i] = src_mask.astype(np.float32)
             dsts, mins = dest_min_labels(graph, r, src_mask, node_labels)
-            w0[i] = rng.uniform(0.0, 1.0, size=N)
-            if len(dsts):
-                w0[i, dsts] = np.abs(
-                    mins + rng.uniform(-cfg.init_noise, cfg.init_noise, len(dsts))
-                )
+            w0[i] = init_weights(rng, N, dsts, mins, cfg.init_noise)
         if mode == "ell":
             lmask = _t(loss_mask, device)
             denom = lmask.sum(1).clamp_min(1.0)
@@ -447,8 +450,8 @@ def _bag_round(forward, w0, u0, x, labels, keep, bag_has, has, gmask, fmask,
             member_value = fwd.member_value
         gw, gu = bag_grads(w, fwd, x, labels, ct, bag_has, has)
         w, u = opt.update([w, u], [gw * gmask, gu])     # main.py:663-664
-        w = torch.where(fmask, w0, w.clamp(0.0, 1.0))   # main.py:668-672
-        u = u.clamp(0.0, 1.0)                           # main.py:669
+        w, u = apply_freeze(clamp_params(ScorerParams(w, u)), fmask,
+                            w0)                         # main.py:668-672
     return w, u, loss, per_bag, winner, member_value
 
 
@@ -632,15 +635,10 @@ def retrain_bags_predictions(
                    [int(relation)], [inst], x, B, device)
 
     dsts, mins = dest_min_labels(graph, relation, is_member, member_min_label)
-    w0 = rng.uniform(0.0, 1.0, size=(1, N)).astype(np.float32)
-    if len(dsts):
-        w0[0, dsts] = np.abs(
-            mins + rng.uniform(-cfg.init_noise, cfg.init_noise, len(dsts))
-        )
-    bound = 1.0 / np.sqrt(F)
-    u0 = rng.uniform(-bound, bound, size=(1, F)).astype(np.float32)
+    p0 = init_scorer_params(rng, N, F, dsts, mins, cfg.init_noise)
     _, _, _, _, _, member_value = chunk.run(
-        w0, u0, np.ones((1, N), np.float32), np.zeros((1, N), bool),
+        p0.w[None], p0.u[None], np.ones((1, N), np.float32),
+        np.zeros((1, N), bool),
         epochs=cfg.epochs_bags, lr=cfg.lr, device=device,
     )
     recorded = chunk.has_edge[0] & is_member
@@ -713,7 +711,6 @@ def score_bag_tasks(
         ))
 
     results: Dict = {t[0]: {} for t in tasks}
-    bound = 1.0 / np.sqrt(F)
     for ci, (mode, pad, cpad, chunk) in enumerate(chunks):
         R = len(chunk)
         log.info(
@@ -740,12 +737,8 @@ def score_bag_tasks(
             dsts, mins = dest_min_labels(
                 graph, r, t["is_member"], t["member_min_label"]
             )
-            w0[i] = rng.uniform(0.0, 1.0, size=N)
-            if len(dsts):
-                w0[i, dsts] = np.abs(
-                    mins + rng.uniform(-cfg.init_noise, cfg.init_noise, len(dsts))
-                )
-        u0 = rng.uniform(-bound, bound, size=(R, F)).astype(np.float32)
+            w0[i] = init_weights(rng, N, dsts, mins, cfg.init_noise)
+        u0 = init_attribution(rng, F, R)
 
         grad_mask = np.ones((R, N), dtype=np.float32)
         frozen_mask = np.zeros((R, N), dtype=bool)
@@ -798,10 +791,9 @@ def score_bag_tasks(
                 grad_mask[i][frozen_mask[i]] = 0.0
                 # re-init: frozen keep trained values, rest U(0,1)
                 # (main.py:911 with BAGS=False -> U(0,1) branch)
-                w0[i] = rng.uniform(0.0, 1.0, size=N).astype(np.float32)
-                w0[i][frozen_mask[i]] = w[i][frozen_mask[i]]
+                w0[i] = reinitialize_scorer_weights(rng, w[i], frozen_mask[i])
                 # fresh LinearLayerAttri each restart (get_model, main.py:886)
-                u0[i] = rng.uniform(-bound, bound, size=F).astype(np.float32)
+                u0[i] = init_attribution(rng, F)
                 if rest[i] >= cfg.max_consecutive_misses:
                     active[i] = False
 

@@ -229,6 +229,8 @@ def test_cli_runs_and_resumes_from_a_jax_checkpoint(dataset, tmp_path):
     (["--trace_dir", "t"], "A10"),
     (["--backend", "auto"], "A3"),
     (["--compute_dtype", "bfloat16"], "A1"),
+    (["--dropout_rng", "rbg"], "does not inherit"),
+    (["--dropout_rng", "threefry"], "does not inherit"),
 ])
 def test_cli_refuses_what_is_not_ported(capsys, flag, item):
     from mpgnn_tpu_torch.run import main
