@@ -28,7 +28,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    a GPU spin that lets the host enqueue every call first), with the time
    by kernel from torch.profiler (``kernel_us``); ``dispatch_ms`` is the
    time per call when the host enqueues as the card runs, as earlier PRs
-   measured it;
+   measured it. Then K5 (``dma_gather``) through its entry point, the
+   gather probe ``python -m mpgnn_tpu_torch.benchmarks.bench_dma_gather``,
+   in a child process whose launch count starts at 0: every probe shape
+   (F = 128, 64, 16 and runs of 1, 4, 16 and 64 rows) must equal its
+   plain version bitwise, and K5 must have launched; its rates are logged
+   beside K1's gather on the uniform graph;
 3. serve the uniform graph: ``MetapathPredictor`` with hidden 64, metapaths
    [[0, 1]] and seeded random parameters, ``backend='csr'`` against
    ``backend='segment'`` (atol 1e-4), and refresh() latency over 20 calls;
@@ -61,23 +66,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    epochs, 'csr' against 'segment'; (c) the power-law KG with the serving
    metapaths, 20 epochs, 'csr'. Then one torch.profiler window of 5 epochs
    of (a)-pallas and (b)-csr;
-8. the metapath search: (a) ``python -m mpgnn_tpu_torch.run`` on
-   ``data/synthetic_multiclass`` as users run it (hidden 64, the
-   reference's 3 extension hops, ``--backend csr``, 3 one-vs-rest classes,
-   MPNetm cut from 1000 to 150 epochs, see ``SEARCH_EPOCHS``), in a child
-   process: each class's metapaths, test
+8. the metapath search, whose final evaluation trains each length group
+   of candidates at once (``train/batch_eval.py``): (a) ``python -m
+   mpgnn_tpu_torch.run`` on ``data/synthetic_multiclass`` as users run it
+   (hidden 64, the reference's 3 extension hops, ``--backend csr``, 3
+   one-vs-rest classes, MPNetm cut from 1000 to 150 epochs, see
+   ``SEARCH_EPOCHS``), in a child process: each class's metapaths, test
    F1, candidates and stage times (hop-0 sweep, each bag hop, final
    evaluation, greedy accumulation) from the engine's log lines; (b) class
-   0 again in this process through ``find_metapaths`` with
-   ``backend='segment'``: the same candidates in the same order, every
-   candidate's validation F1 within 3e-2 of (a)'s (``PALLAS_F1_ATOL``),
+   0 again in this process through ``find_metapaths``, csr batched and csr
+   with ``batched_eval=False`` (one ``train_mpgnn`` a candidate), then
+   ``backend='segment'``: each against (a), the same candidates in the same
+   order, every candidate's validation F1 within 3e-2 (``PALLAS_F1_ATOL``),
    the same selected metapaths unless two of the top candidates lie within
-   that bound, and two hop-0 sweeps bitwise equal; (c) the search on the
-   power-law KG of phase 2 (sources the labeled subset, beam 4, 2
-   extension hops, ``bag_gap_inclusive``, csr, MPNetm cut to 100 epochs),
-   which must discover the planted path, and one restart round of the
-   planted path's hop-1 bag sweep run twice from one seed, bitwise equal,
-   the second under torch.profiler.
+   that bound, with both final-evaluation stage times; and two hop-0
+   sweeps bitwise equal; (c) the search on the power-law KG of phase 2
+   (sources the labeled subset, beam 4, 2 extension hops,
+   ``bag_gap_inclusive``, csr, MPNetm cut to 100 epochs), which must
+   discover the planted path, then K1 on the stacked blockings of its
+   final set (each length group's K1 relations a hop, forward and backward
+   at F = 64) timed against the per-candidate launches of the same
+   candidates, the final set's evaluation batched against one
+   ``train_mpgnn`` a candidate (F1s within 3e-2, both timed) with a
+   profile of its largest group, and one restart round of the planted
+   path's hop-1 bag sweep
+   run twice from one seed, bitwise equal, the second under
+   torch.profiler.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -85,14 +99,17 @@ after phase 7's gradient checks and read after its training runs (K1, K2,
 K3, K4 and the csr backward must have launched there). In phase 8 the two
 csr searches count their own: (a) in its child process, which starts at
 0 and prints its counts when the CLI ends, (c) set to 0 just before it
-and read just after; K1 and the csr backward must have launched in each.
+and read just after; K1 and the csr backward must have launched in each,
+and in (c) K2 too where a candidate's relation routes to it. K5's probe
+counts its own in its child process, which starts at 0.
 The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 6 alone and prints one JSON line
 per kernel shape; ``--package-root DIR`` takes ``mpgnn_tpu_torch`` from the
 checkout DIR (the parent of a change, say), so that two versions of the
-kernels are timed by the same script on one card, in turns.
+kernels are timed by the same script on one card, in turns (K5's probe
+runs where that checkout has it).
 ``--search-only`` runs phases 1 and 8 alone.
 """
 
@@ -159,18 +176,20 @@ SPIN_S_PER_CALL = 300e-6
 SPIN_HZ = 2e9
 
 
-def cuda_ms(torch, fn, reps: int, spin: bool = True) -> float:
+def cuda_ms(torch, fn, reps: int, spin: bool = True,
+            launches: int = 1) -> float:
     """Mean time of ``fn`` over ``reps`` back-to-back calls, after warm-up
     (CUDA events; inputs stay warm in L2 as in serving): device time behind
-    a GPU spin, else, where the wrapper's host time exceeds its device time,
-    the host's dispatch rate."""
+    a GPU spin (long enough for ``launches`` wrapper calls a call), else,
+    where the wrapper's host time exceeds its device time, the host's
+    dispatch rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if spin:
-        torch.cuda._sleep(int(reps * SPIN_S_PER_CALL * SPIN_HZ))
+        torch.cuda._sleep(int(reps * launches * SPIN_S_PER_CALL * SPIN_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -365,6 +384,79 @@ def kernel_phase(torch, csr, graph_u, graph_k, rels_u, rels_k, rel_p):
         log(phase="kernels", kernel=name, **rec)
         records[name].append(rec)
     return records
+
+
+# K5's probe in a child process, ``python -m
+# mpgnn_tpu_torch.benchmarks.bench_dma_gather`` (runpy runs the module as
+# ``-m`` does), then that process's own K5 launch count as the last line of
+# its stderr.
+_PROBE_CHILD = """\
+import json, runpy, sys
+from mpgnn_tpu_torch.ops import gather
+sys.argv = ["bench_dma_gather"] + sys.argv[1:]
+try:
+    runpy.run_module("mpgnn_tpu_torch.benchmarks.bench_dma_gather",
+                     run_name="__main__", alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps({"dma_gather": gather.DMA_GATHER_LAUNCHES}),
+          file=sys.stderr, flush=True)
+"""
+PROBE_SHAPES = 12                       # 3 widths x 4 run lengths
+
+
+def gather_probe(k1_records, package_root):
+    """K5 through its entry point, the gather probe, in a child process:
+    every shape bitwise equal to its plain version and K5 launched there.
+    Logs its rates and, for K1 on the uniform graph at F = 16 and 64, the
+    probe's time to gather as many rows (one copy a row, and its fastest
+    run length) beside K1's time and its modelled gather bound. Returns the
+    probe's result with its launches, or None where another checkout
+    (``--package-root``) has no probe."""
+    probe = os.path.join(package_root, "mpgnn_tpu_torch", "benchmarks",
+                         "bench_dma_gather.py")
+    if package_root != ROOT and not os.path.exists(probe):
+        log(phase="gather_probe", package_root=package_root,
+            skipped="this checkout has no gather probe")
+        return None
+    out = subprocess.run([sys.executable, "-c", _PROBE_CHILD],
+                         cwd=package_root, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"gather probe failed:\n{out.stderr[-3000:]}")
+    launches = json.loads(out.stderr.strip().splitlines()[-1].split(
+        "LAUNCHES ", 1)[1])["dma_gather"]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    shapes = res["shapes"]
+    check(len(shapes) == PROBE_SHAPES
+          and all(r["bitwise_equal"] for r in shapes),
+          f"the gather probe's shapes {shapes}")
+    check(launches > 0, "K5 did not launch in the gather probe")
+    k1_gather = []
+    for r in k1_records:
+        if r["relation"] != 0 or r["direction"] != "fwd":
+            continue                    # uniform relation 0, F = 16 and 64
+        at_f = [p for p in shapes if p["F"] == r["F"]]
+        one = next(p for p in at_f if p["rows_per_run"] == 1)
+        best = min(at_f, key=lambda p: p["ms"])
+        per_row = {k: v["ms"] / res["rows"] for k, v in
+                   (("run1", one), ("best", best))}
+        k1_gather.append(dict(
+            F=r["F"], edges=r["edges"], k1_ms=r["ms"],
+            modelled_gather_bound_ms=r["gather_bound_ms"],
+            probe_run1_ms=r["edges"] * per_row["run1"],
+            probe_best_ms=r["edges"] * per_row["best"],
+            probe_best_rows_per_run=best["rows_per_run"],
+            index_select_ms=r["edges"] * one["library_ms"] / res["rows"],
+            share_of_probe_run1=r["edges"] * per_row["run1"] / r["ms"],
+            share_of_probe_best=r["edges"] * per_row["best"] / r["ms"]))
+    log(phase="gather_probe", launches=launches, card=res["card"],
+        seconds=res["seconds"], dma_run1_vs_torch=res["dma_run1_vs_torch"],
+        real_blocking_runs=res["real_blocking_runs"],
+        shapes=[{k: p[k] for k in ("F", "rows_per_run", "ms", "mrows_s",
+                                   "ns_per_descriptor", "bound_ms",
+                                   "library_ms", "plain_ms")}
+                for p in shapes],
+        k1_gather=k1_gather)
+    return dict(res, launches=launches, k1_gather=k1_gather)
 
 
 def serve_phase(torch, csr, MetapathPredictor, init_mpgnn, graph, metapaths,
@@ -868,9 +960,10 @@ def search_cli_run() -> tuple:
     return per_class, launches
 
 
-def search_segment_check(torch, per_class) -> None:
-    """Phase 8 (b): class 0's search in-process with ``backend='segment'``
-    against (a)'s csr run, and two hop-0 sweeps on the card bitwise
+def search_check(torch, per_class) -> None:
+    """Phase 8 (b): class 0's search in-process, csr batched, csr one
+    candidate after another (``batched_eval=False``) and segment, each
+    against (a)'s csr run; and two hop-0 sweeps on the card bitwise
     equal."""
     from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
     from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
@@ -891,46 +984,176 @@ def search_segment_check(torch, per_class) -> None:
             f"hop-0 sweeps differ on relation {r}")
     cfg = SearchConfig(mpgnn=MPGNNConfig(epochs=SEARCH_EPOCHS,
                                          hidden_dim=HIDDEN))
-    t0 = time.perf_counter()
-    res = find_metapaths(graph, y0, split_nodes(labels), 3, cfg,
-                         dataset="synthetic", seed=0, backend="segment",
-                         device="cuda")
-    wall = time.perf_counter() - t0
     csr_run = per_class["0"]
-    check(res.discovered == csr_run["discovered"],
-          f"segment discovered {res.discovered}, csr "
-          f"{csr_run['discovered']}")
-    d_val = {p: abs(res.val_f1_by_path[p] - v)
-             for p, v in csr_run["val_f1_by_path"].items()}
-    worst = max(d_val, key=d_val.get)
-    rank_seg = sorted(res.val_f1_by_path.items(), key=lambda kv: -kv[1])
-    rank_csr = sorted(csr_run["val_f1_by_path"].items(),
+    rank_cli = sorted(csr_run["val_f1_by_path"].items(),
                       key=lambda kv: -kv[1])
-    top = [v for _, v in rank_csr[: cfg.top_k_final + 1]]
+    top = [v for _, v in rank_cli[: cfg.top_k_final + 1]]
     close = any(abs(a - b) <= PALLAS_F1_ATOL for a, b in zip(top, top[1:]))
+    runs = {}
+    for tag, backend, batched in (("csr_batched", "csr", True),
+                                  ("csr_per_candidate", "csr", False),
+                                  ("segment_batched", "segment", True)):
+        t0 = time.perf_counter()
+        res = find_metapaths(graph, y0, split_nodes(labels), 3, cfg,
+                             dataset="synthetic", seed=0, backend=backend,
+                             batched_eval=batched, device="cuda")
+        wall = time.perf_counter() - t0
+        check(res.discovered == csr_run["discovered"],
+              f"{tag} discovered {res.discovered}, the CLI "
+              f"{csr_run['discovered']}")
+        d_val = {p: abs(res.val_f1_by_path[p] - v)
+                 for p, v in csr_run["val_f1_by_path"].items()}
+        worst = max(d_val, key=d_val.get)
+        rank = sorted(res.val_f1_by_path.items(), key=lambda kv: -kv[1])
+        runs[tag] = dict(
+            wall_s=wall, stage_s=res.stage_s,
+            final_eval_s=res.stage_s["final_eval"],
+            max_val_f1_diff=d_val[worst], worst_path=worst,
+            metapaths=res.metapaths, test_f1=res.test_f1,
+            ranking=rank if close else None)
+        check(d_val[worst] <= PALLAS_F1_ATOL,
+              f"{tag}: val F1 of {worst} off the CLI's by {d_val[worst]}")
+        check(close or res.metapaths == csr_run["metapaths"],
+              f"{tag} selected {res.metapaths}, the CLI "
+              f"{csr_run['metapaths']}")
     log(phase="search_check", dataset="data/synthetic_multiclass", cls=0,
-        hop0_sweeps_bitwise_equal=True, candidates=len(res.discovered),
-        discovered_equal=True, max_val_f1_diff=d_val[worst],
-        worst_path=worst, val_f1_atol=PALLAS_F1_ATOL,
-        metapaths_segment=res.metapaths, metapaths_csr=csr_run["metapaths"],
-        test_f1_segment=res.test_f1, test_f1_csr=csr_run["test_f1"],
-        top_within_bound=close, segment_wall_s=wall,
-        segment_stage_s=res.stage_s,
-        rankings=dict(segment=rank_seg, csr=rank_csr) if close else None)
-    check(d_val[worst] <= PALLAS_F1_ATOL,
-          f"val F1 of {worst}: segment vs csr {d_val[worst]}")
-    check(close or res.metapaths == csr_run["metapaths"],
-          f"selected metapaths: segment {res.metapaths}, csr "
-          f"{csr_run['metapaths']}")
+        hop0_sweeps_bitwise_equal=True, candidates=len(csr_run["discovered"]),
+        against="the CLI (a), csr batched", val_f1_atol=PALLAS_F1_ATOL,
+        metapaths_cli=csr_run["metapaths"], test_f1_cli=csr_run["test_f1"],
+        top_within_bound=close, ranking_cli=rank_cli if close else None,
+        runs=runs)
 
 
-def kg_search(torch, csr, conv, graph, planted, kg) -> dict:
+def kg_eval_check(torch, graph, discovered, split, cfg) -> None:
+    """The KG final set's evaluation batched against one ``train_mpgnn`` a
+    candidate, in this call: validation F1s within 3e-2 and both wall
+    times; then device time by kernel over 3 epochs of its largest length
+    group (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train import batch_eval, train_mpgnn
+    from mpgnn_tpu_torch.train.loops import split_tensors
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = batch_eval.evaluate_candidates(graph, discovered, split, 2, cfg,
+                                             device=dev)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    each = {str(p): train_mpgnn(graph, [p], split, 2, cfg, device=dev).val_f1
+            for p in discovered}
+    each_s = time.perf_counter() - t0
+    d_val = max(abs(batched[k] - v) for k, v in each.items())
+    groups = {}
+    for p in discovered:
+        groups.setdefault(len(p), []).append(list(p))
+    group = max(groups.values(), key=len)
+    x = torch.as_tensor(graph.x, device=dev)
+    parts = split_tensors(split, dev)[:4]
+    three = MPGNNConfig(hidden_dim=cfg.hidden_dim, epochs=3)
+    batch_eval.train_chunk(graph, group, x, parts, 2, three, 0, "csr")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch_eval.train_chunk(graph, group, x, parts, 2, three, 0, "csr")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    log(phase="search_kg_eval", candidates=len(discovered),
+        epochs=cfg.epochs, batched_s=batched_s, per_candidate_s=each_s,
+        max_val_f1_diff=d_val, val_f1_atol=PALLAS_F1_ATOL,
+        profiled_group=dict(length=len(group[0]), candidates=len(group),
+                            epochs=3),
+        wall_ms_per_epoch=wall_us / 3e3, device_ms_per_epoch=busy_us / 3e3,
+        device_busy_share=busy_us / wall_us,
+        top=[dict(name=k[:80], ms_per_epoch=t / 3e3, launches_per_epoch=c / 3)
+             for k, t, c in rows[:10]])
+    check(d_val <= PALLAS_F1_ATOL,
+          f"KG final set: batched val F1 off the per-candidate one by {d_val}")
+
+
+def stacked_k1(torch, csr, graph, discovered) -> dict:
+    """K1 on the stacked blockings that the batched evaluation of the KG's
+    final set runs (each length group's K1 relations at each hop after the
+    first, forward and backward, F = 64), held against its plain version
+    and the per-candidate launches (1e-5), and timed against those
+    launches of the same candidates, one after another."""
+    from mpgnn_tpu_torch.train import batch_eval
+
+    dev = torch.device("cuda")
+    n, f = graph.num_nodes, HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    groups = {}
+    for p in discovered:
+        groups.setdefault(len(p), []).append(list(p))
+    cases = []
+    for length, group in sorted(groups.items()):
+        for j in range(1, length):
+            ops = [batch_eval.relation_operand(graph, p[j], "csr", dev)
+                   for p in group]
+            ops = [op for op in ops if isinstance(op[1], csr.CsrBlocking)
+                   and isinstance(op[2], csr.CsrBlocking)]
+            if len(ops) < 2:
+                continue
+            for d, direction in ((1, "fwd"), (2, "bwd")):
+                stacked = csr.stack_blockings(op[d] for op in ops)
+                x = torch.randn(len(ops) * n, f, generator=gen, device=dev)
+                xs = [x[i * n:(i + 1) * n] for i in range(len(ops))]
+                got = csr.csr_scatter(stacked, x)
+                each = torch.cat([csr.csr_scatter(op[d], xi)
+                                  for op, xi in zip(ops, xs)])
+                want = csr.csr_scatter_plain(stacked, x)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, **KERNEL_TOL),
+                      f"stacked K1 len {length} hop {j} {direction}: max "
+                      f"abs err {err} vs plain version")
+                check(torch.allclose(got, each, **KERNEL_TOL),
+                      f"stacked K1 len {length} hop {j} {direction}: off "
+                      f"the per-candidate launches")
+                e = int(stacked.col.numel())
+                # x's distinct gathered rows read, the output written, the
+                # blocking read
+                rows_read = int(torch.unique(stacked.col).numel())
+                b_ms, _ = bound(4 * (rows_read * f + len(ops) * n * f
+                                     + 2 * e + len(ops) * n + 1),
+                                2.0 * e * f)
+                cases.append(dict(
+                    length=length, hop=j, direction=direction,
+                    candidates=len(ops), edges=e, max_abs_err=err,
+                    ms=cuda_ms(torch, lambda: csr.csr_scatter(stacked, x),
+                               20),
+                    per_candidate_ms=cuda_ms(
+                        torch, lambda: [csr.csr_scatter(op[d], xi)
+                                        for op, xi in zip(ops, xs)],
+                        20, launches=len(ops)),
+                    bound_ms=b_ms))
+    check(cases, f"the KG final set {discovered} has no hop that stacks two "
+                 f"K1 candidates")
+    rec = dict(phase="stacked_k1", graph="powerlaw_kg", F=f, cases=cases,
+               ms=sum(c["ms"] for c in cases),
+               per_candidate_ms=sum(c["per_candidate_ms"] for c in cases),
+               launches=len(cases),
+               per_candidate_launches=sum(c["candidates"] for c in cases),
+               max_abs_err=max(c["max_abs_err"] for c in cases))
+    log(**rec)
+    return rec
+
+
+def kg_search(torch, csr, conv, graph, planted, kg):
     """Phase 8 (c): the search on the 200k-node power-law KG, sources the
     labeled subset (examples/run_powerlaw_kg.py), beam 4, 2 extension hops,
-    csr, MPNetm cut to KG_SEARCH_EPOCHS epochs, its launch counts set to 0
-    before it and returned; then one restart round of a hop-1 state's bag
-    sweep twice from the same seed, bitwise equal, the second under
-    torch.profiler."""
+    csr, the final evaluation batched, MPNetm cut to KG_SEARCH_EPOCHS
+    epochs, its launch counts set to 0 before it and returned; K2 must
+    launch where a candidate's relation routes to it. Then K1 on its final
+    set's stacked blockings against per-candidate launches, and one restart
+    round of a hop-1 state's bag sweep twice from the same seed, bitwise
+    equal, the second under torch.profiler. Returns (launches, the stacked
+    K1 record)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpgnn_tpu_torch.config import (
@@ -941,6 +1164,7 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> dict:
     from mpgnn_tpu_torch.graph.io import split_nodes
     from mpgnn_tpu_torch.search import bags as bagmod
     from mpgnn_tpu_torch.search import find_metapaths, score_bag_tasks
+    from mpgnn_tpu_torch.train import batch_eval
 
     ln = kg["label_nodes"]
     labels = kg["labels"][ln]
@@ -968,6 +1192,17 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> dict:
     check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
           f"K1 or the csr backward did not launch in the KG search: "
           f"{launches}")
+    hub_candidates = [p for p in res.discovered if any(
+        isinstance(b, csr.DedupCsrBlocking)
+        for r in p for b in batch_eval.relation_operand(
+            graph, r, "csr", torch.device("cuda"))[1:])]
+    log(phase="search_kg_k2", hub_candidates=hub_candidates,
+        csr_dedup=launches["csr_dedup"])
+    check(not hub_candidates or launches["csr_dedup"] > 0,
+          f"K2 did not launch for the hub candidates {hub_candidates}")
+    stacked = stacked_k1(torch, csr, graph, res.discovered)
+    kg_eval_check(torch, graph, res.discovered,
+                  split_nodes(labels, node_idx=ln), cfg.mpgnn)
 
     # one bag restart round of the planted path's hop-1 state
     node_labels = np.zeros(graph.num_nodes, np.float32)
@@ -1009,19 +1244,19 @@ def kg_search(torch, csr, conv, graph, planted, kg) -> dict:
         repeat_bitwise_equal=True,
         top=[dict(name=k[:80], ms=t / 1e3, launches=c)
              for k, t, c in rows[:10]])
-    return launches
+    return launches, stacked
 
 
-def search_phase(torch, csr, conv, graph_k, planted, kg) -> dict:
+def search_phase(torch, csr, conv, graph_k, planted, kg):
     """Phase 8: (a), (b) and (c). The two csr searches, (a) and (c), each
     count their own launches from 0 and must launch K1 and the csr
-    backward; returns their sum."""
+    backward; returns (their sum, the stacked K1 record)."""
     per_class, cli = search_cli_run()
-    search_segment_check(torch, per_class)
-    kg_launches = kg_search(torch, csr, conv, graph_k, planted, kg)
+    search_check(torch, per_class)
+    kg_launches, stacked = kg_search(torch, csr, conv, graph_k, planted, kg)
     launches = {k: cli[k] + kg_launches[k] for k in cli}
     log(phase="search_launches", cli=cli, kg=kg_launches, **launches)
-    return launches
+    return launches, stacked
 
 
 def reset_counts(csr, conv) -> None:
@@ -1101,6 +1336,8 @@ def main() -> int:
         return 0
     records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest,
                            planted[2])
+    probe = gather_probe(records["csr_scatter"],
+                         os.path.abspath(args.package_root))
     if args.kernels_only:
         graph_s, _, _ = load_dat_files(
             *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
@@ -1164,7 +1401,8 @@ def main() -> int:
 
     # 8. the search: the CLI, csr against segment, the KG
     t0 = time.perf_counter()
-    search_launches = search_phase(torch, csr, conv, graph_k, planted, kg)
+    search_launches, stacked = search_phase(torch, csr, conv, graph_k,
+                                            planted, kg)
     log(phase="search_done", seconds=time.perf_counter() - t0)
 
     meta = {
@@ -1198,7 +1436,14 @@ def main() -> int:
             extra.update(kg_relation=planted[2], kg_ms=kg["ms"],
                          kg_bound_ms=kg["bound_ms"],
                          kg_gather_bound_ms=kg["gather_bound_ms"],
-                         kg_library_ms=kg["library_ms"])
+                         kg_library_ms=kg["library_ms"],
+                         stacked_kg_final_set_ms=stacked["ms"],
+                         stacked_per_candidate_ms=stacked["per_candidate_ms"],
+                         stacked_launches=stacked["launches"],
+                         stacked_per_candidate_launches=stacked[
+                             "per_candidate_launches"],
+                         stacked_max_abs_err=stacked["max_abs_err"],
+                         probe_k1_gather=probe["k1_gather"])
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
@@ -1213,6 +1458,22 @@ def main() -> int:
             library_ms=wide["library_ms"], dispatch_ms=wide["dispatch_ms"],
             library_dispatch_ms=wide["library_dispatch_ms"], **extra,
         ))
+    # K5: its probe's shapes at F = 128 (the JAX probe's width), one copy a
+    # row and runs of 64 rows
+    at = {p["rows_per_run"]: p for p in probe["shapes"] if p["F"] == 128}
+    kernels.append(dict(
+        name="dma_gather", route="cuda",
+        source="mpgnn_tpu_torch/csrc/dma_gather.cu",
+        replaces="benchmarks/bench_dma_gather.py:57",
+        launches=probe["launches"], launches_probe=probe["launches"],
+        F=128, rows_per_run=1,
+        max_abs_err=max(p["max_abs_err"] for p in probe["shapes"]),
+        ms=at[1]["ms"],
+        plain_ms=at[1]["plain_ms"], bound_ms=at[1]["bound_ms"],
+        bound_by=at[1]["bound_by"], library_ms=at[1]["library_ms"],
+        r64_ms=at[64]["ms"], r64_plain_ms=at[64]["plain_ms"],
+        r64_bound_ms=at[64]["bound_ms"], r64_library_ms=at[64]["library_ms"],
+        dma_run1_vs_torch=probe["dma_run1_vs_torch"]))
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))

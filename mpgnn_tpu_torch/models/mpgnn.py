@@ -6,6 +6,10 @@ hops hidden -> hidden, each followed by ReLU. The per-metapath embeddings
 are concatenated, then fc1 -> ReLU -> fc2 -> log_softmax. With
 ``train=True`` dropout follows every hop, as in the reference
 (model.py:210-214).
+
+``MPNetmStack`` holds C single-metapath MPNetms of one length with a
+leading candidate axis on every parameter, for the batched final
+evaluation of the search (``train/batch_eval.py``).
 """
 
 from __future__ import annotations
@@ -139,3 +143,163 @@ def init_mpgnn(
         fc.weight.copy_(uniform(fc.weight.shape, bound, generator))
         fc.bias.copy_(uniform(fc.bias.shape, bound, generator))
     return model
+
+
+def stack_hop_aggregate(h: torch.Tensor, parts) -> torch.Tensor:
+    """One hop's aggregation of C candidates' features ``h`` [C, N, F].
+    ``parts`` covers each candidate once: (candidate indices, op), where
+    ``op`` is a ``hop_aggregate`` operand over those candidates' rows
+    stacked block-diagonally ([len(indices) * N] rows). A part of every
+    candidate in order aggregates ``h`` in place of a copy."""
+    c, n, f = h.shape
+    if len(parts) == 1 and tuple(parts[0][0]) == tuple(range(c)):
+        return hop_aggregate(h.reshape(c * n, f), parts[0][1],
+                             c * n).view(c, n, f)
+    out = [None] * c
+    for idx, op in parts:
+        sub = h[idx[0]] if len(idx) == 1 else h[list(idx)].reshape(-1, f)
+        agg = hop_aggregate(sub, op, len(idx) * n).view(len(idx), n, f)
+        for i, k in enumerate(idx):
+            out[k] = agg[i]
+    return torch.stack(out)
+
+
+# Rows from which ``stacked_matmul`` takes its weight gradient one product
+# a candidate. Between the two graphs the search runs on the card: at
+# N = 5,000 the step is host-bound and C launches in place of one cost more
+# than they save; at N = 200,000 the batched product is device-bound
+# (``PERF.md``). The crossover itself is not measured.
+SPLIT_ROWS = 1 << 16
+
+
+class _StackedMatmul(torch.autograd.Function):
+    """``torch.bmm(a, w)`` for a [C, N, K], w [C, K, H]. Its weight
+    gradient ``a[c].T @ g[c]`` is a [K, H] result summed over N rows: cuBLAS
+    runs the batched form on a few CTAs a candidate but splits the reduction
+    of a single product, so from ``SPLIT_ROWS`` rows it is C products."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, w.transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            if a.shape[1] >= SPLIT_ROWS:
+                gw = torch.stack([ac.T @ gc for ac, gc in zip(a, g)])
+            else:
+                gw = torch.bmm(a.transpose(1, 2), g)
+        return ga, gw
+
+
+def stacked_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[C, N, H] products of a [C, N, K] and w [C, K, H] (``torch.bmm``),
+    differentiable in both."""
+    return _StackedMatmul.apply(a, w)
+
+
+class MPNetmStack(nn.Module):
+    """C single-metapath MPNetms of one metapath length L, trained at once.
+
+    Every parameter has a leading candidate axis: hop j's ``weight[j]`` and
+    ``root[j]`` [C, in_j, H] and ``bias[j]`` [C, H]; ``fc1_w`` [C, H, H],
+    ``fc1_b`` [C, H], ``fc2_w`` [C, H, K], ``fc2_b`` [C, K], weights in the
+    [in, out] layout. Features are candidate-major, [C, N, H], and the
+    products are batched GEMMs (``stacked_matmul``). ``from_models`` and
+    ``split`` convert from and to C ``MPNetm``s."""
+
+    def __init__(self, num_candidates: int, input_dim: int, hidden_dim: int,
+                 num_classes: int, length: int, device=None):
+        super().__init__()
+        c, h = num_candidates, hidden_dim
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(*shape, device=device))
+
+        self.weight = nn.ParameterList(
+            param(c, input_dim if j == 0 else h, h) for j in range(length))
+        self.root = nn.ParameterList(
+            param(c, input_dim if j == 0 else h, h) for j in range(length))
+        self.bias = nn.ParameterList(param(c, h) for _ in range(length))
+        self.fc1_w, self.fc1_b = param(c, h, h), param(c, h)
+        self.fc2_w, self.fc2_b = param(c, h, num_classes), param(c, num_classes)
+
+    @property
+    def num_candidates(self) -> int:
+        return self.fc1_w.shape[0]
+
+    @classmethod
+    @torch.no_grad()
+    def from_models(cls, models: Sequence[MPNetm]) -> "MPNetmStack":
+        """The stack of C single-metapath MPNetms of one length."""
+        first = models[0]
+        if any(len(m.convs) != 1 or len(m.convs[0]) != len(first.convs[0])
+               for m in models):
+            raise ValueError("MPNetmStack stacks single-metapath MPNetms of "
+                             "one length")
+        conv0 = first.convs[0][0]
+        stack = cls(len(models), conv0.weight.shape[0], conv0.weight.shape[1],
+                    first.fc2.out_features, len(first.convs[0]),
+                    device=conv0.weight.device)
+        for j in range(len(first.convs[0])):
+            for name in ("weight", "root", "bias"):
+                getattr(stack, name)[j].copy_(torch.stack(
+                    [getattr(m.convs[0][j], name) for m in models]))
+        for i in (1, 2):
+            fcs = [getattr(m, f"fc{i}") for m in models]
+            getattr(stack, f"fc{i}_w").copy_(
+                torch.stack([fc.weight.T for fc in fcs]))
+            getattr(stack, f"fc{i}_b").copy_(
+                torch.stack([fc.bias for fc in fcs]))
+        return stack
+
+    @torch.no_grad()
+    def split(self) -> List[MPNetm]:
+        """The C MPNetms the stack holds, each with its own copy of its
+        parameters."""
+        c, in_dim, h = self.weight[0].shape
+        models = []
+        for k in range(c):
+            m = MPNetm(in_dim, h, self.fc2_w.shape[2], [len(self.weight)],
+                       device=self.fc1_w.device)
+            for j, conv in enumerate(m.convs[0]):
+                conv.weight.copy_(self.weight[j][k])
+                conv.root.copy_(self.root[j][k])
+                conv.bias.copy_(self.bias[j][k])
+            for i in (1, 2):
+                fc = getattr(m, f"fc{i}")
+                fc.weight.copy_(getattr(self, f"fc{i}_w")[k].T)
+                fc.bias.copy_(getattr(self, f"fc{i}_b")[k])
+            models.append(m)
+        return models
+
+    def forward(self, x: torch.Tensor, hops, first_hop_agg: torch.Tensor, *,
+                dropout_rate: float = 0.6,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+        """[C, N, K] log-probabilities. ``x`` [N, F] is every candidate's
+        input, ``first_hop_agg`` [C, N, F] each candidate's hop-0
+        aggregation of it, ``hops[j - 1]`` hop j's parts for
+        ``stack_hop_aggregate``. With ``train`` and ``dropout_rate > 0``,
+        one [N, H] mask a hop, drawn from ``generator`` in hop order as
+        ``MPNetm`` draws it, is applied to every candidate."""
+        h = x.expand(self.num_candidates, -1, -1)
+        for j in range(len(self.weight)):
+            agg = (first_hop_agg if j == 0
+                   else stack_hop_aggregate(h, hops[j - 1]))
+            z = (stacked_matmul(agg, self.weight[j])
+                 + stacked_matmul(h, self.root[j]))
+            h = torch.relu(z + self.bias[j][:, None, :])
+            if train and dropout_rate > 0.0:
+                keep = torch.rand(h.shape[1:], generator=generator,
+                                  device=h.device) < 1.0 - dropout_rate
+                h = torch.where(keep, h / (1.0 - dropout_rate),
+                                torch.zeros_like(h))
+        h = torch.relu(stacked_matmul(h, self.fc1_w) + self.fc1_b[:, None, :])
+        h = stacked_matmul(h, self.fc2_w) + self.fc2_b[:, None, :]
+        return torch.log_softmax(h.float(), dim=2)

@@ -24,13 +24,13 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("csr_scatter", "csr_dedup", "dense_matmul")
+SOURCES = ("csr_scatter", "csr_dedup", "dense_matmul", "dma_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # kernel name: (source in csrc/, C function, argtypes)
     "csr_scatter": ("csr_scatter", "mpgnn_csr_scatter",
@@ -41,6 +41,8 @@ _SIGNATURES = {
                    [_P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
     "dense_matmul": ("dense_matmul", "mpgnn_dense_matmul",
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "dma_gather": ("dma_gather", "mpgnn_dma_gather",
+                   [_P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

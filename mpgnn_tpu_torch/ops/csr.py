@@ -239,6 +239,35 @@ def build_csr_blocking(
     return fwd, bwd
 
 
+def stack_blockings(blockings) -> CsrBlocking:
+    """One block-diagonal ``CsrBlocking`` of C same-shaped K1 blockings:
+    block c maps rows ``c*N + r`` to columns ``c*N + col``, so K1 on the
+    stacked [C*N, F] features computes every block's aggregation in one
+    launch. Built on the blockings' device. K1 counts rows plus edges in
+    int32: C * (N + E) must stay under 2^31."""
+    blockings = list(blockings)
+    if not blockings or not all(isinstance(b, CsrBlocking)
+                                for b in blockings):
+        raise TypeError("stack_blockings takes one or more CsrBlockings")
+    n, m = blockings[0].num_rows, blockings[0].num_cols
+    if any((b.num_rows, b.num_cols) != (n, m) for b in blockings):
+        raise ValueError("stack_blockings takes blockings of one shape")
+    edges = [b.col.shape[0] for b in blockings]
+    c = len(blockings)
+    if c * n + sum(edges) >= 2 ** 31 or c * max(n, m) >= 2 ** 31:
+        raise ValueError(f"{c} stacked blockings of {n} rows and "
+                         f"{sum(edges)} edges overflow K1's int32 items")
+    offsets = np.concatenate([[0], np.cumsum(edges)])
+    row_ptr = [b.row_ptr[:-1] + int(o) for b, o in zip(blockings, offsets)]
+    row_ptr.append(blockings[0].row_ptr.new_tensor([int(offsets[-1])]))
+    return CsrBlocking(
+        row_ptr=torch.cat(row_ptr),
+        col=torch.cat([b.col + i * m for i, b in enumerate(blockings)]),
+        weight=torch.cat([b.weight for b in blockings]),
+        num_rows=c * n, num_cols=c * m,
+    )
+
+
 # ------------------------------------------------------------- plain versions
 # The plain versions sum in float64 and round once: a hub row of the
 # power-law KG has 80k edges, and a float32 sum in another order than the

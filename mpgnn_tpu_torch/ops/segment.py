@@ -14,6 +14,17 @@ def segment_sum(
     return out.index_add_(0, segment_ids, data)
 
 
+def stack_edge_lists(edge_lists, num_nodes: int):
+    """(src, dst, inv) of C relations' edge lists ``(src, dst, inv_deg)``
+    over one graph of ``num_nodes``, stacked block-diagonally: list c is
+    offset by ``c * num_nodes``, so one gather and one ``index_add_`` over
+    [C * num_nodes] rows aggregate every list at once. No edge padding."""
+    src, dst, inv = zip(*edge_lists)
+    return (torch.cat([s + c * num_nodes for c, s in enumerate(src)]),
+            torch.cat([d + c * num_nodes for c, d in enumerate(dst)]),
+            torch.cat(inv))
+
+
 def segment_mean(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:

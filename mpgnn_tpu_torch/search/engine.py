@@ -10,13 +10,11 @@ Counterpart of ``mpgnn_tpu/search/engine.py`` (the reference's
              prepending its relation, pseudo-relabel from the max-over-
              restart predictions, rebuild and clean the dictionaries
              (main.py:1381-1440)
-  final      train an MPNetm per discovered metapath (``train_mpgnn``),
+  final      train an MPNetm per discovered metapath, the candidates of
+             each length together (``train.batch_eval``; with
+             ``batched_eval=False`` one ``train_mpgnn`` after another),
              rank by validation macro-F1, then grow the top-k joint model
              while test macro-F1 improves (main.py:1442-1476)
-
-The final evaluation trains one candidate after another (the JAX engine's
-``batched_eval=False`` branch); the batched evaluation is not ported yet
-(ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -40,6 +38,7 @@ from mpgnn_tpu_torch.search.scoring import (
     score_bag_tasks,
     score_relations_flat,
 )
+from mpgnn_tpu_torch.train.batch_eval import evaluate_candidates
 from mpgnn_tpu_torch.train.loops import train_mpgnn
 
 log = logging.getLogger("mpgnn_tpu_torch.search")
@@ -95,7 +94,7 @@ def find_metapaths(
     source_nodes: Optional[Sequence[int]] = None,
     x_features: Optional[np.ndarray] = None,
     seed: int = 0,
-    batched_eval: bool = False,
+    batched_eval: bool = True,
     frontier_checkpoint: Optional[str] = None,
     backend: Optional[str] = None,
     device=None,
@@ -106,17 +105,23 @@ def find_metapaths(
     ``binary_labels`` is node-indexed for synthetic datasets; where only
     ``source_nodes`` carry labels it is aligned with that list
     (main.py:1214-1289). ``backend`` is the MPNetm aggregation of the final
-    evaluation (default ``config.mpgnn.backend``).
+    evaluation (default ``config.mpgnn.backend``). With ``batched_eval``
+    the candidates of each length train together
+    (``train.batch_eval.evaluate_candidates``); without it one after
+    another through ``train_mpgnn``. Both give every candidate the same
+    seed, so they compute the same validation F1s.
 
     ``frontier_checkpoint``: optional pickle path; the frontier (current
     states and discovered paths) is saved after hop 0, after every
     extension hop and after every evaluated candidate, and a search that
-    finds the file resumes from the last finished step."""
-    if batched_eval:
-        raise ValueError("batched_eval is not ported yet (ROADMAP.md A7): "
-                         "the port evaluates one candidate after another")
+    finds the file resumes from the last finished step (after every
+    evaluated chunk of candidates, or every candidate)."""
     cfg = config or SearchConfig()
     device = resolve_device(device)
+    # the batched evaluation takes the caller's choice as given and
+    # ``cfg.mpgnn.backend`` as the JAX engine does (a single-model backend
+    # there falls back to 'segment'); train_mpgnn takes the resolved one
+    eval_backend = backend
     backend = backend or cfg.mpgnn.backend
     rng = np.random.default_rng(seed)
     x = np.asarray(graph.x if x_features is None else x_features, np.float32)
@@ -316,8 +321,8 @@ def find_metapaths(
 
     # --------------------------------------------------------- final eval
     # one MPNetm per candidate (main.py:1444-1459); with a frontier
-    # checkpoint every finished candidate is saved and a re-run resumes
-    # after it
+    # checkpoint every finished chunk (batched) or candidate is saved and a
+    # re-run resumes after it
     t0 = time.time()
     final_hop = cfg.max_extension_hops
     if eval_partial:
@@ -325,20 +330,34 @@ def find_metapaths(
             "final eval resuming: %d/%d candidate results already "
             "checkpointed", len(eval_partial), len(final_paths),
         )
-    val_by_path: Dict[str, float] = {}
-    for path in final_paths:
-        if str(path) in eval_partial:
-            val_by_path[str(path)] = eval_partial[str(path)]
-            continue
-        res = train_mpgnn(
-            graph, [path], split, num_classes, cfg.mpgnn,
-            seed=seed, x_override=x, backend=backend, device=device,
+
+    def eval_sink(results):
+        eval_partial.update(results)
+        save_frontier(final_hop, current, final_paths)
+
+    if batched_eval:
+        val_by_path = evaluate_candidates(
+            graph, final_paths, split, num_classes, cfg.mpgnn, seed=seed,
+            x_override=x, backend=eval_backend,
+            existing=eval_partial or None,
+            sink=eval_sink if frontier_checkpoint else None, device=device,
         )
-        val_by_path[str(path)] = res.val_f1
-        log.info("eval %s: val F1 %.4f", path, res.val_f1)
-        if frontier_checkpoint:
-            eval_partial[str(path)] = res.val_f1
-            save_frontier(final_hop, current, final_paths)
+        for path_s, f1 in val_by_path.items():
+            log.info("eval %s: val F1 %.4f", path_s, f1)
+    else:
+        val_by_path = {}
+        for path in final_paths:
+            if str(path) in eval_partial:
+                val_by_path[str(path)] = eval_partial[str(path)]
+                continue
+            res = train_mpgnn(
+                graph, [path], split, num_classes, cfg.mpgnn,
+                seed=seed, x_override=x, backend=backend, device=device,
+            )
+            val_by_path[str(path)] = res.val_f1
+            log.info("eval %s: val F1 %.4f", path, res.val_f1)
+            if frontier_checkpoint:
+                eval_sink({str(path): res.val_f1})
     stage_s["final_eval"] = time.time() - t0
     log.info(
         "final eval of %d candidates: %.1fs", len(final_paths),

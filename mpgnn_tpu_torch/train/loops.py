@@ -77,27 +77,29 @@ def build_hop_arrays(
         for rel in mp:
             rel = int(rel)
             if rel not in cache:
-                if backend == "segment":
-                    s, d = graph.rel_edges_csr(rel)
-                    deg = graph.rel_degrees(rel)
-                    inv = (1.0 / np.maximum(deg, 1)).astype(np.float32)
-                    cache[rel] = (
-                        "segment",
-                        torch.from_numpy(s.astype(np.int64)).to(device),
-                        torch.from_numpy(d.astype(np.int64)).to(device),
-                        torch.from_numpy(inv).to(device),
-                    )
-                elif backend == "csr":
-                    s, d = graph.rel_edges(rel)
-                    fwd, bwd = build_csr_blocking(s, d, graph.num_nodes)
-                    cache[rel] = ("csr", fwd.to(device), bwd.to(device))
-                else:
-                    s, d = graph.rel_edges(rel)
-                    cache[rel] = ("fused", build_dense_conv_operand(
-                        s, d, graph.num_nodes, device))
+                cache[rel] = relation_op(graph, rel, backend, device)
             ops.append(cache[rel])
         hop_ops.append(ops)
     return hop_ops
+
+
+def relation_op(graph: HeteroGraph, rel: int, backend: str,
+                device: torch.device) -> tuple:
+    """One relation's aggregation operand on ``device``, the tagged tuple
+    of ``build_hop_arrays`` for ``backend``."""
+    if backend == "segment":
+        s, d = graph.rel_edges_csr(rel)
+        deg = graph.rel_degrees(rel)
+        inv = (1.0 / np.maximum(deg, 1)).astype(np.float32)
+        return ("segment",
+                torch.from_numpy(s.astype(np.int64)).to(device),
+                torch.from_numpy(d.astype(np.int64)).to(device),
+                torch.from_numpy(inv).to(device))
+    s, d = graph.rel_edges(rel)
+    if backend == "csr":
+        fwd, bwd = build_csr_blocking(s, d, graph.num_nodes)
+        return ("csr", fwd.to(device), bwd.to(device))
+    return ("fused", build_dense_conv_operand(s, d, graph.num_nodes, device))
 
 
 @dataclasses.dataclass
@@ -231,6 +233,29 @@ def train_mpgnn(
     cfg = cfg or MPGNNConfig()
     backend = backend or cfg.backend
     _check_backend(backend)
+    check_config(cfg)
+    device = resolve_device(device)
+    metapaths = [list(mp) for mp in metapaths]
+    x = torch.as_tensor(np.asarray(
+        x_override if x_override is not None else graph.x, dtype=np.float32),
+        device=device)
+    hop_ops = build_hop_arrays(graph, metapaths, backend=backend,
+                               device=device)
+    model, drop_seed = seeded_init(x.shape[1], cfg.hidden_dim, num_classes,
+                                   metapaths, seed, device)
+    generator = torch.Generator(device=device).manual_seed(drop_seed)
+    cw = torch.as_tensor(class_weights(split.train_y, num_classes,
+                                       class_weighted), device=device)
+    train_f1, val_f1, test_f1, loss = fit_mpgnn(
+        model, hop_ops, x, split_tensors(split, device), cw, cfg, generator,
+        num_classes, track_best=track_best)
+    return MPGNNTrainResult(params=model, val_f1=val_f1, test_f1=test_f1,
+                            train_f1=train_f1, final_loss=loss)
+
+
+def check_config(cfg: MPGNNConfig) -> None:
+    """Refuse the settings of ``MPGNNConfig`` that the port does not have
+    yet, naming their ROADMAP.md item."""
     if cfg.compute_dtype != "float32":
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not ported "
                          f"yet (ROADMAP.md A1): the port trains in float32")
@@ -242,25 +267,19 @@ def train_mpgnn(
                                                default.halo_local):
         raise ValueError("halo_exchange / halo_local are not ported yet "
                          "(ROADMAP.md A12)")
-    device = resolve_device(device)
-    metapaths = [list(mp) for mp in metapaths]
-    x = torch.as_tensor(np.asarray(
-        x_override if x_override is not None else graph.x, dtype=np.float32),
-        device=device)
-    hop_ops = build_hop_arrays(graph, metapaths, backend=backend,
-                               device=device)
+
+
+def seeded_init(input_dim: int, hidden_dim: int, num_classes: int,
+                metapaths: Sequence[Sequence[int]], seed: int,
+                device) -> Tuple[MPNetm, int]:
+    """(initial MPNetm, dropout seed) of a run seeded with ``seed``: the
+    parameters drawn by ``init_mpgnn`` from a CPU generator seeded with
+    ``seed``, the dropout seed one further draw of the same stream. The
+    draws depend on the metapaths' lengths, not on their relations."""
     init_gen = torch.Generator().manual_seed(seed)
-    model = init_mpgnn(x.shape[1], cfg.hidden_dim, num_classes, metapaths,
+    model = init_mpgnn(input_dim, hidden_dim, num_classes, metapaths,
                        generator=init_gen, device=device)
-    drop_seed = int(torch.randint(2 ** 62, (1,), generator=init_gen))
-    generator = torch.Generator(device=device).manual_seed(drop_seed)
-    cw = torch.as_tensor(class_weights(split.train_y, num_classes,
-                                       class_weighted), device=device)
-    train_f1, val_f1, test_f1, loss = fit_mpgnn(
-        model, hop_ops, x, split_tensors(split, device), cw, cfg, generator,
-        num_classes, track_best=track_best)
-    return MPGNNTrainResult(params=model, val_f1=val_f1, test_f1=test_f1,
-                            train_f1=train_f1, final_loss=loss)
+    return model, int(torch.randint(2 ** 62, (1,), generator=init_gen))
 
 
 @torch.no_grad()

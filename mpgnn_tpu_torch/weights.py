@@ -1,7 +1,9 @@
 """Parameters of the JAX package, as numpy arrays, into the port's models.
 
 ``params_from_jax``: the MPNetm tree has ``convs[i][j].{weight, root,
-bias}``, ``fc1.{w, b}`` and ``fc2.{w, b}``. ``scorer_params_from_jax``: the
+bias}``, ``fc1.{w, b}`` and ``fc2.{w, b}``; ``stack_params_from_jax``
+takes a list of single-metapath trees of one length into an
+``MPNetmStack``. ``scorer_params_from_jax``: the
 relation scorer's ``{w, u}``. Each field is read by attribute or by key, so
 a NamedTuple tree, a dict tree or a mix works, and the port never imports
 the JAX package.
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from mpgnn_tpu_torch.device import resolve_device
-from mpgnn_tpu_torch.models.mpgnn import MPNetm
+from mpgnn_tpu_torch.models.mpgnn import MPNetm, MPNetmStack
 from mpgnn_tpu_torch.models.relconv import RelConvParams
 from mpgnn_tpu_torch.models.scorer import ScorerParams
 
@@ -52,6 +54,14 @@ def params_from_jax(tree, device=None) -> MPNetm:
         fc.weight.copy_(_t(_get(_get(tree, name), "w")).T)
         fc.bias.copy_(_t(_get(_get(tree, name), "b")))
     return model
+
+
+def stack_params_from_jax(trees, device=None) -> MPNetmStack:
+    """An MPNetmStack on ``device`` holding the parameters of C
+    single-metapath MPNetm trees of one length (the per-candidate initial
+    parameters of the JAX package's batched evaluation)."""
+    return MPNetmStack.from_models(
+        [params_from_jax(tree, device=device) for tree in trees])
 
 
 def scorer_params_from_jax(tree, device=None) -> ScorerParams:

@@ -1,7 +1,7 @@
 """The CUDA kernels K1 (csrc/csr_scatter.cu), K2 (csrc/csr_dedup.cu), K3
-and K4 (both csrc/dense_matmul.cu) against their plain PyTorch versions on
-the GPU, at the edge cases of their layouts, and the gradients that run
-them. Marked ``cuda``: they skip where no GPU is found.
+and K4 (both csrc/dense_matmul.cu) and K5 (csrc/dma_gather.cu) against
+their plain PyTorch versions on the GPU, at the edge cases of their
+layouts, and the gradients that run them. Marked ``cuda``: they skip where no GPU is found.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -10,6 +10,7 @@ Tolerance rtol = atol = 1e-5: the kernels sum float32 (K1 and K2
 compensated, in shares or pieces of at most 64 items and ordered passes
 over their parts) and the plain versions float64, in other orders;
 K3 and K4 sum the same bf16-rounded operands as their plain versions.
+K5 copies, so it is held bitwise.
 Gradients through K3 and K4 are held at 1e-4: their small GEMMs are
 float32 on the card and on the CPU, in other orders."""
 
@@ -394,3 +395,113 @@ def test_search_sweeps_on_the_card(dev, monkeypatch, form):
             assert c.loss == a.loss
             np.testing.assert_array_equal(c.weights, a.weights)
             np.testing.assert_array_equal(c.attribution, a.attribution)
+
+
+# ------------------------------------------------------------------- K5
+@pytest.mark.parametrize("n,f,r,runs,per", [
+    (1000, 128, 1, 512, 256),       # the probe's layout, two tiles
+    (777, 4, 1, 300, 256),          # 16-byte rows, a ragged last tile
+    (5000, 16, 64, 37, 8),          # runs of 4 KB, ragged tiles of 8
+    (4000, 128, 64, 20, 256),       # 32 KB runs: a ring of 6 slots
+    (300, 4, 16, 5, 256),           # fewer runs than ring slots
+    (300, 400, 128, 3, 2),          # 200 KB runs: a ring of one slot
+])
+def test_dma_gather_matches_plain_bitwise(dev, n, f, r, runs, per):
+    from mpgnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(n + f + r)
+    starts = rng.integers(0, n - r + 1, runs).astype(np.int32)
+    starts[0], starts[-1] = n - r, 0          # the last row is gathered
+    x = torch.randn(n, f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    s = torch.from_numpy(starts).to(dev)
+    before = gather.DMA_GATHER_LAUNCHES
+    if runs % per == 0:
+        got = gather.dma_gather(x, s.reshape(-1, per), r)
+    else:
+        old = gather.RUNS_PER_TILE
+        gather.RUNS_PER_TILE = per
+        try:
+            got = gather.dma_gather(x, s, r)
+        finally:
+            gather.RUNS_PER_TILE = old
+    torch.cuda.synchronize()
+    assert gather.DMA_GATHER_LAUNCHES == before + 1
+    assert got.shape == (runs * r, f)
+    assert torch.equal(got, gather.dma_gather_plain(x, s, r))
+
+
+def test_dma_gather_refuses_on_the_card(dev):
+    from mpgnn_tpu_torch.ops import gather
+
+    x = torch.zeros(10, 8, device=dev)
+    with pytest.raises(IndexError):
+        gather.dma_gather(x, torch.tensor([9], dtype=torch.int32,
+                                          device=dev), 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather.dma_gather(torch.zeros(41, device=dev)[1:].reshape(10, 4),
+                          torch.zeros(1, dtype=torch.int32, device=dev), 1)
+
+
+# ------------------------------------------------ batched evaluation (A7)
+@pytest.mark.parametrize("f", [4, 64])
+def test_k1_on_stacked_blockings_matches_plain(dev, f):
+    """K1 on a block-diagonal stack of four relations' blockings, one of
+    them with a 60k-edge row, forward and backward, against its plain
+    version and against one launch a block."""
+    n = 3000
+    blocks = []
+    for seed in range(4):
+        src, dst = _graph(n, 20000, seed == 2, seed=seed)
+        if seed == 3:
+            src = np.concatenate([src, np.full(60000, 7)])
+            dst = np.concatenate([dst, _graph(n, 60000, False, 9)[1]])
+        blocks.append([b.to(dev) for b in csr.build_csr_blocking(
+            src, dst, n, dedup="never")])
+    x = torch.randn(4 * n, f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    for d in range(2):
+        stacked = csr.stack_blockings(b[d] for b in blocks)
+        got = csr.csr_scatter(stacked, x)
+        each = torch.cat([csr.csr_scatter(b[d], x[i * n:(i + 1) * n])
+                          for i, b in enumerate(blocks)])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, csr.csr_scatter_plain(stacked, x),
+                                   **TOL)
+        torch.testing.assert_close(got, each, **TOL)
+
+
+def test_batched_evaluation_on_the_card(dev):
+    """The batched evaluation (csr) on the card against the per-candidate
+    one on the card, K1, K2 and the csr backward launched."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.train import batch_eval, train_mpgnn
+
+    rng = np.random.default_rng(0)
+    n, e = 2500, 10000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    rel = rng.integers(0, 4, e)
+    hub = rel == 3
+    src[hub] = (n * rng.random(hub.sum()) ** 4).astype(np.int64)
+    dst[hub] = (n * rng.random(hub.sum()) ** 6).astype(np.int64)
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    labels = (x[:, 0] + 1.5 * rng.normal(size=n) > 0).astype(np.int64)
+    graph = HeteroGraph(x, src, dst, rel, num_relations=4)
+    split = split_nodes(labels)
+    paths = [[0], [3], [1, 0], [3, 2], [0, 3], [2, 1, 0]]
+    cfg = MPGNNConfig(epochs=20, hidden_dim=16)
+    before = (csr.SCATTER_LAUNCHES, csr.DEDUP_LAUNCHES,
+              csr.CSR_BACKWARD_LAUNCHES)
+    got = batch_eval.evaluate_candidates(graph, paths, split, 2, cfg,
+                                         backend="csr", device=dev)
+    after = (csr.SCATTER_LAUNCHES, csr.DEDUP_LAUNCHES,
+             csr.CSR_BACKWARD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+    for p in paths:
+        want = train_mpgnn(graph, [p], split, 2, cfg, backend="csr",
+                           device=dev).val_f1
+        # float32 sums in other orders on the card: F1 within 3e-2, as
+        # chip_smoke.py holds the search
+        assert abs(got[str(p)] - want) <= 3e-2, p

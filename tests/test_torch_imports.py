@@ -26,7 +26,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
         "mpgnn_tpu_torch.search.engine", "mpgnn_tpu_torch.models.scorer",
-        "mpgnn_tpu_torch.run"}}
+        "mpgnn_tpu_torch.run", "mpgnn_tpu_torch.ops.gather",
+        "mpgnn_tpu_torch.benchmarks.bench_dma_gather",
+        "mpgnn_tpu_torch.train.batch_eval"}}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """

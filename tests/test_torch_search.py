@@ -9,7 +9,10 @@ mpgnn_tpu_torch.run) on the CPU against the JAX package's.
   tests/test_search_integration.py checks for the JAX package.
 * A search interrupted in its final evaluation resumes from its frontier
   checkpoint to the uninterrupted result; the CLI's per-class checkpoint
-  is the JAX package's file format."""
+  is the JAX package's file format.
+* The batched final evaluation (the default) and the per-candidate one
+  (``batched_eval=False``, which the stubbed cases drive) select the same
+  metapaths from the same validation F1s."""
 
 import json
 import os
@@ -93,7 +96,8 @@ def test_stubbed_search_matches_jax(monkeypatch, seed, kw):
     cfg, jcfg = _configs(**kw)
     got = teng.find_metapaths(g, labels.astype(np.float32),
                               split_nodes(labels), 2, cfg, seed=0,
-                              backend="segment", device="cpu")
+                              backend="segment", batched_eval=False,
+                              device="cpu")
     want = jeng.find_metapaths(jg, labels.astype(np.float32),
                                j_split(labels), 2, jcfg, seed=0,
                                batched_eval=False)
@@ -120,7 +124,7 @@ def test_frontier_resume_equals_uninterrupted(monkeypatch, tmp_path):
     g, _, labels, _ = _case(3)
     cfg, _ = _configs()
     split = split_nodes(labels)
-    kw = dict(seed=0, backend="segment", device="cpu")
+    kw = dict(seed=0, backend="segment", batched_eval=False, device="cpu")
     monkeypatch.setattr(teng, "train_mpgnn", _stub_train())
     whole = teng.find_metapaths(g, labels.astype(np.float32), split, 2, cfg,
                                 **kw)
@@ -172,11 +176,22 @@ def test_all_negative_labels_give_an_empty_result():
     assert res.test_f1 == 0.0
 
 
-def test_batched_eval_is_refused():
-    g, _, labels, _ = _case(3, n=100)
-    with pytest.raises(ValueError, match="A7"):
-        teng.find_metapaths(g, labels.astype(np.float32), None, 2,
-                            batched_eval=True, device="cpu")
+@pytest.mark.parametrize("backend", ["segment", "csr"])
+def test_batched_eval_selects_as_the_per_candidate_one(backend):
+    g, _, labels, _ = _case(3)
+    cfg, _ = _configs()
+    runs = [teng.find_metapaths(g, labels.astype(np.float32),
+                                split_nodes(labels), 2, cfg, seed=0,
+                                backend=backend, batched_eval=batched,
+                                device="cpu")
+            for batched in (True, False)]
+    assert len(runs[0].discovered) > 2
+    assert runs[0].discovered == runs[1].discovered
+    assert runs[0].val_f1_by_path.keys() == runs[1].val_f1_by_path.keys()
+    for k, v in runs[1].val_f1_by_path.items():
+        assert abs(runs[0].val_f1_by_path[k] - v) <= 1e-6, k
+    assert runs[0].metapaths == runs[1].metapaths
+    assert runs[0].test_f1 == runs[1].test_f1
 
 
 # ------------------------------------------------------------------- CLI
