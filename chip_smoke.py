@@ -79,8 +79,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``backend='segment'``: each against (a), the same candidates in the same
    order, every candidate's validation F1 within 3e-2 (``PALLAS_F1_ATOL``),
    the same selected metapaths unless two of the top candidates lie within
-   that bound, with both final-evaluation stage times; and two hop-0
-   sweeps bitwise equal; (c) the search on the power-law KG of phase 2
+   that bound, with both final-evaluation stage times; the batched
+   evaluation of its candidates timed with each form of the stacked
+   model's weight gradient (one batched product, one product a candidate:
+   ``models/mpgnn.py`` ``SPLIT_ROWS``), in the order bmm, split, split,
+   bmm; and two hop-0 sweeps bitwise equal; (c) the search on the power-law KG of phase 2
    (sources the labeled subset, beam 4, 2 extension hops,
    ``bag_gap_inclusive``, csr, MPNetm cut to 100 epochs), which must
    discover the planted path, then K1 on the stacked blockings of its
@@ -88,7 +91,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    at F = 64) timed against the per-candidate launches of the same
    candidates, the final set's evaluation batched against one
    ``train_mpgnn`` a candidate (F1s within 3e-2, both timed) with a
-   profile of its largest group, and one restart round of the planted
+   profile of its largest group, the same evaluation with each form of the
+   weight gradient (split, bmm), and one restart round of the planted
    path's hop-1 bag sweep
    run twice from one seed, bitwise equal, the second under
    torch.profiler.
@@ -1016,12 +1020,49 @@ def search_check(torch, per_class) -> None:
         check(close or res.metapaths == csr_run["metapaths"],
               f"{tag} selected {res.metapaths}, the CLI "
               f"{csr_run['metapaths']}")
+    weight_grad_forms(torch, "synthetic_multiclass", graph,
+                      csr_run["discovered"], split_nodes(labels), 3,
+                      cfg.mpgnn, ("bmm", "split", "split", "bmm"))
     log(phase="search_check", dataset="data/synthetic_multiclass", cls=0,
         hop0_sweeps_bitwise_equal=True, candidates=len(csr_run["discovered"]),
         against="the CLI (a), csr batched", val_f1_atol=PALLAS_F1_ATOL,
         metapaths_cli=csr_run["metapaths"], test_f1_cli=csr_run["test_f1"],
         top_within_bound=close, ranking_cli=rank_cli if close else None,
         runs=runs)
+
+
+def weight_grad_forms(torch, tag, graph, paths, split, num_classes, cfg,
+                      order) -> None:
+    """The batched evaluation of ``paths`` timed (host clock, synchronised)
+    with each form of ``MPNetmStack``'s weight gradient
+    (``models/mpgnn.py`` ``SPLIT_ROWS``): 'bmm', one batched product, and
+    'split', one product a candidate, in ``order``. The two forms' F1s must
+    agree within 3e-2."""
+    from mpgnn_tpu_torch.models import mpgnn
+    from mpgnn_tpu_torch.train import batch_eval
+
+    default = mpgnn.SPLIT_ROWS
+    times = {"bmm": [], "split": []}
+    f1s = {}
+    try:
+        for form in order:
+            mpgnn.SPLIT_ROWS = 1 if form == "split" else 1 << 62
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f1s[form] = batch_eval.evaluate_candidates(
+                graph, paths, split, num_classes, cfg, device="cuda")
+            torch.cuda.synchronize()
+            times[form].append(time.perf_counter() - t0)
+    finally:
+        mpgnn.SPLIT_ROWS = default
+    d_val = max(abs(f1s["bmm"][k] - v) for k, v in f1s["split"].items())
+    log(phase="weight_grad_forms", graph=tag, nodes=graph.num_nodes,
+        candidates=len(paths), epochs=cfg.epochs, split_rows=default,
+        default_form="split" if graph.num_nodes >= default else "bmm",
+        order=list(order), bmm_s=times["bmm"], split_s=times["split"],
+        max_val_f1_diff=d_val)
+    check(d_val <= PALLAS_F1_ATOL,
+          f"{tag}: the weight gradient's forms part by {d_val} in val F1")
 
 
 def kg_eval_check(torch, graph, discovered, split, cfg) -> None:
@@ -1074,6 +1115,8 @@ def kg_eval_check(torch, graph, discovered, split, cfg) -> None:
              for k, t, c in rows[:10]])
     check(d_val <= PALLAS_F1_ATOL,
           f"KG final set: batched val F1 off the per-candidate one by {d_val}")
+    weight_grad_forms(torch, "powerlaw_kg", graph, discovered, split, 2, cfg,
+                      ("split", "bmm"))
 
 
 def stacked_k1(torch, csr, graph, discovered) -> dict:
@@ -1082,7 +1125,7 @@ def stacked_k1(torch, csr, graph, discovered) -> dict:
     first, forward and backward, F = 64), held against its plain version
     and the per-candidate launches (1e-5), and timed against those
     launches of the same candidates, one after another."""
-    from mpgnn_tpu_torch.train import batch_eval
+    from mpgnn_tpu_torch.train.loops import relation_operand
 
     dev = torch.device("cuda")
     n, f = graph.num_nodes, HIDDEN
@@ -1093,8 +1136,7 @@ def stacked_k1(torch, csr, graph, discovered) -> dict:
     cases = []
     for length, group in sorted(groups.items()):
         for j in range(1, length):
-            ops = [batch_eval.relation_operand(graph, p[j], "csr", dev)
-                   for p in group]
+            ops = [relation_operand(graph, p[j], "csr", dev) for p in group]
             ops = [op for op in ops if isinstance(op[1], csr.CsrBlocking)
                    and isinstance(op[2], csr.CsrBlocking)]
             if len(ops) < 2:
@@ -1164,7 +1206,7 @@ def kg_search(torch, csr, conv, graph, planted, kg):
     from mpgnn_tpu_torch.graph.io import split_nodes
     from mpgnn_tpu_torch.search import bags as bagmod
     from mpgnn_tpu_torch.search import find_metapaths, score_bag_tasks
-    from mpgnn_tpu_torch.train import batch_eval
+    from mpgnn_tpu_torch.train.loops import relation_operand
 
     ln = kg["label_nodes"]
     labels = kg["labels"][ln]
@@ -1194,7 +1236,7 @@ def kg_search(torch, csr, conv, graph, planted, kg):
           f"{launches}")
     hub_candidates = [p for p in res.discovered if any(
         isinstance(b, csr.DedupCsrBlocking)
-        for r in p for b in batch_eval.relation_operand(
+        for r in p for b in relation_operand(
             graph, r, "csr", torch.device("cuda"))[1:])]
     log(phase="search_kg_k2", hub_candidates=hub_candidates,
         csr_dedup=launches["csr_dedup"])

@@ -117,9 +117,8 @@ __device__ __forceinline__ void bulk_wait_all() {
 __global__ void __launch_bounds__(kThreads)
     dma_gather_kernel(const float* __restrict__ x,
                       const int* __restrict__ run_starts,
-                      float* __restrict__ out, long long num_runs,
-                      int runs_per_tile, int row_floats, int rows_per_run,
-                      int slots) {
+                      float* __restrict__ out, int runs_per_tile,
+                      int row_floats, int rows_per_run, int slots) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t run_bytes = (uint32_t)rows_per_run * row_floats * 4u;
   uint8_t* ring = smem;
@@ -127,8 +126,7 @@ __global__ void __launch_bounds__(kThreads)
   int* starts = reinterpret_cast<int*>(bar + kMaxSlots);
 
   const long long first = (long long)blockIdx.x * runs_per_tile;
-  const long long left = num_runs - first;
-  const int runs = left < runs_per_tile ? (int)left : runs_per_tile;
+  const int runs = runs_per_tile;
   for (int i = threadIdx.x; i < runs; i += kThreads)
     starts[i] = run_starts[first + i];
   if (threadIdx.x == 0) {
@@ -172,15 +170,15 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // x: [n, row_floats] float32, contiguous, 16-byte aligned, row_floats a
-// multiple of 4; run_starts: [num_runs] int32, each in [0, n - rows_per_run];
-// out: [num_runs * rows_per_run, row_floats] float32. Runs are cut into
-// tiles of runs_per_tile (at most kMaxRunsPerTile), one CTA a tile; the last
-// tile may be short. Returns a cudaError_t (0 on success).
+// multiple of 4; run_starts: [num_tiles, runs_per_tile] int32 (at most
+// kMaxRunsPerTile runs a tile), each in [0, n - rows_per_run]; out:
+// [num_tiles * runs_per_tile * rows_per_run, row_floats] float32. One CTA
+// a tile. Returns a cudaError_t (0 on success).
 int mpgnn_dma_gather(const void* x, const void* run_starts, void* out,
-                     long long num_runs, int runs_per_tile, int row_floats,
+                     long long num_tiles, int runs_per_tile, int row_floats,
                      int rows_per_run, void* stream) {
   const long long run_bytes = (long long)rows_per_run * row_floats * 4;
-  if (num_runs <= 0) return (int)cudaSuccess;
+  if (num_tiles <= 0) return (int)cudaSuccess;
   if (row_floats <= 0 || row_floats % 4 != 0 || rows_per_run <= 0 ||
       run_bytes > kRingBytes || runs_per_tile <= 0 ||
       runs_per_tile > kMaxRunsPerTile)
@@ -193,12 +191,11 @@ int mpgnn_dma_gather(const void* x, const void* run_starts, void* out,
       dma_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (num_runs + runs_per_tile - 1) / runs_per_tile;
-  dma_gather_kernel<<<(unsigned)tiles, kThreads, smem,
+  dma_gather_kernel<<<(unsigned)num_tiles, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(run_starts),
-      static_cast<float*>(out), num_runs, runs_per_tile, row_floats,
-      rows_per_run, slots);
+      static_cast<float*>(out), runs_per_tile, row_floats, rows_per_run,
+      slots);
   return (int)cudaGetLastError();
 }
 

@@ -165,10 +165,12 @@ def stack_hop_aggregate(h: torch.Tensor, parts) -> torch.Tensor:
 
 
 # Rows from which ``stacked_matmul`` takes its weight gradient one product
-# a candidate. Between the two graphs the search runs on the card: at
-# N = 5,000 the step is host-bound and C launches in place of one cost more
-# than they save; at N = 200,000 the batched product is device-bound
-# (``PERF.md``). The crossover itself is not measured.
+# a candidate. Between the two graphs the search runs on the card, where
+# ``chip_smoke.py`` times both forms (``weight_grad_forms``; on an H100):
+# at N = 5,000 the step is host-bound and one batched product is faster
+# (the synthetic search's final evaluation 2.0-2.1 s against 2.6-2.7 s);
+# at N = 200,000 it is device-bound and C products are (the KG's, 4.6 s
+# against 13.0 s). The crossover itself is not measured.
 SPLIT_ROWS = 1 << 16
 
 

@@ -21,8 +21,6 @@ import torch
 
 from mpgnn_tpu_torch.ops import _kernels
 
-# Runs a CTA takes, as the JAX probe's tiles (``runs_per_tile``).
-RUNS_PER_TILE = 256
 # Largest run (bytes) that one slot of the kernel's shared-memory ring
 # holds, and most runs a tile (their starts are staged in shared memory).
 MAX_RUN_BYTES = 200 * 1024
@@ -42,9 +40,13 @@ def _check(x: torch.Tensor, run_starts: torch.Tensor,
     if x.shape[1] % 4:
         raise ValueError(f"dma_gather takes rows of a multiple of 4 floats "
                          f"(16 bytes), got F = {x.shape[1]}")
-    if run_starts.dtype != torch.int32 or run_starts.dim() not in (1, 2):
-        raise TypeError(f"run_starts must be 1-D or 2-D int32, got "
-                        f"{run_starts.dtype} {tuple(run_starts.shape)}")
+    if run_starts.dtype != torch.int32 or run_starts.dim() != 2:
+        raise TypeError(f"run_starts must be [T, P] int32 (T tiles of P "
+                        f"runs), got {run_starts.dtype} "
+                        f"{tuple(run_starts.shape)}")
+    if not 1 <= run_starts.shape[1] <= MAX_RUNS_PER_TILE:
+        raise ValueError(f"runs a tile must lie in [1, {MAX_RUNS_PER_TILE}], "
+                         f"not {run_starts.shape[1]}")
     if rows_per_run < 1:
         raise ValueError(f"rows_per_run must be at least 1, not "
                          f"{rows_per_run}")
@@ -54,20 +56,6 @@ def _check(x: torch.Tensor, run_starts: torch.Tensor,
     if run_starts.device != x.device:
         raise ValueError(f"run_starts is on {run_starts.device}, x on "
                          f"{x.device}")
-
-
-def _tiles(run_starts: torch.Tensor):
-    """(flat starts, runs a tile): a 2-D [T, P] argument is T tiles of P
-    runs, as the JAX probe passes them; a 1-D one is cut into tiles of
-    ``RUNS_PER_TILE``, the last one short."""
-    if run_starts.dim() == 2:
-        per = run_starts.shape[1]
-    else:
-        per = RUNS_PER_TILE
-    if not 1 <= per <= MAX_RUNS_PER_TILE:
-        raise ValueError(f"runs a tile must lie in [1, {MAX_RUNS_PER_TILE}], "
-                         f"not {per}")
-    return run_starts.reshape(-1).contiguous(), per
 
 
 def run_rows(run_starts: torch.Tensor, rows_per_run: int) -> torch.Tensor:
@@ -88,8 +76,8 @@ def dma_gather(x: torch.Tensor, run_starts: torch.Tensor, rows_per_run: int,
                check: bool = True) -> torch.Tensor:
     """``out[k * R + j] = x[run_starts[k] + j]``: K5 on a CUDA tensor, its
     plain version on a CPU tensor. ``x`` is [n, F] float32, contiguous, F a
-    multiple of 4; ``run_starts`` int32, [T, P] (T tiles of P runs) or [K]
-    (tiles of ``RUNS_PER_TILE``). With ``check`` every start is held in
+    multiple of 4; ``run_starts`` int32 [T, P], T tiles of P runs, one CTA
+    a tile, as the JAX probe passes them. With ``check`` every start is held in
     [0, n - R] first, one device reduction read by the host; without it an
     out-of-range start is a fault of the caller."""
     _check(x, run_starts, rows_per_run)
@@ -99,7 +87,7 @@ def dma_gather(x: torch.Tensor, run_starts: torch.Tensor, rows_per_run: int,
         raise ValueError(f"no kernel for device {x.device}")
     if x.data_ptr() % 16:
         raise ValueError("dma_gather takes a 16-byte aligned x")
-    flat, per = _tiles(run_starts)
+    flat = run_starts.contiguous()
     n, f = x.shape
     if check and flat.numel() and bool(
             ((flat < 0) | (flat > n - rows_per_run)).any()):
@@ -111,7 +99,7 @@ def dma_gather(x: torch.Tensor, run_starts: torch.Tensor, rows_per_run: int,
     with torch.cuda.device(x.device):
         _kernels.launch(
             "dma_gather", x.data_ptr(), flat.data_ptr(), out.data_ptr(),
-            flat.numel(), per, f, rows_per_run,
+            run_starts.shape[0], run_starts.shape[1], f, rows_per_run,
             torch.cuda.current_stream(x.device).cuda_stream)
     global DMA_GATHER_LAUNCHES
     DMA_GATHER_LAUNCHES += 1

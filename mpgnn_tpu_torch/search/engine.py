@@ -38,7 +38,10 @@ from mpgnn_tpu_torch.search.scoring import (
     score_bag_tasks,
     score_relations_flat,
 )
-from mpgnn_tpu_torch.train.batch_eval import evaluate_candidates
+from mpgnn_tpu_torch.train.batch_eval import (
+    BATCH_BACKENDS,
+    evaluate_candidates,
+)
 from mpgnn_tpu_torch.train.loops import train_mpgnn
 
 log = logging.getLogger("mpgnn_tpu_torch.search")
@@ -107,9 +110,11 @@ def find_metapaths(
     (main.py:1214-1289). ``backend`` is the MPNetm aggregation of the final
     evaluation (default ``config.mpgnn.backend``). With ``batched_eval``
     the candidates of each length train together
-    (``train.batch_eval.evaluate_candidates``); without it one after
-    another through ``train_mpgnn``. Both give every candidate the same
-    seed, so they compute the same validation F1s.
+    (``train.batch_eval.evaluate_candidates``) where the backend has a
+    batched form ('segment', 'csr'); without it, or with a single-model
+    backend ('pallas'), one after another through ``train_mpgnn``. Both
+    give every candidate the same seed, so they compute the same
+    validation F1s.
 
     ``frontier_checkpoint``: optional pickle path; the frontier (current
     states and discovered paths) is saved after hop 0, after every
@@ -118,11 +123,10 @@ def find_metapaths(
     evaluated chunk of candidates, or every candidate)."""
     cfg = config or SearchConfig()
     device = resolve_device(device)
-    # the batched evaluation takes the caller's choice as given and
-    # ``cfg.mpgnn.backend`` as the JAX engine does (a single-model backend
-    # there falls back to 'segment'); train_mpgnn takes the resolved one
-    eval_backend = backend
     backend = backend or cfg.mpgnn.backend
+    # the JAX engine trains a single-model backend's candidates batched
+    # with 'segment'; here they keep their backend's kernels, one at a time
+    batched_eval = batched_eval and backend in BATCH_BACKENDS
     rng = np.random.default_rng(seed)
     x = np.asarray(graph.x if x_features is None else x_features, np.float32)
     N = graph.num_nodes
@@ -338,7 +342,7 @@ def find_metapaths(
     if batched_eval:
         val_by_path = evaluate_candidates(
             graph, final_paths, split, num_classes, cfg.mpgnn, seed=seed,
-            x_override=x, backend=eval_backend,
+            x_override=x, backend=backend,
             existing=eval_partial or None,
             sink=eval_sink if frontier_checkpoint else None, device=device,
         )

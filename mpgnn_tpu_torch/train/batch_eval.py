@@ -20,8 +20,8 @@ the group:
   ``csr_mean_aggregate`` on its [N, H] slice.
 
 Hop 0 aggregates the input features once per run. Each relation's operand
-is built once per graph and cached on it, so the blockings are not rebuilt
-for every candidate.
+is built once per graph and kept on it (``train.loops.relation_operand``),
+so the blockings are not rebuilt for every candidate.
 
 Seeds: the port's ``train_mpgnn`` seeds every candidate from the same
 ``seed`` and ``init_mpgnn``'s draws depend on the metapath's length alone,
@@ -55,7 +55,7 @@ from mpgnn_tpu_torch.ops.segment import stack_edge_lists
 from mpgnn_tpu_torch.train.loops import (
     check_config,
     make_optimizer,
-    relation_op,
+    relation_operand,
     seeded_init,
     split_tensors,
 )
@@ -88,26 +88,6 @@ def resolve_eval_backend(backend: Optional[str],
         raise ValueError(f"batched evaluation backend {backend!r} is not "
                          f"ported yet (ROADMAP.md {NOT_PORTED[backend]})")
     return backend
-
-
-def _eval_cache(graph: HeteroGraph) -> dict:
-    """The operands of the graph's relations on each device, kept on the
-    graph for the search's life."""
-    cache = getattr(graph, "_eval_cache", None)
-    if cache is None:
-        cache = graph._eval_cache = {}
-    return cache
-
-
-def relation_operand(graph: HeteroGraph, rel: int, backend: str,
-                     device: torch.device) -> tuple:
-    """``train.loops.relation_op`` of one relation, built once per graph,
-    backend and device."""
-    key = (backend, int(rel), str(device))
-    cache = _eval_cache(graph)
-    if key not in cache:
-        cache[key] = relation_op(graph, int(rel), backend, device)
-    return cache[key]
 
 
 def stacked_hop(graph: HeteroGraph, rels: Sequence[int], backend: str,
@@ -186,9 +166,11 @@ def _stacked_nll(logp: torch.Tensor, idx: torch.Tensor,
 
 def train_chunk(graph: HeteroGraph, chunk: List[List[int]], x: torch.Tensor,
                 parts: Sequence[torch.Tensor], num_classes: int,
-                cfg: MPGNNConfig, seed: int, backend: str) -> List[float]:
+                cfg: MPGNNConfig, seed: int,
+                backend: str) -> Tuple[List[float], MPNetmStack]:
     """Train one MPNetm per metapath of ``chunk`` (one length) together for
-    ``cfg.epochs`` epochs; the last epoch's validation macro-F1 of each."""
+    ``cfg.epochs`` epochs: (the last epoch's validation macro-F1 of each,
+    the trained stack)."""
     device = x.device
     n, length, c = graph.num_nodes, len(chunk[0]), len(chunk)
     with torch.no_grad():
@@ -212,7 +194,7 @@ def train_chunk(graph: HeteroGraph, chunk: List[List[int]], x: torch.Tensor,
         preds = model(x, hops, first).argmax(dim=2)[:, val_idx]
         f1s = torch.stack([macro_f1(preds[k], val_y, num_classes)
                            for k in range(c)])
-    return [float(v) for v in f1s.tolist()]
+    return [float(v) for v in f1s.tolist()], model
 
 
 def evaluate_candidates(
@@ -240,21 +222,17 @@ def evaluate_candidates(
 
     ``backend`` is 'segment' or 'csr' (default ``cfg.backend``); 'dense'
     and 'auto' are not ported (A3). A single-model backend ('pallas',
-    'ell', ...) asked for by name is refused; arriving through
-    ``cfg.backend`` it takes 'segment' with a warning, as in the JAX
-    package."""
+    'ell', ...) is refused, whether named or from ``cfg.backend``: its
+    candidates train one ``train_mpgnn`` each (``find_metapaths`` does
+    that). The JAX package trains them with 'segment' instead, which on
+    the card would put plain PyTorch where the caller asked for kernels."""
     cfg = cfg or MPGNNConfig()
-    explicit = backend is not None
     backend = resolve_eval_backend(backend, cfg)
     if backend not in BATCH_BACKENDS:
-        if explicit:
-            raise ValueError(f"batched candidate evaluation takes the "
-                             f"backends 'segment' and 'csr', not "
-                             f"{backend!r} (a single-model backend; see "
-                             f"train_mpgnn)")
-        log.warning("cfg.backend=%r has no batched evaluation; the "
-                    "candidates train with 'segment'", backend)
-        backend = "segment"
+        raise ValueError(f"batched candidate evaluation takes the backends "
+                         f"'segment' and 'csr', not {backend!r} (a "
+                         f"single-model backend: train each candidate with "
+                         f"train_mpgnn)")
     check_config(cfg)
     device = resolve_device(device)
     x = torch.as_tensor(np.asarray(
@@ -277,9 +255,9 @@ def evaluate_candidates(
                 out.update((k, float(existing[k])) for k in keys)
                 continue
             t0 = time.time()
-            done = dict(zip(keys, train_chunk(graph, chunk, x, parts,
-                                              num_classes, cfg, seed,
-                                              backend)))
+            f1s, _ = train_chunk(graph, chunk, x, parts, num_classes, cfg,
+                                 seed, backend)
+            done = dict(zip(keys, f1s))
             out.update(done)
             log.info("eval len-%d chunk of %d candidates (%s): %.1fs",
                      length, len(chunk), backend, time.time() - t0)

@@ -66,27 +66,41 @@ def build_hop_arrays(
       * 'pallas': ('fused', operand), the bf16 mean adjacency and its
         transpose of ``ops.conv``, whose kernels run the whole conv.
 
-    Operands are built once per relation and shared by every hop that
-    aggregates it."""
+    Every hop that aggregates a relation shares its operand
+    (``relation_operand``)."""
     _check_backend(backend)
     device = resolve_device(device)
-    cache = {}
+    ops = {}
     hop_ops: List[List[tuple]] = []
     for mp in metapaths:
-        ops = []
         for rel in mp:
-            rel = int(rel)
-            if rel not in cache:
-                cache[rel] = relation_op(graph, rel, backend, device)
-            ops.append(cache[rel])
-        hop_ops.append(ops)
+            if int(rel) not in ops:
+                ops[int(rel)] = relation_operand(graph, rel, backend, device)
+        hop_ops.append([ops[int(rel)] for rel in mp])
     return hop_ops
+
+
+def relation_operand(graph: HeteroGraph, rel: int, backend: str,
+                     device: torch.device) -> tuple:
+    """``relation_op`` of one relation. A 'segment' or 'csr' operand is
+    built once per graph, backend and device and kept on the graph, so that
+    a search's evaluations and its greedy stage share it; a dense
+    ('pallas') operand, N^2 bf16 twice, is built anew."""
+    if backend == "pallas":
+        return relation_op(graph, int(rel), backend, device)
+    cache = getattr(graph, "_operand_cache", None)
+    if cache is None:
+        cache = graph._operand_cache = {}
+    key = (backend, int(rel), str(device))
+    if key not in cache:
+        cache[key] = relation_op(graph, int(rel), backend, device)
+    return cache[key]
 
 
 def relation_op(graph: HeteroGraph, rel: int, backend: str,
                 device: torch.device) -> tuple:
     """One relation's aggregation operand on ``device``, the tagged tuple
-    of ``build_hop_arrays`` for ``backend``."""
+    of ``build_hop_arrays`` for ``backend``, built anew."""
     if backend == "segment":
         s, d = graph.rel_edges_csr(rel)
         deg = graph.rel_degrees(rel)

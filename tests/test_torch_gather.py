@@ -40,11 +40,9 @@ def test_plain_gather_matches_the_pallas_kernel(jax_probe, rows_per_run):
     s = torch.from_numpy(starts)
     got = gather.dma_gather_plain(torch.from_numpy(x), s, rows_per_run)
     np.testing.assert_array_equal(got.numpy(), want)
-    # the wrapper takes the plain version for a CPU tensor, 1-D or 2-D
-    for arg in (s, s.reshape(-1)):
-        np.testing.assert_array_equal(
-            gather.dma_gather(torch.from_numpy(x), arg, rows_per_run).numpy(),
-            want)
+    # the wrapper takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(
+        gather.dma_gather(torch.from_numpy(x), s, rows_per_run).numpy(), want)
 
 
 def test_run_lengths_is_the_jax_probes_arithmetic():
@@ -65,11 +63,15 @@ def test_run_lengths_is_the_jax_probes_arithmetic():
 
 def test_wrapper_refuses_what_a_bulk_copy_does_not_take():
     x = torch.zeros(10, 8)
-    s = torch.zeros(2, dtype=torch.int32)
+    s = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 4"):
         gather.dma_gather(torch.zeros(10, 6), s, 1)
     with pytest.raises(TypeError, match="int32"):
         gather.dma_gather(x, s.long(), 1)
+    with pytest.raises(TypeError, match=r"\[T, P\]"):
+        gather.dma_gather(x, s.reshape(-1), 1)
+    with pytest.raises(ValueError, match="runs a tile"):
+        gather.dma_gather(x, torch.zeros(1, 4097, dtype=torch.int32), 1)
     with pytest.raises(TypeError, match="float32"):
         gather.dma_gather(x.double(), s, 1)
     with pytest.raises(ValueError, match="contiguous"):

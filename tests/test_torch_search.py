@@ -14,6 +14,7 @@ mpgnn_tpu_torch.run) on the CPU against the JAX package's.
   (``batched_eval=False``, which the stubbed cases drive) select the same
   metapaths from the same validation F1s."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -192,6 +193,34 @@ def test_batched_eval_selects_as_the_per_candidate_one(backend):
         assert abs(runs[0].val_f1_by_path[k] - v) <= 1e-6, k
     assert runs[0].metapaths == runs[1].metapaths
     assert runs[0].test_f1 == runs[1].test_f1
+
+
+def test_a_single_model_backend_trains_each_candidate_with_it(monkeypatch):
+    """``backend='pallas'`` in the config (the CLI's ``--backend pallas``)
+    with the batched default: every final and greedy model trains through
+    ``train_mpgnn`` with 'pallas', none through the batched evaluation."""
+    g, _, labels, _ = _case(3)
+    cfg, _ = _configs()
+    cfg = dataclasses.replace(
+        cfg, mpgnn=dataclasses.replace(cfg.mpgnn, backend="pallas"))
+    seen = []
+    real = teng.train_mpgnn
+
+    def spy(*args, **kw):
+        seen.append(kw["backend"])
+        return real(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the batched evaluation ran")
+
+    monkeypatch.setattr(teng, "train_mpgnn", spy)
+    monkeypatch.setattr(teng, "evaluate_candidates", refuse)
+    res = teng.find_metapaths(g, labels.astype(np.float32),
+                              split_nodes(labels), 2, cfg, seed=0,
+                              device="cpu")
+    assert len(res.discovered) > 2
+    assert len(seen) > len(res.discovered)
+    assert set(seen) == {"pallas"}
 
 
 # ------------------------------------------------------------------- CLI
