@@ -65,7 +65,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    with ``bench.py``'s bench_train_at_scale labels and metapath [0, 1], 100
    epochs, 'csr' against 'segment'; (c) the power-law KG with the serving
    metapaths, 20 epochs, 'csr'. Then one torch.profiler window of 5 epochs
-   of (a)-pallas and (b)-csr;
+   of (a)-pallas and (b)-csr; (d) the new single-model kinds ('ell',
+   'ell2', 'dense', 'onehot') on (a)'s graph, forward and first-step
+   gradients against 'segment' (1e-5), and ``train_mpgnn(backend='auto')``
+   on (b)'s graph, which must resolve as ``resolve_backend`` says and
+   launch K1 where that is csr; (e) ``auto_routing``: whole
+   ``train_mpgnn`` runs, set-up included, at 150 epochs and 1000
+   extrapolated, segment against csr on one uniform relation of 200,000
+   nodes at 10^4 to 10^7 edges and dense against csr and segment at N =
+   5,000 (a's graph) and 8,192 to 32,768 (one random relation), with what
+   the readings say of ``CSR_EDGE_CUTOVER`` and the dense budget beside
+   the constants in use;
 8. the metapath search, whose final evaluation trains each length group
    of candidates at once (``train/batch_eval.py``): (a) ``python -m
    mpgnn_tpu_torch.run`` on ``data/synthetic_multiclass`` as users run it
@@ -95,16 +105,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    weight gradient (split, bmm), and one restart round of the planted
    path's hop-1 bag sweep
    run twice from one seed, bitwise equal, the second under
-   torch.profiler.
+   torch.profiler; (d) the README's line with no ``--backend`` ('auto') in
+   a child process, its resolved backends and stage times beside (a)'s,
+   against the same line with the final evaluation's resolved backend
+   named (the same candidates, validation F1s within 3e-2, the same
+   selection unless two top candidates lie within it); (e) class 0 with
+   ``backend='dense'`` (the batched evaluation on K4's grouped products)
+   against one float32 dense ``train_mpgnn`` a candidate (the same
+   candidates, validation F1s within 8e-2), then K4 on every grouped
+   product of its final set against its plain version and a second
+   launch, the widest timed beside its bound and cuBLAS.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
 after phase 7's gradient checks and read after its training runs (K1, K2,
-K3, K4 and the csr backward must have launched there). In phase 8 the two
-csr searches count their own: (a) in its child process, which starts at
-0 and prints its counts when the CLI ends, (c) set to 0 just before it
-and read just after; K1 and the csr backward must have launched in each,
-and in (c) K2 too where a candidate's relation routes to it. K5's probe
+K3, K4 and the csr backward must have launched there); 7 (d)'s 'auto' run
+counts its own. In phase 8 the searches count their own: (a) and (d) in
+their child processes, which start at 0 and print their counts when the
+CLI ends, (c) and (e) set to 0 just before them and read just after; K1
+and the csr backward must have launched in (a) and (c), in (c) K2 too
+where a candidate's relation routes to it, and K4 in (e). K5's probe
 counts its own in its child process, which starts at 0.
 The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -746,7 +766,7 @@ def grad_phase(torch, cases):
 
 
 def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
-              backend):
+              backend, phase="train"):
     """One ``train_mpgnn`` run on the card. A CUDA event is recorded after
     every optimizer step (a global step hook, no synchronisation), so the
     epoch time is device-timeline time between the first and the last step,
@@ -776,7 +796,7 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
     epoch_ms = events[0].elapsed_time(events[-1]) / (epochs - 1)
     edges = int(sum(graph.rel_counts[r] for mp in metapaths for r in mp))
     rec = dict(
-        phase="train", graph=tag, backend=backend, metapaths=metapaths,
+        phase=phase, graph=tag, backend=backend, metapaths=metapaths,
         epochs=epochs, hidden=HIDDEN, nodes=graph.num_nodes,
         final_loss=res.final_loss, train_f1=res.train_f1,
         val_f1=res.val_f1, test_f1=res.test_f1, wall_s=wall,
@@ -872,10 +892,12 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
 # at 5-8 ms an epoch on an H100 80GB HBM3 at its 700 W limit), at 300 phase
 # 8 took 472 s. The sweeps do not depend on it.
 SEARCH_EPOCHS = 150
-SEARCH_CLI = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
-              "--folder", SYNTH, "--node_file", "node.dat", "--link_file",
-              "link.dat", "--label_file", "label.dat", "--backend", "csr",
-              "--epochs", str(SEARCH_EPOCHS)]
+# the README's line (its default --backend is 'auto'), at SEARCH_EPOCHS
+SEARCH_LINE = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
+               "--folder", SYNTH, "--node_file", "node.dat", "--link_file",
+               "link.dat", "--label_file", "label.dat",
+               "--epochs", str(SEARCH_EPOCHS)]
+SEARCH_CLI = SEARCH_LINE + ["--backend", "csr"]
 KG_SEARCH_EPOCHS = 100
 # Phase 8 (a)'s child process: ``python -m mpgnn_tpu_torch.run`` (runpy runs
 # the module as ``-m`` does), then that process's own launch counts as the
@@ -920,21 +942,22 @@ def stage_times(stderr: str) -> list:
     return classes
 
 
-def search_cli_run() -> tuple:
-    """Phase 8 (a): ``python -m mpgnn_tpu_torch.run`` on
-    ``data/synthetic_multiclass`` as users run it (3 extension hops, csr,
-    ``SEARCH_EPOCHS`` epochs), in a child process whose launch counts
-    start at 0. Returns (the per-class checkpoint, which gives each
-    class's candidates and their validation F1; the child's launches)."""
+def cli_search(argv) -> dict:
+    """``python -m mpgnn_tpu_torch.run`` with ``argv`` in a child process
+    whose launch counts start at 0: the per-class checkpoint (each class's
+    candidates and their validation F1), the child's launches, its summary
+    line, each class's stage times, the backends it resolved 'auto' to
+    (``resolved``: the greedy stage's ``train_mpgnn`` runs and the final
+    evaluation's chunks, counted) and its wall time."""
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "search.json")
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-c", _CLI_CHILD, *SEARCH_CLI,
-             "--pickle_filename", ck],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
+            [sys.executable, "-c", _CLI_CHILD, *argv, "--pickle_filename",
+             ck], cwd=ROOT, capture_output=True, text=True, timeout=900)
         wall = time.perf_counter() - t0
-        check(out.returncode == 0, f"search CLI failed:\n{out.stderr[-3000:]}")
+        check(out.returncode == 0,
+              f"search CLI failed:\n{out.stderr[-3000:]}")
         with open(ck) as f:
             per_class = json.load(f)
     launches = json.loads(out.stderr.strip().splitlines()[-1].split(
@@ -947,10 +970,35 @@ def search_cli_run() -> tuple:
     for k, v in summary["classes"].items():
         check(0.0 <= v["test_f1"] <= 1.0 and v["metapaths"],
               f"class {k}: {v}")
+    resolved = {}
+    for pat, where in ((_TRAIN_AUTO_RE, "train_mpgnn"),
+                       (_EVAL_CHUNK_RE, "final_eval")):
+        for b in pat.findall(out.stderr):
+            resolved[f"{where}:{b}"] = resolved.get(f"{where}:{b}", 0) + 1
+    return dict(per_class=per_class, launches=launches, summary=summary,
+                stages=stages, resolved=resolved, wall=wall)
+
+
+_TRAIN_AUTO_RE = re.compile(r"train_mpgnn: backend 'auto' -> '(\w+)'")
+_EVAL_CHUNK_RE = re.compile(r"eval len-\d+ chunk of \d+ candidates \((\w+)\)")
+
+
+def search_cli_run() -> tuple:
+    """Phase 8 (a): ``python -m mpgnn_tpu_torch.run`` on
+    ``data/synthetic_multiclass`` as users run it (3 extension hops, csr,
+    ``SEARCH_EPOCHS`` epochs), in a child process whose launch counts
+    start at 0. Returns (the per-class checkpoint, which gives each
+    class's candidates and their validation F1; the child's launches; the
+    classes' stage times)."""
+    run = cli_search(SEARCH_CLI)
+    per_class, launches, summary = (run["per_class"], run["launches"],
+                                    run["summary"])
+    stages = run["stages"]
     log(phase="search_cli", dataset="data/synthetic_multiclass",
         epochs=SEARCH_EPOCHS,
         reduced=[f"MPNetm epochs 1000 -> {SEARCH_EPOCHS}"], max_hops=3,
-        backend="csr", hidden=HIDDEN, process_wall_s=wall, summary=summary,
+        backend="csr", hidden=HIDDEN, process_wall_s=run["wall"],
+        summary=summary,
         classes={k: dict(metapaths=summary["classes"][k]["metapaths"],
                          test_f1=summary["classes"][k]["test_f1"],
                          candidates=len(per_class[k]["discovered"]),
@@ -961,7 +1009,7 @@ def search_cli_run() -> tuple:
     check(launches["csr_scatter"] > 0 and launches["csr_backward_passes"] > 0,
           f"K1 or the csr backward did not launch in the CLI's search: "
           f"{launches}")
-    return per_class, launches
+    return per_class, launches, stages
 
 
 def search_check(torch, per_class) -> None:
@@ -1164,11 +1212,18 @@ def stacked_k1(torch, csr, graph, discovered) -> dict:
                 b_ms, _ = bound(4 * (rows_read * f + len(ops) * n * f
                                      + 2 * e + len(ops) * n + 1),
                                 2.0 * e * f)
+                # the yardstick: one CSR matrix of the same stacked
+                # [C * N, C * N] operand
+                mat = torch.sparse_csr_tensor(
+                    stacked.row_ptr, stacked.col, stacked.weight,
+                    size=(stacked.num_rows, stacked.num_cols))
                 cases.append(dict(
                     length=length, hop=j, direction=direction,
                     candidates=len(ops), edges=e, max_abs_err=err,
                     ms=cuda_ms(torch, lambda: csr.csr_scatter(stacked, x),
                                20),
+                    library_ms=cuda_ms(torch,
+                                       lambda: torch.sparse.mm(mat, x), 20),
                     per_candidate_ms=cuda_ms(
                         torch, lambda: [csr.csr_scatter(op[d], xi)
                                         for op, xi in zip(ops, xs)],
@@ -1179,6 +1234,7 @@ def stacked_k1(torch, csr, graph, discovered) -> dict:
     rec = dict(phase="stacked_k1", graph="powerlaw_kg", F=f, cases=cases,
                ms=sum(c["ms"] for c in cases),
                per_candidate_ms=sum(c["per_candidate_ms"] for c in cases),
+               library_ms=sum(c["library_ms"] for c in cases),
                launches=len(cases),
                per_candidate_launches=sum(c["candidates"] for c in cases),
                max_abs_err=max(c["max_abs_err"] for c in cases))
@@ -1289,16 +1345,348 @@ def kg_search(torch, csr, conv, graph, planted, kg):
     return launches, stacked
 
 
+# ------------------------------------------- 'auto' routing and new kinds
+# auto_routing times whole train_mpgnn runs, set-up included, at the
+# search's epochs; the reference's 1000 are extrapolated from each run
+# (its set-up plus 1000 epochs at its measured epoch time), so that the
+# phase stays short.
+ROUTING_EPOCHS = SEARCH_EPOCHS
+REFERENCE_EPOCHS = 1000
+ROUTING_NODES = 200_000
+ROUTING_EDGES = (10_000, 100_000, 1_000_000, 10_000_000)
+DENSE_NODES = (8_192, 16_384, 24_576, 32_768)
+# the new kinds against segment on the card: forwards and first-step
+# gradients, float32 sums in other orders
+BACKENDS_ATOL = 1e-5
+# the batched 'dense' evaluation (bf16 A and h) against float32 dense one
+# candidate at a time: the JAX package's own dense-vs-segment bound
+# (tests/test_train.py test_batched_eval_dense_matches_segment)
+DENSE_EVAL_F1_ATOL = 8e-2
+
+
+def random_relation(n, e, seed):
+    """(x [n, 16], src, dst, type) of one relation of e uniform random
+    edges over n nodes, and random binary labels, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(n, 16)).astype(np.float32),
+              rng.integers(0, n, e), rng.integers(0, n, e),
+              np.zeros(e, np.int64))
+    return arrays, rng.integers(0, 2, n)
+
+
+def auto_routing(torch, HeteroGraph, graph_s, split_s) -> dict:
+    """Whole ``train_mpgnn`` runs (hidden 64, dropout 0.6, seed 0), each
+    on a graph made anew so that its operands' build counts: segment
+    against csr on one uniform relation of ``ROUTING_NODES`` nodes at each
+    of ``ROUTING_EDGES`` edges (metapath [0, 0]), and dense against csr and
+    segment on ``data/synthetic_multiclass`` (N = 5,000, its two metapaths)
+    and one random relation of 10 N edges at each of ``DENSE_NODES``. Logs
+    each run's set-up s, epoch ms and total s at ``ROUTING_EPOCHS`` and
+    extrapolated to ``REFERENCE_EPOCHS``, what the readings say of the two
+    constants, and the constants in use. It runs after ``backends_phase``,
+    which has run every backend once in the process."""
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.train import loops
+
+    rows = []
+
+    def race(tag, arrays, metapaths, split, c, backends, turns, **extra):
+        """Each backend's run ``turns`` times, in the order given and then
+        reversed (a, b, b, a); each reading is the mean of its runs."""
+        runs = {b: [] for b in backends}
+        order = list(backends)
+        for turn in range(turns):
+            for b in (order if turn % 2 == 0 else order[::-1]):
+                graph = HeteroGraph(*arrays,
+                                    num_relations=int(arrays[3].max()) + 1)
+                rec = train_run(torch, tag, graph, metapaths, split, c,
+                                ROUTING_EPOCHS, b, phase="auto_routing_run")
+                runs[b].append(dict(
+                    setup_s=rec["setup_s"], epoch_ms=rec["epoch_ms"],
+                    total_s=rec["wall_s"],
+                    reference_s=rec["setup_s"]
+                    + REFERENCE_EPOCHS * rec["epoch_ms"] / 1e3))
+                del graph
+                torch.cuda.empty_cache()
+        runs = {b: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+                | {"turns": rs} for b, rs in runs.items()}
+        for key in ("total_s", "reference_s"):
+            extra[f"fastest_{key}"] = min(runs, key=lambda b: runs[b][key])
+        rows.append(dict(graph=tag, runs=runs, **extra))
+
+    for e in ROUTING_EDGES:
+        arrays, labels = random_relation(ROUTING_NODES, e, 1)
+        race(f"uniform, {e} edges", arrays, [[0, 0]], split_nodes(labels), 2,
+             ("segment", "csr"), 1 if e >= 10 ** 6 else 2,
+             nodes=ROUTING_NODES, edges=e)
+        del arrays
+    race("synthetic_multiclass", (graph_s.x, graph_s.edge_src,
+                                   graph_s.edge_dst, graph_s.edge_type),
+         SYNTH_PATHS, split_s, 3, ("dense", "csr", "segment"), 2,
+         nodes=graph_s.num_nodes,
+         dense_bytes=2 * 4 * graph_s.num_nodes ** 2 * 4)
+    for n in DENSE_NODES:
+        arrays, labels = random_relation(n, 10 * n, 2)
+        race(f"random, {n} nodes", arrays, [[0, 0]], split_nodes(labels), 2,
+             ("dense", "csr", "segment"), 2, nodes=n, edges=10 * n,
+             dense_bytes=2 * n * n * 4)
+    readings = {}
+    for key in ("total_s", "reference_s"):
+        csr_wins = [r["edges"] for r in rows if "dense_bytes" not in r
+                    and r[f"fastest_{key}"] == "csr"]
+        dense_wins = [r["dense_bytes"] for r in rows if "dense_bytes" in r
+                      and r[f"fastest_{key}"] == "dense"]
+        readings[key] = dict(csr_fastest_at_edges=csr_wins,
+                             dense_fastest_at_bytes=dense_wins)
+    rec = dict(phase="auto_routing", epochs=ROUTING_EPOCHS,
+               reference_epochs=REFERENCE_EPOCHS,
+               reference_extrapolated=True, hidden=HIDDEN, rows=rows,
+               readings=readings,
+               constants=dict(
+                   CSR_EDGE_CUTOVER=loops.CSR_EDGE_CUTOVER,
+                   AUTO_DENSE_BUDGET_BYTES=loops.AUTO_DENSE_BUDGET_BYTES,
+                   AUTO_DENSE_FREE_FRACTION=loops.AUTO_DENSE_FREE_FRACTION,
+                   card_budget_bytes=loops.auto_dense_budget_bytes("cuda")))
+    log(**rec)
+    return rec
+
+
+def backends_phase(torch, csr, conv, graph_s, split_s, graph_u, split_u):
+    """The new single-model kinds on the card: for 'ell', 'ell2', 'dense'
+    and 'onehot', the forward of seeded parameters on
+    ``data/synthetic_multiclass`` (hidden 64, its two metapaths) and the
+    first step's gradient of every parameter, each against 'segment'
+    within ``BACKENDS_ATOL``. Then one ``train_mpgnn(backend='auto')`` on
+    the uniform graph, counted from 0: it must resolve as
+    ``resolve_backend`` says for the card (csr where 2.5M edges reach
+    ``CSR_EDGE_CUTOVER``) and launch K1 when it resolves to csr."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
+    from mpgnn_tpu_torch.train import build_hop_arrays, loops, train_mpgnn
+
+    dev = torch.device("cuda")
+    model = init_mpgnn(graph_s.feat_dim, HIDDEN, 3, SYNTH_PATHS, device=dev)
+    x = torch.as_tensor(graph_s.x, device=dev)
+
+    def forward(kind):
+        with torch.no_grad():
+            return model(x, build_hop_arrays(graph_s, SYNTH_PATHS, kind, dev))
+
+    want = forward("segment")
+    want_grads = first_step_grads(torch, graph_s, SYNTH_PATHS, split_s, 3,
+                                  "segment", dev)
+    kinds = {}
+    for kind in ("ell", "ell2", "dense", "onehot"):
+        got = forward(kind)
+        grads = first_step_grads(torch, graph_s, SYNTH_PATHS, split_s, 3,
+                                 kind, dev)
+        kinds[kind] = dict(
+            forward_max_abs_err=float((got - want).abs().max()),
+            grad_max_abs_err=max(float((grads[k] - w).abs().max())
+                                 for k, w in want_grads.items()))
+    uni_edges = int(graph_u.rel_counts[[0, 1]].max())
+    want_route = loops.resolve_backend(
+        "auto", graph_u, [[0, 1]], loops.auto_dense_budget_bytes(dev))
+    reset_counts(csr, conv)
+    t0 = time.perf_counter()
+    res = train_mpgnn(graph_u, [[0, 1]], split_u, 2,
+                      MPGNNConfig(epochs=5, hidden_dim=HIDDEN),
+                      backend="auto", device=dev)
+    auto_s = time.perf_counter() - t0
+    launches = read_counts(csr, conv)
+    log(phase="backends", graph="synthetic_multiclass", atol=BACKENDS_ATOL,
+        against="segment on the card", kinds=kinds,
+        uniform_auto=dict(edges_per_relation=uni_edges,
+                          cutover=loops.CSR_EDGE_CUTOVER, route=want_route,
+                          epochs=5, wall_s=auto_s,
+                          final_loss=res.final_loss, launches=launches))
+    for kind, r in kinds.items():
+        check(r["forward_max_abs_err"] <= BACKENDS_ATOL
+              and r["grad_max_abs_err"] <= BACKENDS_ATOL,
+              f"{kind} against segment on the card: {r}")
+    check(want_route == ("csr" if uni_edges >= loops.CSR_EDGE_CUTOVER
+                         else "segment"),
+          f"'auto' on the uniform graph resolved to {want_route}")
+    check(np.isfinite(res.final_loss), "'auto' on the uniform graph: loss")
+    if want_route == "csr":
+        check(launches["csr_scatter"] > 0
+              and launches["csr_backward_passes"] > 0,
+              f"'auto' resolved to csr but K1 did not launch: {launches}")
+    else:
+        check(launches["csr_scatter"] == 0,
+              f"'auto' resolved to {want_route} but K1 launched")
+    torch.cuda.empty_cache()
+
+
+def search_auto(cli_stages) -> dict:
+    """Phase 8 (d): the README's line with no ``--backend`` (so 'auto'), in
+    a child process, with each class's stage times beside (a)'s under csr
+    and the backends 'auto' resolved to; then the same line with the final
+    evaluation's resolved backend named, which must discover the same
+    candidates with validation F1s within ``PALLAS_F1_ATOL`` and select the
+    same metapaths (unless two of the top candidates lie within it).
+    Returns the auto run's launches."""
+    auto = cli_search(SEARCH_LINE)
+    evals = sorted({k.split(":")[1] for k in auto["resolved"]
+                    if k.startswith("final_eval:")})
+    check(len(evals) == 1, f"'auto' evaluated with {evals}")
+    named = cli_search(SEARCH_LINE + ["--backend", evals[0]])
+    classes = {}
+    for k in auto["summary"]["classes"]:
+        a, b = auto["per_class"][k], named["per_class"][k]
+        check(a["discovered"] == b["discovered"],
+              f"class {k}: 'auto' discovered {a['discovered']}, "
+              f"--backend {evals[0]} {b['discovered']}")
+        d_val = max(abs(a["val_f1_by_path"][p] - v)
+                    for p, v in b["val_f1_by_path"].items())
+        top = sorted(b["val_f1_by_path"].values(), reverse=True)[:4]
+        close = any(x - y <= PALLAS_F1_ATOL for x, y in zip(top, top[1:]))
+        classes[k] = dict(
+            metapaths=a["metapaths"], named_metapaths=b["metapaths"],
+            test_f1=a["test_f1"], named_test_f1=b["test_f1"],
+            max_val_f1_diff=d_val, top_within_bound=close,
+            stage_s=auto["stages"][int(k)],
+            csr_stage_s=cli_stages[int(k)],
+            named_stage_s=named["stages"][int(k)])
+        check(d_val <= PALLAS_F1_ATOL,
+              f"class {k}: 'auto' val F1 off --backend {evals[0]} by {d_val}")
+        check(close or a["metapaths"] == b["metapaths"],
+              f"class {k}: 'auto' selected {a['metapaths']}, --backend "
+              f"{evals[0]} {b['metapaths']}")
+    log(phase="search_auto", dataset="data/synthetic_multiclass",
+        epochs=SEARCH_EPOCHS, resolved=auto["resolved"],
+        named_backend=evals[0], named_resolved=named["resolved"],
+        process_wall_s=auto["wall"], named_process_wall_s=named["wall"],
+        classes=classes, launches=auto["launches"],
+        named_launches=named["launches"])
+    return auto["launches"]
+
+
+def grouped_k4(torch, conv, graph, discovered) -> dict:
+    """K4 on the grouped products of the batched 'dense' evaluation of
+    ``discovered`` (each length group one chunk; at each hop, each
+    relation's candidates side by side, [N, G * F], F the input width at
+    hop 0 and 64 after it), over ``a`` and ``a_t``: against its plain
+    version (1e-5) and bitwise against a second launch; the widest product
+    after hop 0 timed (L2 flushed, as an epoch finds A) beside its bound,
+    its plain version and cuBLAS on the same bf16 operands."""
+    from mpgnn_tpu_torch.train.loops import relation_operand
+
+    dev = torch.device("cuda")
+    n = graph.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = set()
+    groups = {}
+    for p in discovered:
+        groups.setdefault(len(p), []).append(list(p))
+    for group in groups.values():
+        for j in range(len(group[0])):
+            members = {}
+            for p in group:
+                members[p[j]] = members.get(p[j], 0) + 1
+            f = graph.feat_dim if j == 0 else HIDDEN
+            shapes.update((r, g * f) for r, g in members.items())
+    err = 0.0
+    for r, width in sorted(shapes):
+        op = relation_operand(graph, r, "pallas", dev)[1]
+        x = torch.randn(n, width, generator=gen, device=dev)
+        for a in (op.a, op.a_t):
+            got, again = conv.dense_matmul(a, x), conv.dense_matmul(a, x)
+            want = conv.dense_matmul_plain(a, x)
+            torch.cuda.synchronize()
+            check(torch.allclose(got, want, **KERNEL_TOL),
+                  f"grouped K4 rel {r} width {width}: max abs err "
+                  f"{float((got - want).abs().max())} vs plain version")
+            check(torch.equal(got, again),
+                  f"grouped K4 rel {r} width {width}: a second launch differs")
+            err = max(err, float((got - want).abs().max()))
+    r, width = max(shapes, key=lambda rw: rw[1])
+    op = relation_operand(graph, r, "pallas", dev)[1]
+    x = torch.randn(n, width, generator=gen, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    b_ms, b_by = bound(2.0 * n * n + 8.0 * n * width, 0.0,
+                       2.0 * n * n * width)
+    rec = dict(
+        phase="grouped_k4", graph="synthetic_multiclass", N=n,
+        products=len(shapes) * 2, widths=sorted(w for _, w in shapes),
+        max_abs_err=err, bitwise_repeat=True, relation=r, width=width,
+        launches_per_product=-(-width // conv.MAX_WIDTH),
+        ms=cuda_ms_cold(torch, lambda: conv.dense_matmul(op.a, x), 20, flush),
+        plain_ms=cuda_ms(torch, lambda: conv.dense_matmul_plain(op.a, x), 3),
+        library_ms=cuda_ms_cold(torch, lambda: torch.mm(op.a, x.bfloat16()),
+                                20, flush),
+        bound_ms=b_ms, bound_by=b_by)
+    del flush
+    log(**rec)
+    return rec
+
+
+def search_dense(torch, csr, conv, per_class) -> tuple:
+    """Phase 8 (e): class 0 of ``data/synthetic_multiclass`` with
+    ``backend='dense'`` (the batched evaluation on K4's grouped products),
+    its launch counts set to 0 before it and read after it (K4 must have
+    launched), against one float32 dense ``train_mpgnn`` a candidate: the
+    same candidates as (a), validation F1s within ``DENSE_EVAL_F1_ATOL``.
+    Then K4 on its grouped products (``grouped_k4``). Returns (launches,
+    the grouped K4 record)."""
+    from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
+    from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
+    from mpgnn_tpu_torch.search import find_metapaths
+    from mpgnn_tpu_torch.train import train_mpgnn
+
+    graph, labels, binary = load_dat_files(
+        *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                           "label.dat")))
+    split = split_nodes(labels)
+    cfg = SearchConfig(mpgnn=MPGNNConfig(epochs=SEARCH_EPOCHS,
+                                         hidden_dim=HIDDEN))
+    reset_counts(csr, conv)
+    t0 = time.perf_counter()
+    res = find_metapaths(graph, np.asarray(binary[0], dtype=np.float32),
+                         split, 3, cfg, dataset="synthetic", seed=0,
+                         backend="dense", device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_counts(csr, conv)
+    check(res.discovered == per_class["0"]["discovered"],
+          f"dense discovered {res.discovered}, the CLI "
+          f"{per_class['0']['discovered']}")
+    check(launches["dense_matmul"] > 0,
+          f"K4 did not launch in the dense search: {launches}")
+    t0 = time.perf_counter()
+    each = {str(p): train_mpgnn(graph, [p], split, 3, cfg.mpgnn, seed=0,
+                                backend="dense", device="cuda").val_f1
+            for p in res.discovered}
+    each_s = time.perf_counter() - t0
+    d_val = {p: abs(res.val_f1_by_path[p] - v) for p, v in each.items()}
+    worst = max(d_val, key=d_val.get)
+    grouped = grouped_k4(torch, conv, graph, res.discovered)
+    log(phase="search_dense", dataset="data/synthetic_multiclass", cls=0,
+        epochs=SEARCH_EPOCHS, candidates=len(res.discovered), wall_s=wall,
+        stage_s=res.stage_s, per_candidate_f32_s=each_s,
+        max_val_f1_diff=d_val[worst], worst_path=worst,
+        val_f1_atol=DENSE_EVAL_F1_ATOL, metapaths=res.metapaths,
+        test_f1=res.test_f1, launches=launches)
+    check(d_val[worst] <= DENSE_EVAL_F1_ATOL,
+          f"dense batched val F1 of {worst} off the float32 per-candidate "
+          f"one by {d_val[worst]}")
+    return launches, grouped
+
+
 def search_phase(torch, csr, conv, graph_k, planted, kg):
-    """Phase 8: (a), (b) and (c). The two csr searches, (a) and (c), each
-    count their own launches from 0 and must launch K1 and the csr
-    backward; returns (their sum, the stacked K1 record)."""
-    per_class, cli = search_cli_run()
+    """Phase 8: (a) to (e). The searches (a), (c), (d) and (e) each count
+    their own launches from 0; (a) and (c) must launch K1 and the csr
+    backward, (e) K4. Returns (their sum, the stacked K1 record, the
+    grouped K4 record)."""
+    per_class, cli, cli_stages = search_cli_run()
     search_check(torch, per_class)
     kg_launches, stacked = kg_search(torch, csr, conv, graph_k, planted, kg)
-    launches = {k: cli[k] + kg_launches[k] for k in cli}
-    log(phase="search_launches", cli=cli, kg=kg_launches, **launches)
-    return launches, stacked
+    auto_launches = search_auto(cli_stages)
+    dense_launches, grouped = search_dense(torch, csr, conv, per_class)
+    launches = {k: cli[k] + kg_launches[k] + auto_launches[k]
+                + dense_launches[k] for k in cli}
+    log(phase="search_launches", cli=cli, kg=kg_launches,
+        auto=auto_launches, dense=dense_launches, **launches)
+    return launches, stacked, grouped
 
 
 def reset_counts(csr, conv) -> None:
@@ -1439,12 +1827,17 @@ def main() -> int:
                   split_s, 3, "pallas", pallas_ms)
     train_profile(torch, "uniform", graph_u, [[0, 1]], split_u, 2, "csr",
                   csr_ms)
+    # the other single-model kinds and 'auto' on the card, then the
+    # readings behind 'auto''s constants
+    backends_phase(torch, csr, conv, graph_s, split_s, graph_u, split_u)
     del graph_u, split_u
+    torch.cuda.empty_cache()
+    auto_routing(torch, HeteroGraph, graph_s, split_s)
 
     # 8. the search: the CLI, csr against segment, the KG
     t0 = time.perf_counter()
-    search_launches, stacked = search_phase(torch, csr, conv, graph_k,
-                                            planted, kg)
+    search_launches, stacked, grouped = search_phase(torch, csr, conv,
+                                                     graph_k, planted, kg)
     log(phase="search_done", seconds=time.perf_counter() - t0)
 
     meta = {
@@ -1472,6 +1865,10 @@ def main() -> int:
             extra["gather_bound_ms"] = wide["gather_bound_ms"]
         if "splits" in wide:
             extra["splits"] = wide["splits"]
+        if name == "dense_matmul":       # the batched dense evaluation's
+            extra.update({f"grouped_{k}": grouped[k] for k in (
+                "width", "launches_per_product", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err")})
         if name == "csr_scatter":        # the planted relation's long rows
             kg = next(r for r in recs if r["relation"] == planted[2]
                       and r["F"] == 64 and r["direction"] == "fwd")
@@ -1481,6 +1878,7 @@ def main() -> int:
                          kg_library_ms=kg["library_ms"],
                          stacked_kg_final_set_ms=stacked["ms"],
                          stacked_per_candidate_ms=stacked["per_candidate_ms"],
+                         stacked_library_ms=stacked["library_ms"],
                          stacked_launches=stacked["launches"],
                          stacked_per_candidate_launches=stacked[
                              "per_candidate_launches"],

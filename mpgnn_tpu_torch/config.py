@@ -50,11 +50,13 @@ class MPGNNConfig:
     # JAX package. The port trains in float32 only and refuses "bfloat16"
     # (ROADMAP.md A1).
     compute_dtype: str = "float32"
-    # Aggregation backend for MPGNN training/eval. The port trains with
-    # "segment" (gather + index_add_), "csr" (the sorted-CSR kernels K1/K2)
-    # and "pallas" (the fused dense RelConv kernels K3/K4); the JAX
-    # package's "auto", "dense", "ell", "ell2", "onehot" and "halo" raise
-    # until they are ported (ROADMAP.md A1, A3, A12).
+    # Aggregation backend for MPGNN training/eval: "auto" | "segment"
+    # (gather + index_add_) | "csr" (the sorted-CSR kernels K1/K2) |
+    # "pallas" (the fused dense RelConv kernels K3/K4) | "ell" | "ell2" |
+    # "dense" | "onehot". "auto" resolves per workload
+    # (train.loops.resolve_backend; the batched evaluation
+    # batch_eval.resolve_eval_backend, per length group). The JAX
+    # package's "halo" raises until it is ported (ROADMAP.md A12).
     backend: str = "segment"
     # Dropout-mask RNG, kept for parity of the config with the JAX
     # package. In the port every value means the same thing: masks are

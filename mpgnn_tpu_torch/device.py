@@ -16,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def free_memory_bytes(device: torch.device) -> int:
+    """Bytes of the card's memory free for new tensors: what CUDA
+    reports free, plus what PyTorch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))

@@ -22,9 +22,16 @@ from torch import nn
 
 from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.models.relconv import RelConv, init_relconv, uniform
-from mpgnn_tpu_torch.ops.conv import dense_conv
+from mpgnn_tpu_torch.ops.conv import dense_conv, grouped_dense_aggregate
 from mpgnn_tpu_torch.ops.csr import csr_mean_aggregate
-from mpgnn_tpu_torch.ops.spmm import rel_mean_aggregate
+from mpgnn_tpu_torch.ops.onehot import onehot_spmm_mean
+from mpgnn_tpu_torch.ops.spmm import (
+    Ell2Operand,
+    dense_mean_aggregate,
+    ell2_mean_aggregate,
+    ell_mean_aggregate,
+    rel_mean_aggregate,
+)
 
 
 def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
@@ -33,8 +40,13 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
 
       ('segment', src, dst, inv_deg)  gather + index_add_ segment mean
       ('csr', fwd, bwd)               the sorted-CSR kernels (ops/csr.py)
+      ('ell', nbr, nbr_mask)          padded neighbour-table gather
+      ('ell2', out_nbr, out_w, in_nbr, in_w)
+                                      weighted gathers both ways
+      ('dense', a, a_t)               float32 adjacency GEMM, A^T stored
+      ('onehot', fwd, bwd)            block one-hot batched GEMM
 
-    Both compute the same mean, with zero rows for edgeless sources. A
+    All compute the same mean, with zero rows for edgeless sources. A
     ``('fused', operand)`` hop has no separate aggregation: its kernel
     (ops/conv.py) runs the whole conv."""
     kind = op[0]
@@ -44,6 +56,17 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
     if kind == "csr":
         _, fwd, bwd = op
         return csr_mean_aggregate(h, fwd, bwd)
+    if kind == "ell":
+        _, nbr, mask = op
+        return ell_mean_aggregate(h, nbr, mask)
+    if kind == "ell2":
+        return ell2_mean_aggregate(Ell2Operand(*op[1:]), h)
+    if kind == "dense":
+        _, a, a_t = op
+        return dense_mean_aggregate(a, a_t, h)
+    if kind == "onehot":
+        _, fwd, bwd = op
+        return onehot_spmm_mean(fwd, bwd, h)
     raise ValueError(f"unknown hop op {kind!r}")
 
 
@@ -149,16 +172,22 @@ def stack_hop_aggregate(h: torch.Tensor, parts) -> torch.Tensor:
     """One hop's aggregation of C candidates' features ``h`` [C, N, F].
     ``parts`` covers each candidate once: (candidate indices, op), where
     ``op`` is a ``hop_aggregate`` operand over those candidates' rows
-    stacked block-diagonally ([len(indices) * N] rows). A part of every
-    candidate in order aggregates ``h`` in place of a copy."""
+    stacked block-diagonally ([len(indices) * N] rows), or
+    ``('grouped_dense', operand)``, the bf16 adjacency of the relation they
+    share (``ops.conv.grouped_dense_aggregate``). A part of every candidate
+    in order aggregates ``h`` in place of a copy."""
     c, n, f = h.shape
-    if len(parts) == 1 and tuple(parts[0][0]) == tuple(range(c)):
-        return hop_aggregate(h.reshape(c * n, f), parts[0][1],
-                             c * n).view(c, n, f)
     out = [None] * c
     for idx, op in parts:
-        sub = h[idx[0]] if len(idx) == 1 else h[list(idx)].reshape(-1, f)
-        agg = hop_aggregate(sub, op, len(idx) * n).view(len(idx), n, f)
+        whole = tuple(idx) == tuple(range(c))
+        sub = h if whole else h[list(idx)]
+        if op[0] == "grouped_dense":
+            agg = grouped_dense_aggregate(op[1], sub)
+        else:
+            agg = hop_aggregate(sub.reshape(-1, f), op,
+                                len(idx) * n).view(len(idx), n, f)
+        if whole:
+            return agg
         for i, k in enumerate(idx):
             out[k] = agg[i]
     return torch.stack(out)

@@ -20,7 +20,10 @@ epilogue adds them and applies W, root, b and the ReLU.
 ``dense_conv`` is a ``torch.autograd.Function`` whose backward is
 ``_conv_vjp_bwd`` of the JAX package: the small GEMMs stay ``torch.matmul``
 and K4 runs only when the input ``h`` needs a gradient (hop 0's input
-``x`` needs none). Each kernel has a plain PyTorch version beside it
+``x`` needs none). K4 also runs the batched ``'dense'`` evaluation's
+grouped products, forward and backward (``grouped_dense_aggregate``: the
+candidates of one relation side by side, column slices of at most
+``MAX_WIDTH``). Each kernel has a plain PyTorch version beside it
 (float64 sums over the same bf16-rounded operands, rounded once); a wrapper
 takes it for CPU tensors only and launches its kernel for CUDA tensors.
 ``CONV_LAUNCHES`` and ``MATMUL_LAUNCHES`` count the kernels' launches.
@@ -202,7 +205,9 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
 def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a @ bf16(x)``: K4 on CUDA tensors, its plain version on CPU
     tensors. On the card ``a``'s rows must be 16-byte aligned (row stride a
-    multiple of 8), as ``DenseConvOperand.a_t`` is."""
+    multiple of 8), as ``DenseConvOperand.a`` and ``a_t`` are; an x wider
+    than ``MAX_WIDTH`` columns runs one launch a slice of at most
+    ``MAX_WIDTH`` columns, each streaming ``a`` once."""
     _same_device(a, x)
     if x.device.type == "cpu":
         return dense_matmul_plain(a, x)
@@ -212,9 +217,15 @@ def dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or a.shape[0] != x.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and x {tuple(x.shape)} do not "
                          f"fit")
+    if x.shape[1] > MAX_WIDTH:
+        return torch.cat([_dense_matmul_launch(a, s.contiguous())
+                          for s in x.split(MAX_WIDTH, dim=1)], dim=1)
+    return _dense_matmul_launch(a, x)
+
+
+def _dense_matmul_launch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One K4 launch, x [N, F <= MAX_WIDTH]."""
     n, f = x.shape
-    if f > MAX_WIDTH:
-        raise ValueError(f"K4 takes F <= {MAX_WIDTH}, got {f}")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         splits, xt = _main_loop_scratch(x)
@@ -254,3 +265,36 @@ def dense_conv(op: DenseConvOperand, h: torch.Tensor, w: torch.Tensor,
     """relu((A @ bf16(h)) @ w + h @ root + b) for the relation of ``op``,
     differentiable in h, w, root and b."""
     return _DenseConv.apply(op.a, op.a_t, h, w, root, b)
+
+
+def _grouped_matmul(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """[G, N, F] products ``a @ bf16(h[g])``: the G feature blocks side by
+    side as one [N, G * F] operand of ``dense_matmul`` (K4 on the card),
+    split back per block."""
+    g, n, f = h.shape
+    wide = h.permute(1, 0, 2).reshape(n, g * f)
+    return dense_matmul(a, wide).view(n, g, f).permute(1, 0, 2)
+
+
+class _GroupedDense(torch.autograd.Function):
+    """K4 forward over ``a``; K4 backward over the stored ``a_t``."""
+
+    @staticmethod
+    def forward(ctx, a, a_t, h):
+        ctx.save_for_backward(a_t)
+        return _grouped_matmul(a, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a_t,) = ctx.saved_tensors
+        return None, None, _grouped_matmul(a_t, g)
+
+
+def grouped_dense_aggregate(op: DenseConvOperand,
+                            h: torch.Tensor) -> torch.Tensor:
+    """The batched ``'dense'`` evaluation's aggregation of G candidates
+    that take the relation of ``op`` at one hop: ``A @ bf16(h[g])`` for
+    each of h's [G, N, F] blocks, float32 sums, differentiable in h (the
+    JAX package's ``_grouped_dense_agg``). The blocks go through K4 side by
+    side, so each launch streams A once for up to ``MAX_WIDTH`` columns."""
+    return _GroupedDense.apply(op.a, op.a_t, h)

@@ -7,14 +7,17 @@ argparse and ``main(args)``, main.py:1191-1508), with the same flags:
         --folder data/synthetic_multiclass --node_file node.dat \\
         --link_file link.dat --label_file label.dat
 
+``--backend`` defaults to ``auto``, as the JAX CLI's: each ``train_mpgnn``
+(the greedy stage) takes 'dense' where its adjacencies fit the card's
+budget, else 'csr' (K1/K2) or 'segment' by edge count, and the batched
+final evaluation routes each length group to 'csr' or 'segment'
+(``train.loops.resolve_backend``, ``train.batch_eval.resolve_eval_backend``).
+
 Differences from the JAX CLI:
-* ``--backend`` defaults to ``csr``, the port's CUDA kernels K1/K2, until
-  ``auto`` is ported (ROADMAP.md A3);
 * ``--device`` (default ``cuda``) picks the device; ``--platform cpu`` is
   its alias, so the JAX command lines run unchanged;
 * refused, each with the ROADMAP.md item that brings it: ``--mesh`` (A12),
-  ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), the backends other than
-  ``segment``, ``csr`` and ``pallas`` (A3), ``--compute_dtype bfloat16``
+  ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), ``--compute_dtype bfloat16``
   (A1), and ``--dropout_rng threefry|rbg``: the port draws dropout masks
   from a ``torch.Generator`` only ("What the port does not inherit").
   ``--no_warm`` is accepted and does nothing: the port has no
@@ -34,8 +37,6 @@ import sys
 import time
 
 import numpy as np
-
-from mpgnn_tpu_torch.train.loops import NOT_PORTED
 
 NOT_PORTED_DATASETS = ("DBLP", "IMDB", "ACM")
 
@@ -95,12 +96,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="MPNetm evaluation epochs")
     p.add_argument("--max_hops", type=int, default=3, help="extension hops")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backend", type=str, default="csr",
+    p.add_argument("--backend", type=str, default="auto",
                    choices=["auto", "segment", "ell", "ell2", "dense",
                             "pallas", "onehot", "csr"],
-                   help="MPNetm aggregation backend (default csr: the CUDA "
-                        "kernels K1/K2; only segment, csr and pallas are "
-                        "ported)")
+                   help="MPNetm aggregation backend; 'auto' picks dense "
+                        "where the relations' adjacencies fit the card's "
+                        "budget, csr (the CUDA kernels K1/K2) or segment "
+                        "by edge count otherwise")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda)")
     p.add_argument("--platform", type=str, default=None,
@@ -153,9 +155,6 @@ def _refusals(args) -> list:
     if args.dataset in NOT_PORTED_DATASETS:
         out.append(f"dataset {args.dataset} is not ported yet "
                    f"(ROADMAP.md A2)")
-    if args.backend in NOT_PORTED:
-        out.append(f"backend {args.backend!r} is not ported yet "
-                   f"(ROADMAP.md {NOT_PORTED[args.backend]})")
     if args.compute_dtype != "float32":
         out.append(f"compute_dtype {args.compute_dtype!r} is not ported yet "
                    f"(ROADMAP.md A1)")

@@ -111,10 +111,13 @@ def find_metapaths(
     evaluation (default ``config.mpgnn.backend``). With ``batched_eval``
     the candidates of each length train together
     (``train.batch_eval.evaluate_candidates``) where the backend has a
-    batched form ('segment', 'csr'); without it, or with a single-model
-    backend ('pallas'), one after another through ``train_mpgnn``. Both
-    give every candidate the same seed, so they compute the same
-    validation F1s.
+    batched form ('segment', 'csr', 'dense', and 'auto', which routes each
+    length group to 'csr' or 'segment'); without it, or with a
+    single-model backend ('pallas', 'ell', 'ell2', 'onehot'), one after
+    another through ``train_mpgnn``. Both give every candidate the same
+    seed, so they compute the same validation F1s (up to the bf16 operands
+    of the batched 'dense' form). The greedy stage trains through
+    ``train_mpgnn``, which resolves 'auto' for each model.
 
     ``frontier_checkpoint``: optional pickle path; the frontier (current
     states and discovered paths) is saved after hop 0, after every
@@ -126,7 +129,8 @@ def find_metapaths(
     backend = backend or cfg.mpgnn.backend
     # the JAX engine trains a single-model backend's candidates batched
     # with 'segment'; here they keep their backend's kernels, one at a time
-    batched_eval = batched_eval and backend in BATCH_BACKENDS
+    batched_eval = batched_eval and (backend == "auto"
+                                     or backend in BATCH_BACKENDS)
     rng = np.random.default_rng(seed)
     x = np.asarray(graph.x if x_features is None else x_features, np.float32)
     N = graph.num_nodes

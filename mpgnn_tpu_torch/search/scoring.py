@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from mpgnn_tpu_torch.config import ScorerConfig
-from mpgnn_tpu_torch.device import resolve_device
+from mpgnn_tpu_torch.device import free_memory_bytes, resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.models.scorer import (
     Adam,
@@ -87,9 +87,7 @@ def _mem_budget_entries(device=None) -> int:
     device = torch.device("cpu" if device is None else device)
     if device.type != "cuda":
         return _CPU_BUDGET_ENTRIES
-    free, _ = torch.cuda.mem_get_info(device)
-    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(
-        device)
+    free = free_memory_bytes(device)
     return max(16_000_000, int(free * _FREE_FRACTION) // _BYTES_PER_ENTRY)
 
 

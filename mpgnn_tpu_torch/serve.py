@@ -27,7 +27,10 @@ from mpgnn_tpu_torch.train.loops import build_hop_arrays
 
 class MetapathPredictor:
     """Full-graph node classifier for a metapath set. The graph's
-    aggregation operands and features live on ``device``."""
+    aggregation operands and features live on ``device``. ``backend`` is
+    any single-model backend of ``train.loops.BACKENDS`` ('segment',
+    'csr', 'pallas', 'ell', 'ell2', 'dense', 'onehot'); 'auto' is not
+    resolved here, as the JAX package's predictor does not resolve it."""
 
     def __init__(
         self,

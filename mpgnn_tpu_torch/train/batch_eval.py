@@ -17,7 +17,17 @@ the group:
 * ``'csr'``: the candidates' K1 blockings stacked block-diagonally
   (``ops.csr.stack_blockings``), K1 forward and backward over all of them;
   a candidate whose relation routes either direction to K2 runs its own
-  ``csr_mean_aggregate`` on its [N, H] slice.
+  ``csr_mean_aggregate`` on its [N, H] slice;
+* ``'dense'``: one grouped product a unique relation of the hop, the
+  features of the G candidates that take it side by side, [N, G * H],
+  times its bf16 adjacency through K4 (``ops.conv.grouped_dense_aggregate``,
+  forward over A, backward over A^T), as the JAX package's
+  ``_grouped_dense_agg``; hop 0 aggregates bf16(x) the same way.
+
+``'auto'`` routes each length group as ``resolve_eval_backend`` says
+('csr' where a relation of the group has ``loops.CSR_EDGE_CUTOVER`` edges,
+else 'segment'); a set whose groups route both ways is evaluated as two
+calls whose results are merged, as the JAX package does.
 
 Hop 0 aggregates the input features once per run. Each relation's operand
 is built once per graph and kept on it (``train.loops.relation_operand``),
@@ -47,11 +57,16 @@ import numpy as np
 import torch
 
 from mpgnn_tpu_torch.config import MPGNNConfig
-from mpgnn_tpu_torch.device import resolve_device
+from mpgnn_tpu_torch.device import free_memory_bytes, resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph, NodeSplit
-from mpgnn_tpu_torch.models.mpgnn import MPNetmStack, hop_aggregate
+from mpgnn_tpu_torch.models.mpgnn import (
+    MPNetmStack,
+    hop_aggregate,
+    stack_hop_aggregate,
+)
 from mpgnn_tpu_torch.ops.csr import CsrBlocking, stack_blockings
 from mpgnn_tpu_torch.ops.segment import stack_edge_lists
+from mpgnn_tpu_torch.train import loops as _loops
 from mpgnn_tpu_torch.train.loops import (
     check_config,
     make_optimizer,
@@ -63,9 +78,7 @@ from mpgnn_tpu_torch.train.metrics import macro_f1
 
 log = logging.getLogger("mpgnn_tpu_torch.batch_eval")
 
-BATCH_BACKENDS = ("segment", "csr")
-# batched backends of the JAX package that the port does not have yet
-NOT_PORTED = {"dense": "A3", "auto": "A3 (it chooses by edge count)"}
+BATCH_BACKENDS = ("segment", "csr", "dense")
 
 # Candidates a chunk. None: from the memory the device has free (the CPU:
 # ``_CPU_BUDGET_BYTES``). Tests pin it.
@@ -75,19 +88,25 @@ _CPU_BUDGET_BYTES = 4 << 30
 _FREE_FRACTION = 0.5
 # [N, H] float32 tensors that one hop of one candidate keeps through an
 # epoch: the aggregation, the pre-activation, the ReLU and dropout outputs
-# and mask, the gradients of the backward.
+# and mask, the gradients of the backward; 'dense' also the grouped
+# product's side-by-side copies of its input and output.
 _NH_PER_HOP = 8
+_NH_PER_DENSE_HOP = 3
 
 
-def resolve_eval_backend(backend: Optional[str],
-                         cfg: Optional[MPGNNConfig]) -> str:
-    """The aggregation of the batched evaluation: ``backend``, else
-    ``cfg.backend``. ``'auto'`` and ``'dense'`` are not ported (A3)."""
+def resolve_eval_backend(backend: Optional[str], cfg: Optional[MPGNNConfig],
+                         graph: HeteroGraph,
+                         paths: Sequence[Sequence[int]]) -> str:
+    """The aggregation of the batched evaluation of ``paths``: ``backend``,
+    else ``cfg.backend``; 'auto' gives 'csr' where a relation of the paths
+    has ``loops.CSR_EDGE_CUTOVER`` edges or more (read through the module,
+    so that training and the evaluation route alike), else 'segment'."""
     backend = backend or (cfg.backend if cfg else "segment")
-    if backend in NOT_PORTED:
-        raise ValueError(f"batched evaluation backend {backend!r} is not "
-                         f"ported yet (ROADMAP.md {NOT_PORTED[backend]})")
-    return backend
+    if backend != "auto":
+        return backend
+    max_e = max((int(graph.rel_counts[int(r)]) for p in paths for r in p),
+                default=0)
+    return "csr" if max_e >= _loops.CSR_EDGE_CUTOVER else "segment"
 
 
 def stacked_hop(graph: HeteroGraph, rels: Sequence[int], backend: str,
@@ -95,7 +114,15 @@ def stacked_hop(graph: HeteroGraph, rels: Sequence[int], backend: str,
     """One hop's parts for ``models.mpgnn.stack_hop_aggregate``: candidate c
     aggregates relation ``rels[c]``. Segment: every candidate in one part.
     csr: the candidates whose both directions run K1 in one stacked part,
-    each other candidate (K2) in a part of its own."""
+    each other candidate (K2) in a part of its own. Dense: the candidates
+    of each relation in one grouped part with its bf16 operand."""
+    if backend == "dense":
+        members: Dict[int, List[int]] = {}
+        for c, r in enumerate(rels):
+            members.setdefault(int(r), []).append(c)
+        return [(tuple(cs), ("grouped_dense", relation_operand(
+            graph, r, "pallas", device)[1]))
+            for r, cs in sorted(members.items())]
     ops = [relation_operand(graph, r, backend, device) for r in rels]
     everyone = tuple(range(len(rels)))
     if backend == "segment":
@@ -118,25 +145,28 @@ def _chunk_cap(graph: HeteroGraph, group: List[List[int]], cfg: MPGNNConfig,
     """Most candidates of ``group`` one chunk trains: ``_FREE_FRACTION`` of
     the device's free memory (PyTorch's cache counted as free) over one
     candidate's working set, its [N, H] tensors and its stacked edges; on
-    the CPU ``_CPU_BUDGET_BYTES``. csr also keeps K1's int32 item count,
-    C * (N + E), under 2^31."""
+    the CPU ``_CPU_BUDGET_BYTES``. Dense: the bf16 operands of the group's
+    relations, 4 N^2 bytes each, come off the budget once. csr also keeps
+    K1's int32 item count, C * (N + E), under 2^31."""
     if _CHUNK_CAP is not None:
         return _CHUNK_CAP
     n, h = graph.num_nodes, cfg.hidden_dim
     length = len(group[0])
+    if device.type == "cuda":
+        budget = free_memory_bytes(device) * _FREE_FRACTION
+    else:
+        budget = _CPU_BUDGET_BYTES
+    if backend == "dense":
+        budget -= 4 * n * n * len({r for p in group for r in p})
+        per = 4 * n * (graph.feat_dim
+                       + (_NH_PER_HOP + _NH_PER_DENSE_HOP) * h * length)
+        return max(1, int(budget // per))
     edges = max(sum(int(graph.rel_counts[r]) for r in p[1:]) for p in group)
     # an edge of the stacked hops: csr, a column and a weight each way;
     # segment, int64 src and dst, the gathered row and its gradient
     edge_bytes = 16 if backend == "csr" else 16 + 2 * 4 * h
     per = (4 * n * (graph.feat_dim + _NH_PER_HOP * h * length)
            + edge_bytes * edges)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        free += (torch.cuda.memory_reserved(device)
-                 - torch.cuda.memory_allocated(device))
-        budget = free * _FREE_FRACTION
-    else:
-        budget = _CPU_BUDGET_BYTES
     cap = max(1, int(budget // per))
     if backend == "csr":
         e_max = max((int(graph.rel_counts[r]) for p in group for r in p[1:]),
@@ -174,9 +204,15 @@ def train_chunk(graph: HeteroGraph, chunk: List[List[int]], x: torch.Tensor,
     device = x.device
     n, length, c = graph.num_nodes, len(chunk[0]), len(chunk)
     with torch.no_grad():
-        first = torch.stack([
-            hop_aggregate(x, relation_operand(graph, p[0], backend, device),
-                          n) for p in chunk])
+        if backend == "dense":
+            first = stack_hop_aggregate(
+                x.expand(c, -1, -1),
+                stacked_hop(graph, [p[0] for p in chunk], backend, device))
+        else:
+            first = torch.stack([
+                hop_aggregate(x, relation_operand(graph, p[0], backend,
+                                                  device), n)
+                for p in chunk])
     hops = [stacked_hop(graph, [p[j] for p in chunk], backend, device)
             for j in range(1, length)]
     model, drop_seed = init_stack(c, x.shape[1], cfg.hidden_dim, num_classes,
@@ -220,28 +256,44 @@ def evaluate_candidates(
     each trained chunk's results as it finishes, so that a search resumes
     after the last chunk it saved.
 
-    ``backend`` is 'segment' or 'csr' (default ``cfg.backend``); 'dense'
-    and 'auto' are not ported (A3). A single-model backend ('pallas',
-    'ell', ...) is refused, whether named or from ``cfg.backend``: its
-    candidates train one ``train_mpgnn`` each (``find_metapaths`` does
-    that). The JAX package trains them with 'segment' instead, which on
-    the card would put plain PyTorch where the caller asked for kernels."""
+    ``backend`` is 'segment', 'csr', 'dense' or 'auto' (default
+    ``cfg.backend``). 'auto' routes each length group by
+    ``resolve_eval_backend``; a set whose groups route both ways is
+    evaluated as two calls, 'csr' then 'segment', whose results are
+    merged. A single-model backend ('pallas', 'ell', ...) is refused,
+    whether named or from ``cfg.backend``: its candidates train one
+    ``train_mpgnn`` each (``find_metapaths`` does that). The JAX package
+    trains them with 'segment' instead, which on the card would put plain
+    PyTorch where the caller asked for kernels."""
     cfg = cfg or MPGNNConfig()
-    backend = resolve_eval_backend(backend, cfg)
+    backend = backend or cfg.backend
+    by_len = _by_length(paths)
+    if backend == "auto":
+        routed: Dict[str, List[List[int]]] = {"csr": [], "segment": []}
+        for _, group in sorted(by_len.items()):
+            routed[resolve_eval_backend(backend, cfg, graph, group)].extend(
+                group)
+        if routed["csr"] and routed["segment"]:
+            kw = dict(cfg=cfg, seed=seed, x_override=x_override,
+                      existing=existing, sink=sink, device=device)
+            out = evaluate_candidates(graph, routed["csr"], split,
+                                      num_classes, backend="csr", **kw)
+            out.update(evaluate_candidates(graph, routed["segment"], split,
+                                           num_classes, backend="segment",
+                                           **kw))
+            return out
+        backend = "csr" if routed["csr"] else "segment"
     if backend not in BATCH_BACKENDS:
         raise ValueError(f"batched candidate evaluation takes the backends "
-                         f"'segment' and 'csr', not {backend!r} (a "
-                         f"single-model backend: train each candidate with "
-                         f"train_mpgnn)")
+                         f"'segment', 'csr', 'dense' and 'auto', not "
+                         f"{backend!r} (a single-model backend: train each "
+                         f"candidate with train_mpgnn)")
     check_config(cfg)
     device = resolve_device(device)
     x = torch.as_tensor(np.asarray(
         x_override if x_override is not None else graph.x, dtype=np.float32),
         device=device)
     parts = split_tensors(split, device)[:4]
-    by_len: Dict[int, List[List[int]]] = {}
-    for p in paths:
-        by_len.setdefault(len(p), []).append([int(r) for r in p])
     out: Dict[str, float] = {}
     for length, group in sorted(by_len.items()):
         cap = _chunk_cap(graph, group, cfg, backend, device)
@@ -264,3 +316,11 @@ def evaluate_candidates(
             if sink is not None:
                 sink(done)
     return out
+
+
+def _by_length(paths: Sequence[Sequence[int]]) -> Dict[int, List[List[int]]]:
+    """{length: the paths of that length, in order}."""
+    by_len: Dict[int, List[List[int]]] = {}
+    for p in paths:
+        by_len.setdefault(len(p), []).append([int(r) for r in p])
+    return by_len

@@ -12,13 +12,14 @@ until the end.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mpgnn_tpu_torch.config import MPGNNConfig
-from mpgnn_tpu_torch.device import resolve_device
+from mpgnn_tpu_torch.device import free_memory_bytes, resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph, NodeSplit
 from mpgnn_tpu_torch.models.mpgnn import (
     MPNetm,
@@ -27,19 +28,84 @@ from mpgnn_tpu_torch.models.mpgnn import (
 )
 from mpgnn_tpu_torch.ops.conv import build_dense_conv_operand
 from mpgnn_tpu_torch.ops.csr import build_csr_blocking
+from mpgnn_tpu_torch.ops.onehot import build_spmm_blocking
+from mpgnn_tpu_torch.ops.spmm import build_ell2_operand, dense_adjacency
 from mpgnn_tpu_torch.train.metrics import macro_f1
 
-BACKENDS = ("segment", "csr", "pallas")
+log = logging.getLogger("mpgnn_tpu_torch.train")
+
+BACKENDS = ("segment", "csr", "pallas", "ell", "ell2", "dense", "onehot")
 # backends of the JAX package that the port does not have yet, with the
 # ROADMAP.md queue item that brings them
-NOT_PORTED = {
-    "auto": "A3 (it chooses 'dense')",
-    "dense": "A3",
-    "ell": "A3",
-    "ell2": "A3",
-    "onehot": "A3",
-    "halo": "A12",
-}
+NOT_PORTED = {"halo": "A12"}
+
+# 'auto' (``resolve_backend``): the share of the card's free memory that the
+# dense (A, A^T) pairs may take; the rest stays for activations, parameters,
+# optimizer state and the batched evaluation (the JAX package's choice).
+AUTO_DENSE_FREE_FRACTION = 0.4
+# 'auto' on the card: the largest dense operand size, 2 * Ru * N^2 * 4
+# bytes, at which 'dense' trains as fast as 'csr' and 'segment'.
+# chip_smoke.py's ``auto_routing`` times whole train_mpgnn runs, set-up
+# included, hidden 64, 150 epochs and 1000 extrapolated, the mean of two
+# runs each, on an NVIDIA H100 80GB HBM3 at 700.00 W (two runs of the
+# script): at 0.54 GB (N = 8,192), 0.80 GB (N = 5,000, four relations)
+# and 2.1 GB (N = 16,384) all three are host-bound (3.0-4.4 ms an epoch)
+# and dense was fastest or within 3% of the fastest; from 4.8 GB (N =
+# 24,576 and 32,768) its float32 GEMMs take it to 6.5-6.8 ms an epoch
+# against 2.6-4.5.
+AUTO_DENSE_BUDGET_BYTES = 2 << 30
+# 'auto' on the CPU: the JAX package's budget where the device reports no
+# memory (its CPU), so that the CPU decides as the JAX package does there.
+AUTO_DENSE_CPU_BUDGET_BYTES = 4 << 30
+# 'auto' past the dense budget, for train_mpgnn and for the batched
+# evaluation (``batch_eval.resolve_eval_backend``): 'csr' from this many
+# edges in a relation, 'segment' below. The same phase and card time
+# segment against csr on one uniform relation of 200,000 nodes (two runs
+# of the script): at 10^7 edges segment took 24.3 s to csr's 28.6-35.3 s
+# at 1000 epochs and 5.1 s to 25.5-32.2 s at 150: csr's host-built
+# blockings take 24.9-31.6 s (2.5-3.2 us an edge) and save 1.9 ns an edge
+# an epoch, so csr pays back only past 1,200-1,600 epochs at any size. At
+# 10^5 and 10^6 edges csr was 3-8% faster at 1000 epochs and 5-160% slower
+# at 150, the search's; at 10^4 the two were within 3%. A cutover from
+# which csr always runs would put it where it loses most, so 'auto' does
+# not pick csr: the cutover lies past what K1's int32 edge indices take.
+CSR_EDGE_CUTOVER = 1 << 31
+
+
+def auto_dense_budget_bytes(device=None) -> int:
+    """The bytes 'auto' lets the dense operands take on ``device`` (the GPU
+    unless ``device='cpu'``): ``AUTO_DENSE_FREE_FRACTION`` of the card's
+    free memory, at most ``AUTO_DENSE_BUDGET_BYTES``; on the CPU
+    ``AUTO_DENSE_CPU_BUDGET_BYTES``."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return AUTO_DENSE_CPU_BUDGET_BYTES
+    return int(min(free_memory_bytes(device) * AUTO_DENSE_FREE_FRACTION,
+                   AUTO_DENSE_BUDGET_BYTES))
+
+
+def resolve_backend(
+    backend: str,
+    graph: HeteroGraph,
+    metapaths: Sequence[Sequence[int]],
+    budget_bytes: Optional[int] = None,
+) -> str:
+    """The aggregation backend of ``backend`` for this workload: 'auto'
+    resolves, the others pass through. 'auto' picks 'dense' where its
+    (A, A^T) pairs, 2 * Ru * N^2 * 4 bytes for the Ru relations of the
+    metapaths, fit ``budget_bytes`` (default ``auto_dense_budget_bytes()``,
+    the GPU's); past it 'csr' where a relation has ``CSR_EDGE_CUTOVER``
+    edges or more, else 'segment'. The JAX package's decision order."""
+    if backend != "auto":
+        return backend
+    if budget_bytes is None:
+        budget_bytes = auto_dense_budget_bytes()
+    uniq = {int(r) for mp in metapaths for r in mp}
+    dense_bytes = 2 * len(uniq) * graph.num_nodes * graph.num_nodes * 4
+    if dense_bytes <= budget_bytes:
+        return "dense"
+    max_e = max((int(graph.rel_counts[r]) for r in uniq), default=0)
+    return "csr" if max_e >= CSR_EDGE_CUTOVER else "segment"
 
 
 def _check_backend(backend: str) -> None:
@@ -63,31 +129,31 @@ def build_hop_arrays(
         1/max(deg, 1), for the gather + ``index_add_`` mean;
       * 'csr': the (forward, backward) blockings of ``ops.csr``, whose
         kernels run the aggregation on the GPU;
+      * 'ell': the relation's neighbour table and mask;
+      * 'ell2': the out/in tables with weights of ``ops.spmm``;
+      * 'dense': the float32 mean adjacency and its transpose;
+      * 'onehot': the (forward, backward) blockings of ``ops.onehot``;
       * 'pallas': ('fused', operand), the bf16 mean adjacency and its
         transpose of ``ops.conv``, whose kernels run the whole conv.
 
     Every hop that aggregates a relation shares its operand
-    (``relation_operand``)."""
+    (``relation_operand``). 'auto' is not a backend here:
+    ``resolve_backend`` resolves it."""
     _check_backend(backend)
     device = resolve_device(device)
-    ops = {}
     hop_ops: List[List[tuple]] = []
     for mp in metapaths:
-        for rel in mp:
-            if int(rel) not in ops:
-                ops[int(rel)] = relation_operand(graph, rel, backend, device)
-        hop_ops.append([ops[int(rel)] for rel in mp])
+        hop_ops.append([relation_operand(graph, rel, backend, device)
+                        for rel in mp])
     return hop_ops
 
 
 def relation_operand(graph: HeteroGraph, rel: int, backend: str,
                      device: torch.device) -> tuple:
-    """``relation_op`` of one relation. A 'segment' or 'csr' operand is
-    built once per graph, backend and device and kept on the graph, so that
-    a search's evaluations and its greedy stage share it; a dense
-    ('pallas') operand, N^2 bf16 twice, is built anew."""
-    if backend == "pallas":
-        return relation_op(graph, int(rel), backend, device)
+    """``relation_op`` of one relation, built once per graph, backend and
+    device and kept on the graph, so that a search's evaluations and its
+    greedy stage share it (the dense ones too, as the JAX package keeps
+    them: N^2 each)."""
     cache = getattr(graph, "_operand_cache", None)
     if cache is None:
         cache = graph._operand_cache = {}
@@ -109,10 +175,22 @@ def relation_op(graph: HeteroGraph, rel: int, backend: str,
                 torch.from_numpy(s.astype(np.int64)).to(device),
                 torch.from_numpy(d.astype(np.int64)).to(device),
                 torch.from_numpy(inv).to(device))
+    if backend == "ell":
+        nbr, mask = graph.neighbor_table(rel)
+        return ("ell", torch.from_numpy(nbr.astype(np.int64)).to(device),
+                torch.from_numpy(mask).to(device))
     s, d = graph.rel_edges(rel)
     if backend == "csr":
         fwd, bwd = build_csr_blocking(s, d, graph.num_nodes)
         return ("csr", fwd.to(device), bwd.to(device))
+    if backend == "ell2":
+        return ("ell2",) + tuple(
+            build_ell2_operand(s, d, graph.num_nodes).to(device))
+    if backend == "dense":
+        return ("dense",) + dense_adjacency(s, d, graph.num_nodes, device)
+    if backend == "onehot":
+        fwd, bwd = build_spmm_blocking(s, d, graph.num_nodes)
+        return ("onehot", fwd.to(device), bwd.to(device))
     return ("fused", build_dense_conv_operand(s, d, graph.num_nodes, device))
 
 
@@ -243,13 +321,20 @@ def train_mpgnn(
     decay, dropout after every hop. The parameters are drawn by
     ``init_mpgnn`` from ``seed``; the dropout generator is seeded from a
     draw of the same stream after them. ``backend`` (default
-    ``cfg.backend``) is 'segment', 'csr' or 'pallas'."""
+    ``cfg.backend``) is one of ``BACKENDS``, or 'auto', which
+    ``resolve_backend`` resolves for this workload and ``device``."""
     cfg = cfg or MPGNNConfig()
-    backend = backend or cfg.backend
-    _check_backend(backend)
-    check_config(cfg)
     device = resolve_device(device)
     metapaths = [list(mp) for mp in metapaths]
+    backend = backend or cfg.backend
+    if backend == "auto":
+        backend = resolve_backend(backend, graph, metapaths,
+                                  auto_dense_budget_bytes(device))
+        log.info("train_mpgnn: backend 'auto' -> %r (%d nodes, relations "
+                 "%s)", backend, graph.num_nodes,
+                 sorted({r for mp in metapaths for r in mp}))
+    _check_backend(backend)
+    check_config(cfg)
     x = torch.as_tensor(np.asarray(
         x_override if x_override is not None else graph.x, dtype=np.float32),
         device=device)

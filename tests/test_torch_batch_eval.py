@@ -338,8 +338,7 @@ def test_resume_from_existing_equals_uninterrupted(case, monkeypatch):
     assert resumed == whole
 
 
-@pytest.mark.parametrize("backend,err", [
-    ("dense", "A3"), ("auto", "A3"), ("pallas", "single-model")])
+@pytest.mark.parametrize("backend,err", [("pallas", "single-model")])
 def test_refuses_what_has_no_batched_form(case, backend, err):
     graph, labels = case
     with pytest.raises(ValueError, match=err):

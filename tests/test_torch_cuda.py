@@ -1,7 +1,10 @@
 """The CUDA kernels K1 (csrc/csr_scatter.cu), K2 (csrc/csr_dedup.cu), K3
 and K4 (both csrc/dense_matmul.cu) and K5 (csrc/dma_gather.cu) against
 their plain PyTorch versions on the GPU, at the edge cases of their
-layouts, and the gradients that run them. Marked ``cuda``: they skip where no GPU is found.
+layouts, and the gradients that run them; K4 on the batched 'dense'
+evaluation's grouped products, the 'ell', 'ell2', 'dense' and 'onehot'
+aggregations against 'segment', and an 'auto' run past the csr cutover.
+Marked ``cuda``: they skip where no GPU is found.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -299,8 +302,8 @@ def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
         conv.dense_matmul(op.a_t, torch.randn(4, 64, device=dev).t())
     with pytest.raises(ValueError, match="tensors on"):
         conv.dense_conv_fwd(op.a, h.cpu(), w, root, b)
-    with pytest.raises(ValueError):
-        conv.dense_matmul(op.a_t, torch.randn(64, 300, device=dev))
+    with pytest.raises(ValueError, match="do not fit"):
+        conv.dense_matmul(op.a_t, torch.randn(63, 64, device=dev))
 
 
 # ------------------------------------------------------- csr backward
@@ -512,3 +515,115 @@ def test_batched_evaluation_on_the_card(dev):
                 torch.testing.assert_close(model(xd, ops)[val],
                                            one.params(xd, ops)[val],
                                            rtol=0, atol=1e-4)
+
+
+# ---------------------------------- ell, ell2, dense, onehot and 'auto'
+@pytest.mark.parametrize("width", [64, 256, 320, 832])
+@pytest.mark.parametrize("n", [1000, 5000])
+def test_grouped_k4_matches_plain(dev, n, width):
+    """K4 on the batched 'dense' evaluation's grouped operand [N, G * F]:
+    one launch a slice of at most MAX_WIDTH columns (320 and 832 end in a
+    short slice), over a and a_t, against its plain version; a second call
+    bitwise-equal; and the grouped product of G candidates' [G, N, 64]
+    features equal to G products of one."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, _ = _conv_inputs(n, 4 * n, 4, 8, dev, seed=width)
+    x = torch.randn(n, width, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    slices = -(-width // conv.MAX_WIDTH)
+    for a in (op.a, op.a_t):
+        before = conv.MATMUL_LAUNCHES
+        got, again = conv.dense_matmul(a, x), conv.dense_matmul(a, x)
+        torch.cuda.synchronize()
+        assert conv.MATMUL_LAUNCHES == before + 2 * slices
+        torch.testing.assert_close(got, conv.dense_matmul_plain(a, x), **TOL)
+        assert torch.equal(got, again)
+    h = x.view(n, width // 64, 64).permute(1, 0, 2)
+    grouped = conv.grouped_dense_aggregate(op, h)
+    torch.testing.assert_close(
+        grouped, torch.stack([conv.dense_matmul_plain(op.a, hg.contiguous())
+                              for hg in h]), **TOL)
+
+
+def _synthetic(n=3000, e=12000, rels=4, seed=0):
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, 2 * n // 3, e), rng.integers(0, n, e)
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    labels = (x[:, 0] + rng.normal(size=n) > 0).astype(np.int64)
+    return HeteroGraph(x, src, dst, rng.integers(0, rels, e),
+                       num_relations=rels), labels
+
+
+@pytest.mark.parametrize("kind", ["ell", "ell2", "dense", "onehot"])
+def test_new_kinds_match_segment_on_the_card(dev, kind):
+    """Each new kind's aggregation, forward and input gradient, against
+    'segment' on the card (float32 sums in other orders)."""
+    from mpgnn_tpu_torch.models.mpgnn import hop_aggregate
+    from mpgnn_tpu_torch.train.loops import relation_op
+
+    graph, _ = _synthetic()
+    n = graph.num_nodes
+    g = torch.randn(n, 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    outs = {}
+    for k in ("segment", kind):
+        h = torch.randn(n, 64, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        h.requires_grad_(True)
+        out = hop_aggregate(h, relation_op(graph, 1, k, dev), n)
+        (out * g).sum().backward()
+        outs[k] = (out.detach(), h.grad)
+    for got, want in zip(outs[kind], outs["segment"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_auto_past_the_cutover_launches_k1(dev, monkeypatch):
+    """train_mpgnn(backend='auto') on a graph past the csr cutover (and
+    the dense budget) runs K1 and the csr backward."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.train import loops, train_mpgnn
+
+    graph, labels = _synthetic()
+    monkeypatch.setattr(loops, "AUTO_DENSE_BUDGET_BYTES", 0)
+    monkeypatch.setattr(loops, "CSR_EDGE_CUTOVER",
+                        int(graph.rel_counts[[1, 2]].max()))
+    assert loops.resolve_backend("auto", graph, [[1, 2]],
+                                 loops.auto_dense_budget_bytes(dev)) == "csr"
+    before = (csr.SCATTER_LAUNCHES, csr.CSR_BACKWARD_LAUNCHES)
+    train_mpgnn(graph, [[1, 2]], split_nodes(labels), 2,
+                MPGNNConfig(epochs=3, hidden_dim=16), backend="auto",
+                device=dev)
+    torch.cuda.synchronize()
+    assert csr.SCATTER_LAUNCHES > before[0]
+    assert csr.CSR_BACKWARD_LAUNCHES > before[1]
+
+
+def test_batched_dense_evaluation_launches_k4(dev):
+    """The batched 'dense' evaluation on the card launches K4 for every
+    hop's grouped products, forward and backward, and its validation F1s
+    lie within 8e-2 of the float32 dense per-candidate runs."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.ops import conv
+    from mpgnn_tpu_torch.train import batch_eval, train_mpgnn
+
+    graph, labels = _synthetic()
+    split = split_nodes(labels)
+    paths = [[0], [1], [1, 0], [2, 0], [3, 1, 0]]
+    cfg = MPGNNConfig(epochs=10, hidden_dim=16)
+    before = conv.MATMUL_LAUNCHES
+    got = batch_eval.evaluate_candidates(graph, paths, split, 2, cfg,
+                                         backend="dense", device=dev)
+    torch.cuda.synchronize()
+    # hop 0: one product a relation a group (2 + 2 + 1); after it, per
+    # epoch forward and backward and the final forward: length 2 one
+    # relation, length 3 two hops of one
+    assert conv.MATMUL_LAUNCHES - before == 5 + 21 * (1 + 2)
+    for p in paths:
+        one = train_mpgnn(graph, [p], split, 2, cfg, backend="dense",
+                          device=dev)
+        assert abs(got[str(p)] - one.val_f1) <= 8e-2, p

@@ -111,7 +111,8 @@ def test_serve_main_matches_jax_predictor(synthetic_model, capsys):
     assert got_nodes == {str(i): int(preds[i]) for i in nodes}
 
 
-@pytest.mark.parametrize("backend", ["csr", "segment"])
+@pytest.mark.parametrize("backend", ["csr", "segment", "ell", "ell2",
+                                     "dense", "onehot"])
 def test_predictor_log_probs_match_jax(synthetic_model, backend):
     jg, params, model_dir = synthetic_model
     want = JPredictor(jg, SYNTH_PATHS, params, backend="csr").log_probs()
@@ -124,6 +125,17 @@ def test_predictor_log_probs_match_jax(synthetic_model, backend):
     np.testing.assert_allclose(pred.log_probs(), want, atol=ATOL, rtol=0)
     np.testing.assert_array_equal(pred.predict([3, 5]),
                                   want.argmax(axis=1)[[3, 5]])
+
+
+@pytest.mark.parametrize("backend,err", [("auto", "unknown backend"),
+                                         ("halo", "A12")])
+def test_predictor_refuses_what_the_jax_predictor_does_not_resolve(
+        synthetic_model, backend, err):
+    tg, _, _ = t_load(DATA + "node.dat", DATA + "link.dat", DATA + "label.dat")
+    with pytest.raises(ValueError, match=err):
+        tserve.MetapathPredictor.load(
+            synthetic_model[2], tg, SYNTH_PATHS, num_classes=3, hidden_dim=8,
+            device="cpu", backend=backend)
 
 
 def test_restore_params_round_trip(synthetic_model):
