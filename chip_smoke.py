@@ -69,13 +69,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    'ell2', 'dense', 'onehot') on (a)'s graph, forward and first-step
    gradients against 'segment' (1e-5), and ``train_mpgnn(backend='auto')``
    on (b)'s graph, which must resolve as ``resolve_backend`` says and
-   launch K1 where that is csr; (e) ``auto_routing``: whole
+   launch K1 where that is csr, and a batched 'auto' evaluation there
+   (``resolve_eval_backend``, K1 where it says csr); (e) ``auto_routing``: whole
    ``train_mpgnn`` runs, set-up included, at 150 epochs and 1000
    extrapolated, segment against csr on one uniform relation of 200,000
    nodes at 10^4 to 10^7 edges and dense against csr and segment at N =
    5,000 (a's graph) and 8,192 to 32,768 (one random relation), with what
    the readings say of ``CSR_EDGE_CUTOVER`` and the dense budget beside
-   the constants in use;
+   the constants in use (the cutover itself is read from a search's
+   routed stages, ``python -m mpgnn_tpu_torch.benchmarks.bench_routing``,
+   where each operand serves many models);
 8. the metapath search, whose final evaluation trains each length group
    of candidates at once (``train/batch_eval.py``): (a) ``python -m
    mpgnn_tpu_torch.run`` on ``data/synthetic_multiclass`` as users run it
@@ -1459,10 +1462,17 @@ def backends_phase(torch, csr, conv, graph_s, split_s, graph_u, split_u):
     within ``BACKENDS_ATOL``. Then one ``train_mpgnn(backend='auto')`` on
     the uniform graph, counted from 0: it must resolve as
     ``resolve_backend`` says for the card (csr where 2.5M edges reach
-    ``CSR_EDGE_CUTOVER``) and launch K1 when it resolves to csr."""
+    ``CSR_EDGE_CUTOVER``) and launch K1 when it resolves to csr; and one
+    batched ``evaluate_candidates(backend='auto')`` there (two length
+    groups, 5 epochs), counted from 0, which must launch K1 where
+    ``resolve_eval_backend`` says csr."""
     from mpgnn_tpu_torch.config import MPGNNConfig
     from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
     from mpgnn_tpu_torch.train import build_hop_arrays, loops, train_mpgnn
+    from mpgnn_tpu_torch.train.batch_eval import (
+        evaluate_candidates,
+        resolve_eval_backend,
+    )
 
     dev = torch.device("cuda")
     model = init_mpgnn(graph_s.feat_dim, HIDDEN, 3, SYNTH_PATHS, device=dev)
@@ -1515,6 +1525,25 @@ def backends_phase(torch, csr, conv, graph_s, split_s, graph_u, split_u):
     else:
         check(launches["csr_scatter"] == 0,
               f"'auto' resolved to {want_route} but K1 launched")
+    # the batched evaluation under 'auto' on the same graph: two length
+    # groups, routed as resolve_eval_backend says, K1 where that is csr
+    paths = [[0], [1], [0, 1], [1, 0]]
+    eval_route = resolve_eval_backend("auto", None, graph_u, paths)
+    reset_counts(csr, conv)
+    t0 = time.perf_counter()
+    f1s = evaluate_candidates(graph_u, paths, split_u, 2,
+                              MPGNNConfig(epochs=5, hidden_dim=HIDDEN),
+                              backend="auto", device=dev)
+    eval_launches = read_counts(csr, conv)
+    log(phase="backends_eval_auto", graph="uniform", paths=paths,
+        route=eval_route, epochs=5, wall_s=time.perf_counter() - t0,
+        val_f1=f1s, launches=eval_launches)
+    check(sorted(f1s) == sorted(str(p) for p in paths)
+          and all(np.isfinite(v) for v in f1s.values()),
+          f"'auto' batched evaluation on the uniform graph: {f1s}")
+    check((eval_launches["csr_scatter"] > 0) == (eval_route == "csr"),
+          f"'auto' evaluation routed to {eval_route}, launches "
+          f"{eval_launches}")
     torch.cuda.empty_cache()
 
 

@@ -180,10 +180,10 @@ def stack_hop_aggregate(h: torch.Tensor, parts) -> torch.Tensor:
     out = [None] * c
     for idx, op in parts:
         whole = tuple(idx) == tuple(range(c))
-        sub = h if whole else h[list(idx)]
         if op[0] == "grouped_dense":
-            agg = grouped_dense_aggregate(op[1], sub)
+            agg = grouped_dense_aggregate(op[1], h, idx)
         else:
+            sub = h if whole else h[list(idx)]
             agg = hop_aggregate(sub.reshape(-1, f), op,
                                 len(idx) * n).view(len(idx), n, f)
         if whole:

@@ -79,4 +79,13 @@ def sort_block_col(rows: np.ndarray, cols: np.ndarray, bm: int) -> np.ndarray:
     block, by column inside a block, stable."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
-    return np.lexsort((cols, rows // bm))
+    if len(cols) == 0:
+        return np.zeros(0, dtype=np.int64)
+    # one sort of a combined key gives np.lexsort((cols, rows // bm))'s
+    # permutation; with the index in the key, ties are broken as a stable
+    # sort breaks them, and numpy's faster unstable sort is enough
+    key = rows // bm * (int(cols.max()) + 1) + cols
+    e = len(key)
+    if (int(key.max()) + 1) * e < 2 ** 63:
+        return np.argsort(key * e + np.arange(e))
+    return np.argsort(key, kind="stable")

@@ -22,8 +22,8 @@ epilogue adds them and applies W, root, b and the ReLU.
 and K4 runs only when the input ``h`` needs a gradient (hop 0's input
 ``x`` needs none). K4 also runs the batched ``'dense'`` evaluation's
 grouped products, forward and backward (``grouped_dense_aggregate``: the
-candidates of one relation side by side, column slices of at most
-``MAX_WIDTH``). Each kernel has a plain PyTorch version beside it
+candidates of one relation side by side, at most ``MAX_WIDTH`` columns a
+launch). Each kernel has a plain PyTorch version beside it
 (float64 sums over the same bf16-rounded operands, rounded once); a wrapper
 takes it for CPU tensors only and launches its kernel for CUDA tensors.
 ``CONV_LAUNCHES`` and ``MATMUL_LAUNCHES`` count the kernels' launches.
@@ -267,34 +267,38 @@ def dense_conv(op: DenseConvOperand, h: torch.Tensor, w: torch.Tensor,
     return _DenseConv.apply(op.a, op.a_t, h, w, root, b)
 
 
-def _grouped_matmul(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """[G, N, F] products ``a @ bf16(h[g])``: the G feature blocks side by
-    side as one [N, G * F] operand of ``dense_matmul`` (K4 on the card),
-    split back per block."""
-    g, n, f = h.shape
-    wide = h.permute(1, 0, 2).reshape(n, g * f)
-    return dense_matmul(a, wide).view(n, g, f).permute(1, 0, 2)
-
-
-class _GroupedDense(torch.autograd.Function):
-    """K4 forward over ``a``; K4 backward over the stored ``a_t``."""
+class _DenseAggregate(torch.autograd.Function):
+    """``a @ bf16(x)`` through K4, differentiable in x: K4 forward over
+    ``a``, K4 backward over the stored ``a_t``."""
 
     @staticmethod
-    def forward(ctx, a, a_t, h):
+    def forward(ctx, a, a_t, x):
         ctx.save_for_backward(a_t)
-        return _grouped_matmul(a, h)
+        return dense_matmul(a, x)
 
     @staticmethod
     def backward(ctx, g):
         (a_t,) = ctx.saved_tensors
-        return None, None, _grouped_matmul(a_t, g)
+        return None, None, dense_matmul(a_t, g.contiguous())
 
 
-def grouped_dense_aggregate(op: DenseConvOperand,
-                            h: torch.Tensor) -> torch.Tensor:
-    """The batched ``'dense'`` evaluation's aggregation of G candidates
-    that take the relation of ``op`` at one hop: ``A @ bf16(h[g])`` for
-    each of h's [G, N, F] blocks, float32 sums, differentiable in h (the
-    JAX package's ``_grouped_dense_agg``). The blocks go through K4 side by
-    side, so each launch streams A once for up to ``MAX_WIDTH`` columns."""
-    return _GroupedDense.apply(op.a, op.a_t, h)
+def grouped_dense_aggregate(op: DenseConvOperand, h: torch.Tensor,
+                            idx=None) -> torch.Tensor:
+    """The batched ``'dense'`` evaluation's aggregation of the candidates
+    ``idx`` (default all) of h's [C, N, F] blocks, which take the relation
+    of ``op`` at one hop: ``A @ bf16(h[g])`` for each, float32 sums,
+    differentiable in h (the JAX package's ``_grouped_dense_agg``). The
+    blocks go through K4 side by side, ``MAX_WIDTH // F`` candidates a
+    launch (one if F is wider), so each launch streams A once for up to
+    ``MAX_WIDTH`` columns; each launch's [N, k * F] operand is gathered
+    from h in one copy. Returns [len(idx), N, F]."""
+    c, n, f = h.shape
+    idx = torch.as_tensor(list(range(c)) if idx is None else list(idx),
+                          dtype=torch.int64, device=h.device)
+    per = max(1, MAX_WIDTH // f)
+    by_node = h.transpose(0, 1)
+    outs = [_DenseAggregate.apply(op.a, op.a_t,
+                                  by_node[:, part].reshape(n, -1))
+            .view(n, -1, f).transpose(0, 1)
+            for part in idx.split(per)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -197,7 +197,12 @@ def dedup_ratio(rows: np.ndarray, cols: np.ndarray, bm: int) -> float:
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     key = (rows // bm) * (int(cols.max()) + 1) + cols
-    return float(len(rows) / max(len(np.unique(key)), 1))
+    # distinct keys by a sort and a count of changes, not np.unique, which
+    # hashes plain integers in numpy 2.3: with it the blockings of four
+    # 10^7-edge relations took 123 s to build on an 8-core host (numpy
+    # 2.3.5), with the sort 13.4 s (benchmarks/bench_routing.py's build_s)
+    key = np.sort(key)
+    return float(len(rows) / (1 + np.count_nonzero(key[1:] != key[:-1])))
 
 
 def build_csr_blocking(

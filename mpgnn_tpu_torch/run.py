@@ -9,8 +9,9 @@ argparse and ``main(args)``, main.py:1191-1508), with the same flags:
 
 ``--backend`` defaults to ``auto``, as the JAX CLI's: each ``train_mpgnn``
 (the greedy stage) takes 'dense' where its adjacencies fit the card's
-budget, else 'csr' (K1/K2) or 'segment' by edge count, and the batched
-final evaluation routes each length group to 'csr' or 'segment'
+budget, else 'csr' (K1/K2) from ``train.loops.CSR_EDGE_CUTOVER`` edges in
+a relation, else 'segment', and the batched final evaluation routes each
+length group to 'csr' or 'segment' by the same cutover
 (``train.loops.resolve_backend``, ``train.batch_eval.resolve_eval_backend``).
 
 Differences from the JAX CLI:
@@ -101,8 +102,9 @@ def build_argparser() -> argparse.ArgumentParser:
                             "pallas", "onehot", "csr"],
                    help="MPNetm aggregation backend; 'auto' picks dense "
                         "where the relations' adjacencies fit the card's "
-                        "budget, csr (the CUDA kernels K1/K2) or segment "
-                        "by edge count otherwise")
+                        "budget, else csr (the CUDA kernels K1/K2) from "
+                        "train.loops.CSR_EDGE_CUTOVER edges in a relation, "
+                        "else segment")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda)")
     p.add_argument("--platform", type=str, default=None,

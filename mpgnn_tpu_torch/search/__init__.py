@@ -14,6 +14,7 @@ from mpgnn_tpu_torch.search.bags import (  # noqa: F401
 from mpgnn_tpu_torch.search.engine import (  # noqa: F401
     MetapathState,
     SearchResult,
+    evaluate_and_select,
     find_metapaths,
 )
 from mpgnn_tpu_torch.search.scoring import (  # noqa: F401

@@ -25,7 +25,7 @@ import logging
 import os
 import pickle
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -127,10 +127,6 @@ def find_metapaths(
     cfg = config or SearchConfig()
     device = resolve_device(device)
     backend = backend or cfg.mpgnn.backend
-    # the JAX engine trains a single-model backend's candidates batched
-    # with 'segment'; here they keep their backend's kernels, one at a time
-    batched_eval = batched_eval and (backend == "auto"
-                                     or backend in BATCH_BACKENDS)
     rng = np.random.default_rng(seed)
     x = np.asarray(graph.x if x_features is None else x_features, np.float32)
     N = graph.num_nodes
@@ -331,8 +327,6 @@ def find_metapaths(
     # one MPNetm per candidate (main.py:1444-1459); with a frontier
     # checkpoint every finished chunk (batched) or candidate is saved and a
     # re-run resumes after it
-    t0 = time.time()
-    final_hop = cfg.max_extension_hops
     if eval_partial:
         log.info(
             "final eval resuming: %d/%d candidate results already "
@@ -341,22 +335,67 @@ def find_metapaths(
 
     def eval_sink(results):
         eval_partial.update(results)
-        save_frontier(final_hop, current, final_paths)
+        save_frontier(cfg.max_extension_hops, current, final_paths)
 
+    val_by_path, f_meta, old_macro, last_s = evaluate_and_select(
+        graph, final_paths, split, num_classes, cfg, x, seed=seed,
+        backend=backend, batched_eval=batched_eval, device=device,
+        existing=eval_partial,
+        sink=eval_sink if frontier_checkpoint else None)
+    stage_s.update(last_s)
+    return SearchResult(
+        metapaths=f_meta,
+        test_f1=old_macro,
+        val_f1_by_path=val_by_path,
+        discovered=final_paths,
+        stage_s=stage_s,
+    )
+
+
+def evaluate_and_select(
+    graph: HeteroGraph,
+    final_paths: Sequence[Sequence[int]],
+    split: NodeSplit,
+    num_classes: int,
+    cfg: SearchConfig,
+    x: np.ndarray,
+    seed: int = 0,
+    backend: str = "auto",
+    batched_eval: bool = True,
+    device=None,
+    existing: Optional[Dict[str, float]] = None,
+    sink: Optional[Callable[[Dict[str, float]], None]] = None,
+) -> Tuple[Dict[str, float], List[List[int]], float, Dict[str, float]]:
+    """The search's last two stages, the ones ``backend`` routes: train one
+    MPNetm per candidate of ``final_paths`` (batched, or one
+    ``train_mpgnn`` each, as ``find_metapaths`` says), rank them by
+    validation macro-F1, then grow the top ``cfg.top_k_final`` into one
+    model while its test macro-F1 improves (main.py:1442-1476). Candidates
+    in ``existing`` are not trained again; ``sink`` receives each trained
+    chunk's or candidate's results. Returns (validation F1 by path, the
+    selected metapaths, their test F1, wall seconds of 'final_eval' and
+    'greedy')."""
+    device = resolve_device(device)
+    existing = existing or {}
+    stage_s: Dict[str, float] = {}
+    # the JAX engine trains a single-model backend's candidates batched
+    # with 'segment'; here they keep their backend's kernels, one at a time
+    batched_eval = batched_eval and (backend == "auto"
+                                     or backend in BATCH_BACKENDS)
+    t0 = time.time()
     if batched_eval:
         val_by_path = evaluate_candidates(
             graph, final_paths, split, num_classes, cfg.mpgnn, seed=seed,
-            x_override=x, backend=backend,
-            existing=eval_partial or None,
-            sink=eval_sink if frontier_checkpoint else None, device=device,
+            x_override=x, backend=backend, existing=existing or None,
+            sink=sink, device=device,
         )
         for path_s, f1 in val_by_path.items():
             log.info("eval %s: val F1 %.4f", path_s, f1)
     else:
         val_by_path = {}
         for path in final_paths:
-            if str(path) in eval_partial:
-                val_by_path[str(path)] = eval_partial[str(path)]
+            if str(path) in existing:
+                val_by_path[str(path)] = existing[str(path)]
                 continue
             res = train_mpgnn(
                 graph, [path], split, num_classes, cfg.mpgnn,
@@ -364,8 +403,8 @@ def find_metapaths(
             )
             val_by_path[str(path)] = res.val_f1
             log.info("eval %s: val F1 %.4f", path, res.val_f1)
-            if frontier_checkpoint:
-                eval_sink({str(path): res.val_f1})
+            if sink is not None:
+                sink({str(path): res.val_f1})
     stage_s["final_eval"] = time.time() - t0
     log.info(
         "final eval of %d candidates: %.1fs", len(final_paths),
@@ -394,10 +433,4 @@ def find_metapaths(
     stage_s["greedy"] = time.time() - t0
     log.info("final meta: %s test F1 %.4f (greedy %.1fs)", f_meta, old_macro,
              stage_s["greedy"])
-    return SearchResult(
-        metapaths=f_meta,
-        test_f1=old_macro,
-        val_f1_by_path=val_by_path,
-        discovered=final_paths,
-        stage_s=stage_s,
-    )
+    return val_by_path, f_meta, old_macro, stage_s

@@ -69,7 +69,9 @@ from mpgnn_tpu_torch.ops.segment import stack_edge_lists
 from mpgnn_tpu_torch.train import loops as _loops
 from mpgnn_tpu_torch.train.loops import (
     check_config,
+    drop_operands,
     make_optimizer,
+    operand_cached,
     relation_operand,
     seeded_init,
     split_tensors,
@@ -146,8 +148,9 @@ def _chunk_cap(graph: HeteroGraph, group: List[List[int]], cfg: MPGNNConfig,
     the device's free memory (PyTorch's cache counted as free) over one
     candidate's working set, its [N, H] tensors and its stacked edges; on
     the CPU ``_CPU_BUDGET_BYTES``. Dense: the bf16 operands of the group's
-    relations, 4 N^2 bytes each, come off the budget once. csr also keeps
-    K1's int32 item count, C * (N + E), under 2^31."""
+    relations that are not built yet, 4 N^2 bytes each, come off the
+    budget once (the built ones are already off the free memory). csr also
+    keeps K1's int32 item count, C * (N + E), under 2^31."""
     if _CHUNK_CAP is not None:
         return _CHUNK_CAP
     n, h = graph.num_nodes, cfg.hidden_dim
@@ -157,7 +160,9 @@ def _chunk_cap(graph: HeteroGraph, group: List[List[int]], cfg: MPGNNConfig,
     else:
         budget = _CPU_BUDGET_BYTES
     if backend == "dense":
-        budget -= 4 * n * n * len({r for p in group for r in p})
+        budget -= 4 * n * n * sum(
+            not operand_cached(graph, r, "pallas", device)
+            for r in {r for p in group for r in p})
         per = 4 * n * (graph.feat_dim
                        + (_NH_PER_HOP + _NH_PER_DENSE_HOP) * h * length)
         return max(1, int(budget // per))
@@ -315,6 +320,10 @@ def evaluate_candidates(
                      length, len(chunk), backend, time.time() - t0)
             if sink is not None:
                 sink(done)
+    if backend == "dense":
+        # the bf16 operands live for the evaluation only, as the JAX
+        # package's do; the greedy stage's float32 ones stay cached
+        drop_operands(graph, "pallas")
     return out
 
 

@@ -59,17 +59,18 @@ AUTO_DENSE_BUDGET_BYTES = 2 << 30
 AUTO_DENSE_CPU_BUDGET_BYTES = 4 << 30
 # 'auto' past the dense budget, for train_mpgnn and for the batched
 # evaluation (``batch_eval.resolve_eval_backend``): 'csr' from this many
-# edges in a relation, 'segment' below. The same phase and card time
-# segment against csr on one uniform relation of 200,000 nodes (two runs
-# of the script): at 10^7 edges segment took 24.3 s to csr's 28.6-35.3 s
-# at 1000 epochs and 5.1 s to 25.5-32.2 s at 150: csr's host-built
-# blockings take 24.9-31.6 s (2.5-3.2 us an edge) and save 1.9 ns an edge
-# an epoch, so csr pays back only past 1,200-1,600 epochs at any size. At
-# 10^5 and 10^6 edges csr was 3-8% faster at 1000 epochs and 5-160% slower
-# at 150, the search's; at 10^4 the two were within 3%. A cutover from
-# which csr always runs would put it where it loses most, so 'auto' does
-# not pick csr: the cutover lies past what K1's int32 edge indices take.
-CSR_EDGE_CUTOVER = 1 << 31
+# edges in a relation, 'segment' below. Read from the traffic 'auto'
+# serves by default, a search's final evaluation and greedy stage, where
+# each relation's blockings are built once for every model:
+# ``python -m mpgnn_tpu_torch.benchmarks.bench_routing`` (15 candidates
+# over 4 uniform relations of 200,000 nodes, hidden 64, build included) on
+# an NVIDIA H100 80GB HBM3 at 700.00 W. Totals csr / segment, 150 and 1000
+# epochs: 10^5 edges a relation 5.5 / 6.3 s and 40.7 / 45.2 s; 10^6 7.5 /
+# 11.7 s and 39.4 / 74.7 s; 10^7 21.9 / 63.9 s and 73.2 / 384.4 s (csr's
+# build 13.4 s for the 4 relations). Below 10^5 no search was measured; one
+# train_mpgnn run at 10^4 edges (chip_smoke.py ``auto_routing``) is
+# host-bound either way, within 3%.
+CSR_EDGE_CUTOVER = 100_000
 
 
 def auto_dense_budget_bytes(device=None) -> int:
@@ -157,10 +158,35 @@ def relation_operand(graph: HeteroGraph, rel: int, backend: str,
     cache = getattr(graph, "_operand_cache", None)
     if cache is None:
         cache = graph._operand_cache = {}
-    key = (backend, int(rel), str(device))
+    key = (backend, int(rel), device_key(device))
     if key not in cache:
         cache[key] = relation_op(graph, int(rel), backend, device)
     return cache[key]
+
+
+def operand_cached(graph: HeteroGraph, rel: int, backend: str,
+                   device: torch.device) -> bool:
+    """Whether ``relation_operand`` of these arguments is built already."""
+    return (backend, int(rel), device_key(device)) in getattr(
+        graph, "_operand_cache", {})
+
+
+def device_key(device) -> str:
+    """``device`` with its index, as the operand cache keys it: 'cuda' is
+    the current card's 'cuda:N', so that a caller's 'cuda' and a tensor's
+    'cuda:0' find the same operands."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def drop_operands(graph: HeteroGraph, backend: str) -> None:
+    """Forget the ``backend`` operands kept on ``graph``, on every
+    device."""
+    cache = getattr(graph, "_operand_cache", {})
+    for key in [k for k in cache if k[0] == backend]:
+        del cache[key]
 
 
 def relation_op(graph: HeteroGraph, rel: int, backend: str,

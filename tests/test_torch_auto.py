@@ -306,6 +306,46 @@ def test_batched_dense_shares_one_product_per_relation(planted,
     assert sorted(calls) == sorted(hop0 + (epoch * 2) * 3 + epoch)
 
 
+def test_dense_chunk_cap_counts_only_unbuilt_operands(planted):
+    """The dense chunk cap takes 4 N^2 bytes off the budget for each
+    relation of the group whose bf16 operand is not built yet (a built
+    one is already off the free memory); the evaluation forgets its bf16
+    operands when it ends and keeps the float32 ones of train_mpgnn."""
+    _, _, g = planted
+    tg = HeteroGraph(g["node_features"].astype(np.float32), g["src"],
+                     g["dst"], g["rel"], num_relations=4)
+    cpu, cfg = torch.device("cpu"), MPGNNConfig(epochs=1, hidden_dim=8)
+    group = [[0, 1], [2, 1], [1, 1]]
+    n = tg.num_nodes
+    per = 4 * n * (tg.feat_dim + (batch_eval._NH_PER_HOP
+                                  + batch_eval._NH_PER_DENSE_HOP) * 8 * 2)
+
+    def cap(unbuilt):
+        return int((batch_eval._CPU_BUDGET_BYTES - unbuilt * 4 * n * n)
+                   // per)
+
+    assert batch_eval._chunk_cap(tg, group, cfg, "dense", cpu) == cap(3)
+    loops.relation_operand(tg, 1, "pallas", cpu)
+    assert batch_eval._chunk_cap(tg, group, cfg, "dense", cpu) == cap(2)
+    loops.train_mpgnn(tg, [[0]], split_nodes(g["labels"]), 2, cfg,
+                      backend="dense", device="cpu")
+    batch_eval.evaluate_candidates(tg, group, split_nodes(g["labels"]), 2,
+                                   cfg, backend="dense", device="cpu")
+    assert sorted(k[:2] for k in tg._operand_cache) == [("dense", 0)]
+
+
+def test_operand_cache_keys_the_card_with_its_index(monkeypatch):
+    """A caller's 'cuda' and a tensor's 'cuda:0' are one cache key, so the
+    batched evaluation (which passes its features' device) and the greedy
+    stage (the caller's) share each relation's operand."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert loops.device_key(torch.device("cuda")) == "cuda:0"
+    assert loops.device_key("cuda:0") == loops.device_key("cuda") == "cuda:0"
+    assert loops.device_key(torch.device("cpu")) == "cpu"
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert loops.device_key("cuda") == "cuda:1"
+
+
 # ---------------------------------------------------------------- the CLI
 def test_cli_default_resolves_as_the_jax_cli():
     """Without --backend both CLIs take 'auto'; on the README's dataset

@@ -155,6 +155,46 @@ def test_plain_versions_round_once():
     assert torch.equal(out, torch.relu(z).float())
 
 
+@pytest.mark.parametrize("g,f,idx,widths", [
+    (5, 64, None, [256, 64]),             # 4 candidates a launch, then 1
+    (13, 64, [0, 3, 4, 7, 12], [256, 64]),
+    (3, 300, [2, 0], [300, 300]),         # wider than a launch: one each
+    (6, 2, [5, 1, 2], [6]),
+])
+def test_grouped_dense_aggregate_launches(monkeypatch, g, f, idx, widths):
+    """The grouped product of the candidates ``idx`` of [G, N, F] features:
+    MAX_WIDTH // F candidates a dense_matmul call, each call's operand
+    [N, k * F] contiguous, forward over a and backward over a_t; each
+    block equal to its own product and its gradient to the plain A^T
+    product of its cotangent."""
+    src, dst = _relation(200, 900, seed=g)
+    op = tconv.build_dense_conv_operand(src, dst, 200, "cpu")
+    h = torch.randn(g, 200, f, generator=torch.Generator().manual_seed(f),
+                    requires_grad=True)
+    calls = []
+    real = tconv.dense_matmul
+
+    def spy(a, x):
+        calls.append((a is op.a_t, x.shape[1], x.is_contiguous()))
+        return real(a, x)
+
+    monkeypatch.setattr(tconv, "dense_matmul", spy)
+    got = tconv.grouped_dense_aggregate(op, h, idx)
+    rows = list(range(g)) if idx is None else idx
+    assert calls == [(False, w, True) for w in widths]
+    assert got.shape == (len(rows), 200, f)
+    for k, c in enumerate(rows):
+        assert torch.equal(got[k], tconv.dense_matmul_plain(op.a, h[c]))
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(1))
+    (got * cot).sum().backward()
+    assert sorted(calls[len(widths):]) == sorted((True, w, True)
+                                                 for w in widths)
+    want = torch.zeros_like(h)
+    for k, c in enumerate(rows):
+        want[c] = tconv.dense_matmul_plain(op.a_t, cot[k])
+    assert torch.equal(h.grad, want)
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper takes the plain version for CPU tensors only: other
     devices and mixed devices raise."""

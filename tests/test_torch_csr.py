@@ -151,6 +151,35 @@ def _walk(blk):
     return final[item_piece[:e]], items, final
 
 
+@pytest.mark.parametrize("n,e,bm,skew", [
+    (500, 4000, 1, False), (3000, 40000, 1, True), (257, 1000, 64, True),
+    (5, 3, 1, False), (64, 0, 1, False), (64, 3000, 1, "huge ids")])
+def test_sort_block_col_is_lexsort(n, e, bm, skew):
+    """The blockings' edge order, one sort of a combined key, is
+    np.lexsort((cols, rows // bm)) exactly, repeated edges included; node
+    ids too large for the index to join the key take a stable sort."""
+    from mpgnn_tpu_torch.native import sort_block_col
+
+    src, dst, _ = _rand_graph(n, e, 1, seed=n, skew=skew is True)
+    if skew == "huge ids":                   # ids up to 2^31: key * e > 2^63
+        src, dst = src * (2 ** 25), dst * (2 ** 25)
+    for rows, cols in ((src, dst), (dst, src)):
+        assert np.array_equal(sort_block_col(rows, cols, bm),
+                              np.lexsort((cols, rows // bm)))
+
+
+@pytest.mark.parametrize("n,e,bm,skew", [
+    (2000, 20000, 1024, True), (2000, 2000, 1024, False), (5, 3, 1, False),
+    (300, 5000, 64, True), (64, 0, 32, False)])
+def test_dedup_ratio_matches_jax(n, e, bm, skew):
+    """Edges per distinct (row block, column) pair, counted by a sort: the
+    JAX package's ratio (np.unique there) in both directions."""
+    src, dst, _ = _rand_graph(n, e, 1, seed=e, skew=skew)
+    for rows, cols in ((src, dst), (dst, src)):
+        assert tcsr.dedup_ratio(rows, cols, bm) == \
+            jcsr.dedup_ratio(rows, cols, bm)
+
+
 @pytest.mark.parametrize("case", ["uniform", "skew", "hub", "tiny"])
 def test_dedup_pieces_match_numpy_walk(case):
     """Every host table of the dedup layout against a numpy oracle built

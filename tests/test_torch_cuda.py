@@ -602,6 +602,27 @@ def test_auto_past_the_cutover_launches_k1(dev, monkeypatch):
     assert csr.CSR_BACKWARD_LAUNCHES > before[1]
 
 
+def test_search_stages_share_each_operand(dev, monkeypatch):
+    """The batched evaluation (keyed by its features' device, 'cuda:0')
+    and the greedy stage (the caller's 'cuda') build each relation's
+    blockings once."""
+    from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.search import evaluate_and_select
+    from mpgnn_tpu_torch.train import loops
+
+    graph, labels = _synthetic()
+    built = []
+    real = loops.relation_op
+    monkeypatch.setattr(loops, "relation_op", lambda g, r, b, d: built.append(
+        (r, b)) or real(g, r, b, d))
+    cfg = SearchConfig(mpgnn=MPGNNConfig(epochs=2, hidden_dim=16))
+    evaluate_and_select(graph, [[0], [1], [1, 0], [2, 0]],
+                        split_nodes(labels), 2, cfg, graph.x, backend="csr",
+                        device=torch.device("cuda"))
+    assert sorted(built) == [(0, "csr"), (1, "csr"), (2, "csr")]
+
+
 def test_batched_dense_evaluation_launches_k4(dev):
     """The batched 'dense' evaluation on the card launches K4 for every
     hop's grouped products, forward and backward, and its validation F1s
