@@ -78,7 +78,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the readings say of ``CSR_EDGE_CUTOVER`` and the dense budget beside
    the constants in use (the cutover itself is read from a search's
    routed stages, ``python -m mpgnn_tpu_torch.benchmarks.bench_routing``,
-   where each operand serves many models);
+   where each operand serves many models); (f) ``mixed_precision``: (a)
+   the bf16 forms of K1 and K2 (bf16 rows, float32 sums, one rounding a
+   row) on phase 2's shapes (uniform relation 0 at F = 16 and 64 and its
+   relation 1 backward; the KG's planted relation 141 at F = 1, 4, 64 and
+   65, long rows cut across K1's shares and rows without edges, and its
+   backward; the KG's hubs through K2 at F = 4, 16, 64 and backward) and
+   K3 with a bf16 h at N = 5,000 (F = 2, 64) and 32,768, each against its
+   plain version (``MP_KERNEL_TOL``, K3 1e-5) and a second launch
+   (bitwise), timed beside the cast route (float32 kernels between two
+   casts, the JAX package's), the float32 form, the bound at bf16 row
+   widths, the plain version and the library call (``torch.sparse.mm`` in
+   bf16 where it takes it, cuBLAS bf16 plus the epilogue for K3); (b)
+   ``train_mpgnn`` with ``compute_dtype='bfloat16'`` against float32, the
+   same seed, on the uniform graph (csr, segment; 100 epochs) and the KG
+   (csr, K2 on its hubs; 20 epochs), float32, bf16, bf16, float32, within
+   ``MP_LOSS_GAP`` and ``MP_F1_GAP``; (c) ``data/synthetic_multiclass``,
+   'pallas' in bf16 with ``num_bases=2`` and with ``num_blocks=2``, each
+   against 'segment' in the same config (``MP_SYNTH_EPOCHS``); (d) ``python
+   -m mpgnn_tpu_torch.rgcn_baseline`` on ``data/synthetic_multiclass`` at
+   hidden 64 in a child process, its F1s and epoch time;
 8. the metapath search, whose final evaluation trains each length group
    of candidates at once (``train/batch_eval.py``): (a) ``python -m
    mpgnn_tpu_torch.run`` on ``data/synthetic_multiclass`` as users run it
@@ -123,9 +142,12 @@ The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
 after phase 7's gradient checks and read after its training runs (K1, K2,
 K3, K4 and the csr backward must have launched there); 7 (d)'s 'auto' run
-counts its own. In phase 8 the searches count their own: (a) and (d) in
-their child processes, which start at 0 and print their counts when the
-CLI ends, (c) and (e) set to 0 just before them and read just after; K1
+counts its own; 7 (f) sets them to 0 before its training runs (b) and (c)
+and reads them after: K1's and K2's bf16 forms must have launched, and
+K3 with a bf16 h. In phase 8 the
+searches count their own: (a) and (d) in their child processes, which
+start at 0 and print their counts when the CLI ends, (c) and (e) set to 0
+just before them and read just after; K1
 and the csr backward must have launched in (a) and (c), in (c) K2 too
 where a candidate's relation routes to it, and K4 in (e). K5's probe
 counts its own in its child process, which starts at 0.
@@ -143,6 +165,7 @@ runs where that checkout has it).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -769,7 +792,7 @@ def grad_phase(torch, cases):
 
 
 def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
-              backend, phase="train"):
+              backend, phase="train", **cfg_kw):
     """One ``train_mpgnn`` run on the card. A CUDA event is recorded after
     every optimizer step (a global step hook, no synchronisation), so the
     epoch time is device-timeline time between the first and the last step,
@@ -785,7 +808,7 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
 
-    cfg = MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN)
+    cfg = MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN, **cfg_kw)
     torch.cuda.synchronize()
     hook = register_optimizer_step_post_hook(after_step)
     try:
@@ -800,7 +823,7 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
     edges = int(sum(graph.rel_counts[r] for mp in metapaths for r in mp))
     rec = dict(
         phase=phase, graph=tag, backend=backend, metapaths=metapaths,
-        epochs=epochs, hidden=HIDDEN, nodes=graph.num_nodes,
+        epochs=epochs, hidden=HIDDEN, nodes=graph.num_nodes, **cfg_kw,
         final_loss=res.final_loss, train_f1=res.train_f1,
         val_f1=res.val_f1, test_f1=res.test_f1, wall_s=wall,
         setup_s=wall - epochs * epoch_ms / 1e3, epoch_ms=epoch_ms,
@@ -845,7 +868,7 @@ def train_phase(torch, graph_s, split_s, graph_u, split_u, graph_k, split_k,
 
 
 def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
-                  epoch_ms, epochs=5):
+                  epoch_ms, epochs=5, **cfg_kw):
     """Device time by kernel over ``epochs`` epochs of ``fit_mpgnn`` (the
     loop inside ``train_mpgnn``), and the device's busy share: of the
     profiled host wall time (which the profiler itself slows), and of
@@ -855,12 +878,14 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
     from mpgnn_tpu_torch.config import MPGNNConfig
     from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
     from mpgnn_tpu_torch.train import build_hop_arrays, fit_mpgnn
-    from mpgnn_tpu_torch.train.loops import split_tensors
+    from mpgnn_tpu_torch.train.loops import compute_dtype, split_tensors
 
     dev = torch.device("cuda")
     model = init_mpgnn(graph.feat_dim, HIDDEN, num_classes, metapaths,
                        device=dev)
-    hop_ops = build_hop_arrays(graph, metapaths, backend=backend, device=dev)
+    cfg = MPGNNConfig(hidden_dim=HIDDEN, **cfg_kw)
+    hop_ops = build_hop_arrays(graph, metapaths, backend=backend, device=dev,
+                               dtype=compute_dtype(cfg))
     x = torch.as_tensor(graph.x, device=dev)
     parts = split_tensors(split, dev)
     cw = torch.ones(num_classes, device=dev)
@@ -868,7 +893,7 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
 
     def fit(n):
         return fit_mpgnn(model, hop_ops, x, parts, cw,
-                         MPGNNConfig(epochs=n, hidden_dim=HIDDEN), gen,
+                         dataclasses.replace(cfg, epochs=n), gen,
                          num_classes)
 
     fit(2)
@@ -880,6 +905,7 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
     rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(phase="train_profile", graph=tag, backend=backend, epochs=epochs,
+        **cfg_kw,
         wall_ms_per_epoch=wall_us / epochs / 1e3,
         device_ms_per_epoch=busy_us / epochs / 1e3,
         device_busy_share=busy_us / wall_us if rows else None,
@@ -1718,10 +1744,338 @@ def search_phase(torch, csr, conv, graph_k, planted, kg):
     return launches, stacked, grouped
 
 
+# 7 (f), mixed precision. The bf16 forms of K1 and K2 sum float32 and round
+# once a row, their plain versions float64: the two can round to
+# neighbouring bf16 values, one unit in the last place (2^-7 of a value at
+# most).
+MP_KERNEL_TOL = dict(rtol=2 ** -7, atol=1e-6)
+# bf16 against float32 training, the same seed and dropout masks: bf16
+# rounds every activation (2^-8 of a value), which moves the trajectory.
+# On the uniform graph's random labels both runs sit at chance; on the KG
+# and the synthetic graph both learn the planted labels. Bounds on the gap
+# of the final loss and of the validation macro-F1.
+MP_LOSS_GAP = 5e-2
+MP_F1_GAP = 5e-2
+MP_SYNTH_EPOCHS = 300
+
+
+def mp_kernel_cases(torch, csr, graph_u, graph_k, rels_k, rel_p):
+    """The blockings of phase 2's shapes for the bf16 forms: (kernel,
+    direction, graph, relation, blocking, the CSR matrix of the yardstick,
+    gathered columns, F)."""
+    from mpgnn_tpu_torch.train.loops import relation_operand
+
+    dev = torch.device("cuda")
+    _, fwd_u, _ = relation_operand(graph_u, 0, "csr", dev)
+    _, _, bwd_u = relation_operand(graph_u, 1, "csr", dev)
+    s_p, d_p = graph_k.rel_edges(rel_p)
+    fwd_p, bwd_p = (b.to(dev) for b in csr.build_csr_blocking(
+        s_p, d_p, graph_k.num_nodes))
+    s_k, d_k = graph_k.rel_edges(rels_k[0])
+    s_k1, d_k1 = graph_k.rel_edges(rels_k[1])
+    fwd_k = csr.build_csr_blocking(s_k, d_k, graph_k.num_nodes)[0].to(dev)
+    bwd_k = csr.build_csr_blocking(s_k1, d_k1, graph_k.num_nodes)[1].to(dev)
+    mat_k = csr.build_csr_blocking(s_k, d_k, graph_k.num_nodes,
+                                   dedup="never")[0].to(dev)
+    mat_k1 = csr.build_csr_blocking(s_k1, d_k1, graph_k.num_nodes,
+                                    dedup="never")[1].to(dev)
+    s_u, d_u = graph_u.rel_edges(0)
+    s_u1, _ = graph_u.rel_edges(1)
+    cases = [("csr_scatter", "fwd", "uniform", 0, fwd_u, fwd_u, d_u, f)
+             for f in (16, 64)]
+    cases += [("csr_scatter", "bwd", "uniform", 1, bwd_u, bwd_u, s_u1, 64)]
+    cases += [("csr_scatter", "fwd", "powerlaw_kg", rel_p, fwd_p, fwd_p, d_p,
+               f) for f in (1, 4, 64, 65)]
+    cases += [("csr_scatter", "bwd", "powerlaw_kg", rel_p, bwd_p, bwd_p, s_p,
+               64)]
+    cases += [("csr_dedup", "fwd", "powerlaw_kg", rels_k[0], fwd_k, mat_k,
+               d_k, f) for f in (4, 16, 64)]
+    cases += [("csr_dedup", "bwd", "powerlaw_kg", rels_k[1], bwd_k, mat_k1,
+               s_k1, 64)]
+    return cases
+
+
+def sparse_yardstick(torch, blk, x):
+    """(one ``torch.sparse.mm`` call on x's CSR matrix, its name): bf16
+    where the library takes it, else the float32 call on the cast input."""
+    mat = torch.sparse_csr_tensor(blk.row_ptr, blk.col, blk.weight,
+                                  size=(blk.num_rows, blk.num_cols))
+    try:
+        mat16 = mat.to(torch.bfloat16)
+        torch.sparse.mm(mat16, x)
+        torch.cuda.synchronize()
+        return (lambda: torch.sparse.mm(mat16, x)), "torch.sparse.mm bf16"
+    except RuntimeError:
+        xf = x.float()
+        return ((lambda: torch.sparse.mm(mat, xf)),
+                "torch.sparse.mm float32 on the cast input")
+
+
+def mp_csr_kernels(torch, csr, cases) -> list:
+    """K1's and K2's bf16 forms against their plain versions (one ulp) and
+    a second launch (bitwise), timed beside the cast route (the JAX
+    package's: cast to float32, the float32 kernel, cast back), the
+    float32 form alone, the bound at bf16 row widths, the plain version
+    and the library call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    recs = []
+    for name, direction, tag, rel, blk, mat_blk, cols, f in cases:
+        kernel = csr.csr_dedup if name == "csr_dedup" else csr.csr_scatter
+        plain = (csr.csr_dedup_plain if name == "csr_dedup"
+                 else csr.csr_scatter_plain)
+        label = f"{name} bf16 {direction} {tag} rel {rel} F={f}"
+        x = torch.randn(blk.num_cols, f, generator=gen,
+                        device=dev).bfloat16()
+        xf = x.float()
+        got, again = kernel(blk, x), kernel(blk, x)
+        want = plain(blk, x)
+        cast = kernel(blk, xf).bfloat16()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(got.dtype == torch.bfloat16, f"{label}: out {got.dtype}")
+        check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite")
+        check(torch.allclose(got.float(), want.float(), **MP_KERNEL_TOL),
+              f"{label}: max abs err {err} vs plain version")
+        check(torch.allclose(cast.float(), want.float(), **MP_KERNEL_TOL),
+              f"{label}: the cast route off the plain version")
+        check(torch.equal(got, again), f"{label}: a second launch differs")
+        lib, lib_name = sparse_yardstick(torch, mat_blk, x)
+        e = len(cols)
+        rows_read = len(np.unique(cols))
+        index_bytes = 4 * sum(t.numel() for _, t in blk.tensors())
+        b_ms, b_by = bound(2 * rows_read * f + index_bytes
+                           + 2 * blk.num_rows * f, 2.0 * e * f)
+        rec = dict(
+            kernel=name + "_bf16", direction=direction, graph=tag,
+            relation=rel, F=f, edges=e, rows=blk.num_rows,
+            vec=csr.row_vec(x), max_abs_err=err, bitwise_repeat=True,
+            cast_route_max_abs_err=float(
+                (cast.float() - want.float()).abs().max()),
+            ms=cuda_ms(torch, lambda: kernel(blk, x), 50),
+            cast_route_ms=cuda_ms(torch,
+                                  lambda: kernel(blk, x.float()).bfloat16(),
+                                  50, launches=3),
+            f32_form_ms=cuda_ms(torch, lambda: kernel(blk, xf), 50),
+            plain_ms=cuda_ms(torch, lambda: plain(blk, x), 5),
+            library_ms=cuda_ms(torch, lib, 20), library_call=lib_name,
+            bound_ms=b_ms, bound_by=b_by)
+        rec["faster_route"] = ("bf16" if rec["ms"] <= rec["cast_route_ms"]
+                               else "cast")
+        log(phase="mixed_precision_kernels", **rec)
+        recs.append(rec)
+    return recs
+
+
+def mp_conv_kernel(torch, conv, graph_s) -> list:
+    """K3 with a bf16 h against its plain version (1e-5: float32 out over
+    the same bf16 operands) and a second launch, at N = 5,000 (synthetic
+    relation 1, F = 2 and 64) and N = 32,768 (F = 64), timed with the L2
+    flushed beside the cast route (K3's float32 form on float32(h), the
+    same result), the plain version, the bound and cuBLAS on the same bf16
+    operands plus the epilogue in torch."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    s, d = graph_s.rel_edges(1)
+    rng = np.random.default_rng(1)
+    big_n = 32_768
+    recs = []
+    for tag, f in (("synthetic_multiclass rel 1", 2),
+                   ("synthetic_multiclass rel 1", 64),
+                   ("random N=32768", 64)):
+        op = (conv.build_dense_conv_operand(s, d, graph_s.num_nodes, dev)
+              if tag.startswith("synthetic") else
+              conv.build_dense_conv_operand(rng.integers(0, big_n, 10 * big_n),
+                                            rng.integers(0, big_n, 10 * big_n),
+                                            big_n, dev))
+        n = op.num_rows
+        h = torch.randn(n, f, generator=gen, device=dev).bfloat16()
+        w = torch.randn(f, HIDDEN, generator=gen, device=dev) / f ** 0.5
+        root = torch.randn(f, HIDDEN, generator=gen, device=dev) / f ** 0.5
+        b = 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
+        out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+        again = conv.dense_conv_fwd(op.a, h, w, root, b)
+        want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+        cast_out, _ = conv.dense_conv_fwd(op.a, h.float(), w, root, b)
+        torch.cuda.synchronize()
+        label = f"dense_conv bf16 h {tag} F={f}"
+        check(out.dtype == agg.dtype == torch.float32, f"{label}: dtype")
+        check(torch.equal(out, again[0]) and torch.equal(agg, again[1]),
+              f"{label}: a second launch differs")
+        err = max(float((out - want_out).abs().max()),
+                  float((agg - want_agg).abs().max()))
+        check(torch.allclose(out, want_out, **KERNEL_TOL)
+              and torch.allclose(agg, want_agg, **KERNEL_TOL),
+              f"{label}: max abs err {err} vs plain version")
+        check(torch.equal(cast_out, out), f"{label}: the cast route differs")
+
+        def lib():
+            a_h = torch.mm(op.a, h).float()
+            return torch.relu(a_h @ w + h.float() @ root + b)
+
+        lib_err = float((lib() - want_out).abs().max())
+        check(lib_err < 5e-2, f"{label}: cuBLAS yardstick off by {lib_err}")
+        b_ms, b_by = bound(2.0 * n * n + 2.0 * n * f
+                           + 4.0 * (n * f + n * HIDDEN + 2 * f * HIDDEN
+                                    + HIDDEN),
+                           4.0 * n * f * HIDDEN, 2.0 * n * n * f)
+        rec = dict(
+            kernel="dense_conv_bf16h", graph=tag, N=n, F=f, H=HIDDEN,
+            max_abs_err=err, bitwise_repeat=True, library_max_abs_err=lib_err,
+            ms=cuda_ms_cold(torch, lambda: conv.dense_conv_fwd(
+                op.a, h, w, root, b), 20, flush),
+            cast_route_ms=cuda_ms_cold(torch, lambda: conv.dense_conv_fwd(
+                op.a, h.float(), w, root, b), 20, flush),
+            plain_ms=cuda_ms(torch, lambda: conv.dense_conv_plain(
+                op.a, h, w, root, b), 3),
+            library_ms=cuda_ms_cold(torch, lib, 20, flush),
+            library_call="torch.mm bf16 + epilogue", bound_ms=b_ms,
+            bound_by=b_by)
+        log(phase="mixed_precision_kernels", **rec)
+        recs.append(rec)
+        del op
+    del flush
+    torch.cuda.empty_cache()
+    return recs
+
+
+def mp_train(torch, csr, conv, graph_u, split_u, graph_k, split_k,
+             graph_s, split_s, planted, largest) -> tuple:
+    """(b) ``train_mpgnn`` in bf16 against float32, the same seed: the
+    uniform graph, [0, 1], 100 epochs, csr and segment; the KG, the serving
+    metapaths, 20 epochs, csr (K2 on its hubs); float32, bf16, bf16,
+    float32 for each. (c) ``data/synthetic_multiclass``, 'pallas', bf16,
+    with ``num_bases=2`` and with ``num_blocks=2``, each against 'segment'
+    in the same config, ``MP_SYNTH_EPOCHS`` epochs. Counted from 0 over
+    (b) and (c): the bf16 forms must launch where the route says bf16, K3
+    with a bf16 h in (c). Returns (launches, records)."""
+    reset_counts(csr, conv)
+    recs = []
+    for tag, graph, paths, split, c, epochs, backends in (
+            ("uniform", graph_u, [[0, 1]], split_u, 2, 100,
+             ("csr", "segment")),
+            ("powerlaw_kg", graph_k, [planted, largest], split_k, 2, 20,
+             ("csr",))):
+        for backend in backends:
+            runs = {dt: [] for dt in ("float32", "bfloat16")}
+            for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+                runs[dt].append(train_run(torch, tag, graph, paths, split, c,
+                                          epochs, backend,
+                                          phase="mixed_precision_train",
+                                          compute_dtype=dt))
+            f32, bf = runs["float32"][0], runs["bfloat16"][0]
+            rec = dict(graph=tag, backend=backend, epochs=epochs,
+                       f32_epoch_ms=[r["epoch_ms"] for r in runs["float32"]],
+                       bf16_epoch_ms=[r["epoch_ms"]
+                                      for r in runs["bfloat16"]],
+                       loss_gap=abs(f32["final_loss"] - bf["final_loss"]),
+                       val_f1_gap=abs(f32["val_f1"] - bf["val_f1"]),
+                       f32_val_f1=f32["val_f1"], bf16_val_f1=bf["val_f1"])
+            log(phase="mixed_precision_check", **rec)
+            check(rec["loss_gap"] <= MP_LOSS_GAP and
+                  rec["val_f1_gap"] <= MP_F1_GAP,
+                  f"{tag}/{backend}: bf16 against float32 {rec}")
+            recs.append(rec)
+            if tag == "uniform" and backend == "csr":
+                # where the bf16 epoch's time goes, beside the float32 one
+                for dt, key in (("float32", "f32_epoch_ms"),
+                                ("bfloat16", "bf16_epoch_ms")):
+                    train_profile(torch, tag, graph, paths, split, c,
+                                  backend, float(np.mean(rec[key])),
+                                  compute_dtype=dt)
+    for kw in (dict(num_bases=2), dict(num_blocks=2)):
+        runs = {b: train_run(torch, "synthetic_multiclass", graph_s,
+                             SYNTH_PATHS, split_s, 3, MP_SYNTH_EPOCHS, b,
+                             phase="mixed_precision_train",
+                             compute_dtype="bfloat16", **kw)
+                for b in ("pallas", "segment")}
+        rec = dict(graph="synthetic_multiclass", compute_dtype="bfloat16",
+                   **kw, epochs=MP_SYNTH_EPOCHS,
+                   pallas_epoch_ms=runs["pallas"]["epoch_ms"],
+                   segment_epoch_ms=runs["segment"]["epoch_ms"],
+                   loss_gap=abs(runs["pallas"]["final_loss"]
+                                - runs["segment"]["final_loss"]),
+                   test_f1=[runs[b]["test_f1"] for b in ("pallas",
+                                                         "segment")])
+        log(phase="mixed_precision_check", **rec)
+        check(rec["loss_gap"] <= PALLAS_LOSS_ATOL
+              and abs(rec["test_f1"][0] - rec["test_f1"][1])
+              <= PALLAS_F1_ATOL and min(rec["test_f1"]) > 0.9,
+              f"decomposed pallas bf16 against segment: {rec}")
+        recs.append(rec)
+    launches = read_counts(csr, conv)
+    log(phase="mixed_precision_launches", **launches)
+    check(all(launches[k] > 0 for k in ("csr_scatter_bf16",
+                                        "csr_dedup_bf16")),
+          f"a bf16 form did not launch on the bf16 csr runs: {launches}")
+    check(launches["dense_conv_bf16h"] > 0 and launches["dense_conv"] > 0
+          and launches["dense_matmul"] > 0,
+          f"K3/K4 did not launch on the bf16 pallas runs: {launches}")
+    return launches, recs
+
+
+def mp_baseline_cli() -> dict:
+    """(d) ``python -m mpgnn_tpu_torch.rgcn_baseline`` on
+    ``data/synthetic_multiclass`` at hidden 64 (its other flags the
+    defaults: 3 layers, 1000 epochs), in a child process: its F1s and its
+    epoch time from its log line."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "mpgnn_tpu_torch.rgcn_baseline", "--folder",
+         SYNTH, "--hidden_dim", str(HIDDEN)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"rgcn_baseline CLI failed:\n"
+                               f"{out.stderr[-3000:]}")
+    line = out.stdout.strip().splitlines()[-1].split()
+    f1 = dict(train=float(line[2]), val=float(line[5]), test=float(line[8]),
+              loss=float(line[10]))
+    m = re.search(r"(\d+) epochs in ([\d.]+) s \(([\d.]+) ms an epoch",
+                  out.stderr)
+    check(m is not None, "rgcn_baseline CLI: no timing line")
+    rec = dict(phase="mixed_precision_rgcn_baseline", dataset="synthetic",
+               hidden=HIDDEN, epochs=int(m.group(1)),
+               train_s=float(m.group(2)), epoch_ms=float(m.group(3)),
+               process_wall_s=wall, **{f"{k}_f1" if k != "loss" else k: v
+                                       for k, v in f1.items()})
+    log(**rec)
+    check(all(0.0 <= v <= 1.0 for v in (f1["train"], f1["val"], f1["test"]))
+          and np.isfinite(f1["loss"]), f"rgcn_baseline CLI: {rec}")
+    return rec
+
+
+def mixed_precision(torch, csr, conv, graph_u, split_u, graph_k, split_k,
+                    graph_s, split_s, planted, largest) -> tuple:
+    """7 (f): (a) the new kernel forms against their plain versions, timed
+    beside the cast route; (b), (c) bf16 training; (d) the RGCN baseline
+    CLI. Returns (the kernels' records, launches of (b) and (c))."""
+    t0 = time.perf_counter()
+    cases = mp_kernel_cases(torch, csr, graph_u, graph_k, largest,
+                            planted[2])
+    recs = mp_csr_kernels(torch, csr, cases) + mp_conv_kernel(torch, conv,
+                                                              graph_s)
+    del cases
+    torch.cuda.empty_cache()
+    launches, _ = mp_train(torch, csr, conv, graph_u, split_u, graph_k,
+                           split_k, graph_s, split_s, planted, largest)
+    mp_baseline_cli()
+    log(phase="mixed_precision_done", seconds=time.perf_counter() - t0)
+    return recs, launches
+
+
 def reset_counts(csr, conv) -> None:
     csr.SCATTER_LAUNCHES = csr.DEDUP_LAUNCHES = 0
+    csr.SCATTER_BF16_LAUNCHES = csr.DEDUP_BF16_LAUNCHES = 0
     csr.CSR_BACKWARD_LAUNCHES = 0
     conv.CONV_LAUNCHES = conv.MATMUL_LAUNCHES = 0
+    conv.CONV_BF16H_LAUNCHES = 0
+
+
+# the float32 forms and the csr backward, which every training run of
+# phase 7 (a)-(c) launches; the bf16 forms launch in 7 (f)
+F32_FORMS = ("csr_scatter", "csr_dedup", "csr_backward_passes", "dense_conv",
+             "dense_matmul")
 
 
 def read_counts(csr, conv) -> dict:
@@ -1732,7 +2086,10 @@ def read_counts(csr, conv) -> dict:
             "csr_dedup": csr.DEDUP_LAUNCHES,
             "csr_backward_passes": csr.CSR_BACKWARD_LAUNCHES,
             "dense_conv": conv.CONV_LAUNCHES,
-            "dense_matmul": conv.MATMUL_LAUNCHES}
+            "dense_matmul": conv.MATMUL_LAUNCHES,
+            "csr_scatter_bf16": csr.SCATTER_BF16_LAUNCHES,
+            "csr_dedup_bf16": csr.DEDUP_BF16_LAUNCHES,
+            "dense_conv_bf16h": conv.CONV_BF16H_LAUNCHES}
 
 
 def main() -> int:
@@ -1850,7 +2207,7 @@ def main() -> int:
                                     graph_k, split_k, planted, largest)
     train_launches = read_counts(csr, conv)
     log(phase="train_launches", **train_launches)
-    check(all(v > 0 for v in train_launches.values()),
+    check(all(train_launches[k] > 0 for k in F32_FORMS),
           f"a kernel did not launch on the training path: {train_launches}")
     train_profile(torch, "synthetic_multiclass", graph_s, SYNTH_PATHS,
                   split_s, 3, "pallas", pallas_ms)
@@ -1859,6 +2216,10 @@ def main() -> int:
     # the other single-model kinds and 'auto' on the card, then the
     # readings behind 'auto''s constants
     backends_phase(torch, csr, conv, graph_s, split_s, graph_u, split_u)
+    # 7 (f): bf16, the decomposed convs, the RGCN baseline
+    mp_records, mp_launches = mixed_precision(
+        torch, csr, conv, graph_u, split_u, graph_k, split_k, graph_s,
+        split_s, planted, largest)
     del graph_u, split_u
     torch.cuda.empty_cache()
     auto_routing(torch, HeteroGraph, graph_s, split_s)
@@ -1927,6 +2288,37 @@ def main() -> int:
             library_ms=wide["library_ms"], dispatch_ms=wide["dispatch_ms"],
             library_dispatch_ms=wide["library_dispatch_ms"], **extra,
         ))
+    # the bf16 forms (7 (f)): at F = 64 forward, K1 on the uniform
+    # relation, K2 on the KG's hub, K3 at N = 5,000; launches from 7 (f)'s
+    # bf16 training, counted from 0
+    for name, source, replaces in (
+            ("csr_scatter_bf16", "mpgnn_tpu_torch/csrc/csr_scatter.cu",
+             "mpgnn_tpu/ops/pallas_csr.py:372"),
+            ("csr_dedup_bf16", "mpgnn_tpu_torch/csrc/csr_dedup.cu",
+             "mpgnn_tpu/ops/pallas_csr.py:434"),
+            ("dense_conv_bf16h", "mpgnn_tpu_torch/csrc/dense_matmul.cu",
+             "mpgnn_tpu/ops/pallas_conv.py:57")):
+        recs = [r for r in mp_records if r["kernel"] == name]
+        wide = next(r for r in recs if r["F"] == 64
+                    and r.get("direction", "fwd") == "fwd")
+        extra = {}
+        if name != "dense_conv_bf16h":
+            bwd = next(r for r in recs if r["direction"] == "bwd")
+            extra = dict(bwd_ms=bwd["ms"], bwd_cast_route_ms=bwd[
+                "cast_route_ms"], bwd_bound_ms=bwd["bound_ms"],
+                bwd_library_ms=bwd["library_ms"],
+                routes={f"{r['direction']} {r['graph']} rel {r['relation']} "
+                        f"F={r['F']}": [r["ms"], r["cast_route_ms"]]
+                        for r in recs})
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=mp_launches[name], launches_train=mp_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            ms=wide["ms"], plain_ms=wide["plain_ms"],
+            bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+            library_ms=wide["library_ms"], library_call=wide["library_call"],
+            cast_route_ms=wide["cast_route_ms"], graph=wide["graph"],
+            F=wide["F"], **extra))
     # K5: its probe's shapes at F = 128 (the JAX probe's width), one copy a
     # row and runs of 64 rows
     at = {p["rows_per_run"]: p for p in probe["shapes"] if p["F"] == 128}

@@ -42,11 +42,20 @@
 //     launch per pass on one stream: no atomics and no block-wide barrier,
 //     and the sum order is fixed by the layout, so two launches on the same
 //     input give bitwise-equal output.
+//
+// The bf16 form (mpgnn_csr_dedup_bf16) reads and writes bf16 rows for the
+// JAX package's compute_dtype='bfloat16' csr hops (which cast to float32
+// and back around the Pallas kernel): 8 bf16 values (16 bytes) a lane
+// where F is a multiple of 8, widened to float32 exactly and summed as
+// above (rows.cuh); the partial slots stay float32, and an output row is
+// rounded to bf16 once, by the piece that writes it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -54,76 +63,23 @@ constexpr int kThreads = 256;
 constexpr int kBatch = 8;          // items whose loads are in flight at once
 constexpr int kMaxZeroCtas = 264;  // CTAs writing the rows without edges
 
-// compensated (Kahan) step acc += s * v: a hub column of the backward
-// direction adds tens of thousands of terms that largely cancel, where plain
-// float32 sums drift past 1e-5 of the float64 result
-__device__ __forceinline__ void kahan(float& acc, float& comp, float s,
-                                      float v) {
-  const float y = fmaf(s, v, -comp);
-  const float t = acc + y;
-  comp = (t - acc) - y;
-  acc = t;
-}
-
-template <int VEC> struct Vec;
-
-template <> struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ static T load_rw(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  __device__ static void add(T& acc, T& comp, float s, const T& v) {
-    kahan(acc.x, comp.x, s, v.x);
-    kahan(acc.y, comp.y, s, v.y);
-    kahan(acc.z, comp.z, s, v.z);
-    kahan(acc.w, comp.w, s, v.w);
-  }
-  // s * the two compensated sums, added
-  __device__ static T sum(const T (&a)[2], const T (&c)[2], float s) {
-    return make_float4(s * ((a[0].x - c[0].x) + (a[1].x - c[1].x)),
-                       s * ((a[0].y - c[0].y) + (a[1].y - c[1].y)),
-                       s * ((a[0].z - c[0].z) + (a[1].z - c[1].z)),
-                       s * ((a[0].w - c[0].w) + (a[1].w - c[1].w)));
-  }
-  __device__ static void store(float* p, const T& v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-
-template <> struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static T load(const float* p) { return __ldg(p); }
-  __device__ static T load_rw(const float* p) { return *p; }
-  __device__ static void add(T& acc, T& comp, float s, const T& v) {
-    kahan(acc, comp, s, v);
-  }
-  __device__ static T sum(const T (&a)[2], const T (&c)[2], float s) {
-    return s * ((a[0] - c[0]) + (a[1] - c[1]));
-  }
-  __device__ static void store(float* p, const T& v) { *p = v; }
-};
-
 // One pass: pieces p0 .. p1-1, one group each, in CTAs zero_ctas and up;
 // CTAs below zero_ctas write the rows without edges. `part` is read (slots
 // of the previous pass) and written (slots of this pass) through plain loads
 // and stores: the two slot ranges are disjoint.
-template <int VEC>
+template <typename In, int VEC>
 __global__ void __launch_bounds__(kThreads, 3)
 csr_dedup_kernel(const int* __restrict__ piece_ptr,
                  const int* __restrict__ piece_dest,
                  const int* __restrict__ col, const float* __restrict__ pre,
-                 const float* __restrict__ post, const float* __restrict__ x,
-                 float* part, float* __restrict__ out,
+                 const float* __restrict__ post, const In* __restrict__ x,
+                 float* part, In* __restrict__ out,
                  const int* __restrict__ zero_rows, int num_zero,
                  int zero_ctas,
                  int p0, int p1, int num_edges, int F, int tpr) {
-  using V = Vec<VEC>;
+  using V = Row<In, VEC>;
   using T = typename V::T;
+  using Raw = typename V::Raw;
   if ((int)blockIdx.x < zero_ctas) {
     const int slots = F / VEC;
     const size_t total = (size_t)num_zero * slots;
@@ -142,7 +98,6 @@ csr_dedup_kernel(const int* __restrict__ piece_ptr,
   const int i0 = __ldg(piece_ptr + p);
   const int i1 = __ldg(piece_ptr + p + 1);
   const int d = __ldg(piece_dest + p);
-  float* dst = d >= 0 ? out + (size_t)d * F : part + (size_t)(-1 - d) * F;
   const float sc = d >= 0 && post != nullptr ? __ldg(post + d) : 1.f;
   for (int c = lane * VEC; c < F; c += tpr * VEC) {
     T acc[2] = {V::zero(), V::zero()};
@@ -155,11 +110,11 @@ csr_dedup_kernel(const int* __restrict__ piece_ptr,
       }
       for (int i = i0; i < i1; i += kBatch) {
         float s[kBatch];
-        T v[kBatch];
+        Raw v[kBatch];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
           s[k] = 0.f;
-          v[k] = V::zero();
+          v[k] = V::raw_zero();
           if (cc[k] >= 0) {
             s[k] = pre != nullptr ? __ldg(pre + cc[k]) : 1.f;
             v[k] = V::load(x + (size_t)cc[k] * F + c);
@@ -183,16 +138,22 @@ csr_dedup_kernel(const int* __restrict__ piece_ptr,
         T v[kBatch];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
-          v[k] = i + k < m ? V::load_rw(src + (size_t)(i + k) * F)
+          v[k] = i + k < m ? V::load_f32_rw(src + (size_t)(i + k) * F)
                            : V::zero();
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
-          V::add(acc[k % 2], comp[k % 2], 1.f, v[k]);
+          V::add_f32(acc[k % 2], comp[k % 2], 1.f, v[k]);
         }
       }
     }
-    V::store(dst + c, V::sum(acc, comp, sc));
+    // an output row is written once, by its last piece; partial sums stay
+    // float32
+    if (d >= 0) {
+      V::store(out + (size_t)d * F + c, V::sum2(acc, comp, sc));
+    } else {
+      V::store_f32(part + (size_t)(-1 - d) * F + c, V::sum2(acc, comp, sc));
+    }
   }
 }
 
@@ -200,6 +161,33 @@ int pow2_at_least(int v) {
   int p = 1;
   while (p < v) p <<= 1;
   return p;
+}
+
+// every pass of the layout, the kernel of form In at VEC
+template <typename In, int VEC>
+int passes(const int* piece_ptr, const int* piece_dest, const int* col,
+           const float* pre, const float* post, const In* x, float* part,
+           In* out, const int* zero_rows, int num_zero,
+           const int* level_pieces, int num_levels, int num_edges, int F,
+           cudaStream_t s) {
+  const int chunks = F / VEC;
+  const int tpr = chunks < 32 ? pow2_at_least(chunks) : 32;
+  const int groups_per_cta = kThreads / tpr;
+  for (int l = 0; l < num_levels; ++l) {
+    const int p0 = level_pieces[l], p1 = level_pieces[l + 1];
+    const long long zero_slots = l == 0 ? (long long)num_zero * chunks : 0;
+    const int zero_ctas = (int)std::min<long long>(
+        kMaxZeroCtas, (zero_slots + kThreads - 1) / kThreads);
+    const int grid =
+        zero_ctas + (p1 - p0 + groups_per_cta - 1) / groups_per_cta;
+    if (grid == 0) continue;
+    csr_dedup_kernel<In, VEC><<<grid, kThreads, 0, s>>>(
+        piece_ptr, piece_dest, col, pre, post, x, part, out, zero_rows,
+        num_zero, zero_ctas, p0, p1, num_edges, F, tpr);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -220,31 +208,47 @@ int mpgnn_csr_dedup(const int* piece_ptr, const int* piece_dest,
                     const int* level_pieces, int num_levels, int num_edges,
                     int F, int vec, void* stream) {
   if (F <= 0) return (int)cudaSuccess;
-  const int chunks = vec == 4 ? F / 4 : F;
-  const int tpr = chunks < 32 ? pow2_at_least(chunks) : 32;
-  const int groups_per_cta = kThreads / tpr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int l = 0; l < num_levels; ++l) {
-    const int p0 = level_pieces[l], p1 = level_pieces[l + 1];
-    const long long zero_slots = l == 0 ? (long long)num_zero * chunks : 0;
-    const int zero_ctas = (int)std::min<long long>(
-        kMaxZeroCtas, (zero_slots + kThreads - 1) / kThreads);
-    const int grid =
-        zero_ctas + (p1 - p0 + groups_per_cta - 1) / groups_per_cta;
-    if (grid == 0) continue;
-    if (vec == 4) {
-      csr_dedup_kernel<4><<<grid, kThreads, 0, s>>>(
-          piece_ptr, piece_dest, col, pre, post, x, part, out, zero_rows,
-          num_zero, zero_ctas, p0, p1, num_edges, F, tpr);
-    } else {
-      csr_dedup_kernel<1><<<grid, kThreads, 0, s>>>(
-          piece_ptr, piece_dest, col, pre, post, x, part, out, zero_rows,
-          num_zero, zero_ctas, p0, p1, num_edges, F, tpr);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (vec == 4 && F % 4 == 0) {
+    return passes<float, 4>(piece_ptr, piece_dest, col, pre, post, x, part,
+                            out, zero_rows, num_zero, level_pieces,
+                            num_levels, num_edges, F, s);
   }
-  return (int)cudaSuccess;
+  if (vec != 1) return (int)cudaErrorInvalidValue;
+  return passes<float, 1>(piece_ptr, piece_dest, col, pre, post, x, part,
+                          out, zero_rows, num_zero, level_pieces, num_levels,
+                          num_edges, F, s);
+}
+
+// The bf16 form: x [num_gather_rows, F] and out [num_rows, F] bf16,
+// contiguous; part float32 as above. vec: 8 when F % 8 == 0 and x is
+// 16-byte aligned, else 4 when F % 4 == 0 and x is 8-byte aligned, else 1.
+int mpgnn_csr_dedup_bf16(const int* piece_ptr, const int* piece_dest,
+                         const int* col, const float* pre, const float* post,
+                         const void* x, float* part, void* out,
+                         const int* zero_rows, int num_zero,
+                         const int* level_pieces, int num_levels,
+                         int num_edges, int F, int vec, void* stream) {
+  if (F <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (vec == 8 && F % 8 == 0) {
+    return passes<__nv_bfloat16, 8>(piece_ptr, piece_dest, col, pre, post,
+                                    xb, part, ob, zero_rows, num_zero,
+                                    level_pieces, num_levels, num_edges, F,
+                                    s);
+  }
+  if (vec == 4 && F % 4 == 0) {
+    return passes<__nv_bfloat16, 4>(piece_ptr, piece_dest, col, pre, post,
+                                    xb, part, ob, zero_rows, num_zero,
+                                    level_pieces, num_levels, num_edges, F,
+                                    s);
+  }
+  if (vec != 1) return (int)cudaErrorInvalidValue;
+  return passes<__nv_bfloat16, 1>(piece_ptr, piece_dest, col, pre, post, xb,
+                                  part, ob, zero_rows, num_zero,
+                                  level_pieces, num_levels, num_edges, F, s);
 }
 
 const char* mpgnn_error_string(int code) {

@@ -48,10 +48,25 @@
 //     out, compensated, one group a row: a row of 60k edges is one chain of
 //     about 940 carries. No atomics, and the order of every sum is fixed, so
 //     two launches on one input are bitwise equal.
+//
+// The bf16 form (mpgnn_csr_scatter_bf16) reads and writes bf16 rows for
+// the JAX package's compute_dtype='bfloat16' csr hops (mpgnn.py:146-152
+// casts them to float32 and back around this kernel): the same walk, 8
+// bf16 values (16 bytes) a lane where F is a multiple of 8, each widened
+// to float32 exactly and summed compensated in float32 as above (rows.cuh);
+// a row's sum is rounded to bf16 once, where it is written. The carries
+// stay float32, and the part of a long row that its last share sums goes
+// to a float32 head slot instead of out, so a row cut across shares is
+// also rounded once, by the carry pass. Its bound is half the float32
+// form's gathered bytes (E*F*2).
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -64,53 +79,6 @@ template <int TPR> struct Layout {
   static constexpr int batch = TPR >= 16 ? 4 : 8;         // rows in flight
   static constexpr int groups = kThreads / TPR;
   static constexpr int items = groups * share;            // at most 4096
-};
-
-__device__ __forceinline__ void kahan(float& acc, float& comp, float w,
-                                      float v) {
-  const float y = fmaf(w, v, -comp);
-  const float t = acc + y;
-  comp = (t - acc) - y;
-  acc = t;
-}
-
-template <int VEC> struct Vec;
-
-template <> struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ static T load_rw(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  // compensated (Kahan) step: acc += w * v, with the rounding error of
-  // each add kept in comp
-  __device__ static void add(T& acc, T& comp, float w, const T& v) {
-    kahan(acc.x, comp.x, w, v.x);
-    kahan(acc.y, comp.y, w, v.y);
-    kahan(acc.z, comp.z, w, v.z);
-    kahan(acc.w, comp.w, w, v.w);
-  }
-  __device__ static T sum(const T& a, const T& c) {
-    return make_float4(a.x - c.x, a.y - c.y, a.z - c.z, a.w - c.w);
-  }
-  __device__ static void store(float* p, const T& v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-
-template <> struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static T load(const float* p) { return __ldg(p); }
-  __device__ static T load_rw(const float* p) { return *p; }
-  __device__ static void add(T& acc, T& comp, float w, const T& v) {
-    kahan(acc, comp, w, v);
-  }
-  __device__ static T sum(const T& a, const T& c) { return a - c; }
-  __device__ static void store(float* p, const T& v) { *p = v; }
 };
 
 // The merge-path coordinate of item d: how many rows end among the first d
@@ -165,16 +133,22 @@ __device__ __forceinline__ void cta_span(const int* __restrict__ ends,
   if (t == 0) span[which] = lo;
 }
 
-// Shares of S = Layout<TPR>::share items, TPR lanes a share.
-template <int VEC, int TPR>
+// Shares of S = Layout<TPR>::share items, TPR lanes a share. In the bf16
+// form (In = __nv_bfloat16) the part of a long row that ends in share s
+// goes to head slot s in float32, not to out, so that the carry pass
+// rounds the whole row once.
+template <typename In, int VEC, int TPR>
 __global__ void __launch_bounds__(kThreads)
 csr_scatter_kernel(const int* __restrict__ row_ptr,
                    const int* __restrict__ col, const float* __restrict__ w,
-                   const float* __restrict__ x, float* __restrict__ out,
-                   float* __restrict__ carry, int* __restrict__ share_row,
-                   int num_rows, int num_edges, int F) {
-  using V = Vec<VEC>;
+                   const In* __restrict__ x, In* __restrict__ out,
+                   float* __restrict__ carry, float* __restrict__ head,
+                   int* __restrict__ share_row, int num_rows, int num_edges,
+                   int F) {
+  using V = Row<In, VEC>;
   using T = typename V::T;
+  using Raw = typename V::Raw;
+  constexpr bool kHead = !std::is_same<In, float>::value;
   using L = Layout<TPR>;
   constexpr int S = L::share;
   constexpr int B = L::batch;
@@ -211,7 +185,9 @@ csr_scatter_kernel(const int* __restrict__ row_ptr,
   const bool own_tail = x1 < num_rows && x1 + rs(x1) >= d0 && rs(x1) < y1 &&
                         rs(x1 + 1) - rs(x1) <= S;
   const int s = blockIdx.x * L::groups + g;
-  if (lane == 0) share_row[s] = began && !first_done && x0 < x1 ? x0 : -1;
+  // a long row that began in an earlier share and ends here
+  const int long_row = began && !first_done && x0 < x1 ? x0 : -1;
+  if (lane == 0) share_row[s] = long_row;
   const int r_end = own_tail ? x1 + 1 : x1;   // rows written: [r, r_end)
   const int y_end = own_tail ? rs(x1 + 1) : y1;
   const int r_begin = first_done ? x0 + 1 : x0;
@@ -223,6 +199,14 @@ csr_scatter_kernel(const int* __restrict__ row_ptr,
   for (int c0 = 0; c0 < F; c0 += TPR * VEC) {
     const int c = c0 + lane * VEC;
     const bool on = c < F;                     // lanes past F only shuffle
+    auto put = [&](int row, const T& v) {      // a row's sum, written once
+      if (!on) return;
+      if (kHead && row == long_row) {
+        V::store_f32(head + (size_t)s * F + c, v);
+      } else {
+        V::store(out + (size_t)row * F + c, v);
+      }
+    };
     T acc = V::zero(), comp = V::zero();
     int r = r_begin;                           // the row being summed
     int end = r < r_end ? rs(r + 1) : y_end;   // its last edge here, + 1
@@ -240,13 +224,13 @@ csr_scatter_kernel(const int* __restrict__ row_ptr,
     };
     load_idx(y_begin);
     for (int yb = y_begin; yb < y_end; yb += B) {
-      T v[B];
+      Raw v[B];
 #pragma unroll
       for (int k = 0; k < B; ++k) {
         const int ck =
             TPR == 1 ? lc[k] : __shfl_sync(mask, lc[k / TPR], k % TPR, TPR);
         v[k] = on && yb + k < y_end ? V::load(x + (size_t)ck * F + c)
-                                    : V::zero();
+                                    : V::raw_zero();
       }
       float wk[B];
 #pragma unroll
@@ -260,7 +244,7 @@ csr_scatter_kernel(const int* __restrict__ row_ptr,
         const int e = yb + k;
         if (e < y_end) {
           while (e >= end) {       // rows that end before edge e
-            if (on) V::store(out + (size_t)r * F + c, V::sum(acc, comp));
+            put(r, V::sum(acc, comp));
             acc = comp = V::zero();
             ++r;
             end = r < r_end ? rs(r + 1) : y_end;
@@ -270,27 +254,29 @@ csr_scatter_kernel(const int* __restrict__ row_ptr,
       }
     }
     for (; r < r_end; ++r) {
-      if (on) V::store(out + (size_t)r * F + c, V::sum(acc, comp));
+      put(r, V::sum(acc, comp));
       acc = comp = V::zero();
     }
     // a long row still open at the share's end, with some of its edges
     // here: its part goes to carry slot s
     if (!own_tail && x1 < num_rows && y1 > max(y_begin, rs(x1)) && on) {
-      V::store(carry + (size_t)s * F + c, V::sum(acc, comp));
+      V::store_f32(carry + (size_t)s * F + c, V::sum(acc, comp));
     }
   }
 }
 
 // For each share s where a long row r ends (share_row[s] = r): out[r] =
 // the carry slots of the shares from r's first edge's to s - 1, in order,
-// then the part that s wrote to out[r], compensated. TPR lanes a share.
-template <int VEC, int TPR>
+// then the part that s wrote to out[r] (the bf16 form: to head slot s),
+// compensated. TPR lanes a share.
+template <typename In, int VEC, int TPR>
 __global__ void __launch_bounds__(kThreads)
 csr_carry_kernel(const int* __restrict__ row_ptr,
                  const int* __restrict__ share_row,
-                 const float* __restrict__ carry, float* __restrict__ out,
+                 const float* __restrict__ carry,
+                 const float* __restrict__ head, In* __restrict__ out,
                  int shares, int F) {
-  using V = Vec<VEC>;
+  using V = Row<In, VEC>;
   using T = typename V::T;
   const int s = blockIdx.x * (kThreads / TPR) + threadIdx.x / TPR;
   const int lane = threadIdx.x % TPR;
@@ -299,7 +285,7 @@ csr_carry_kernel(const int* __restrict__ row_ptr,
   if (r < 0) return;
   const int first = (r + __ldg(row_ptr + r)) / Layout<TPR>::share;
   const int m = s - first;
-  float* dst = out + (size_t)r * F;
+  In* dst = out + (size_t)r * F;
   for (int c = lane * VEC; c < F; c += TPR * VEC) {
     T acc = V::zero(), comp = V::zero();
     const float* src = carry + (size_t)first * F + c;
@@ -307,12 +293,18 @@ csr_carry_kernel(const int* __restrict__ row_ptr,
       T v[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
-        v[k] = i + k < m ? V::load(src + (size_t)(i + k) * F) : V::zero();
+        v[k] = i + k < m ? V::load_f32(src + (size_t)(i + k) * F)
+                         : V::zero();
       }
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) V::add(acc, comp, 1.f, v[k]);
+      for (int k = 0; k < kBatch; ++k) V::add_f32(acc, comp, 1.f, v[k]);
     }
-    V::add(acc, comp, 1.f, V::load_rw(dst + c));  // share s's part, last
+    // share s's part, last
+    if constexpr (std::is_same<In, float>::value) {
+      V::add_f32(acc, comp, 1.f, V::load_f32_rw(dst + c));
+    } else {
+      V::add_f32(acc, comp, 1.f, V::load_f32(head + (size_t)s * F + c));
+    }
     V::store(dst + c, V::sum(acc, comp));
   }
 }
@@ -323,24 +315,59 @@ int pow2_at_least(int v) {
   return p;
 }
 
-template <int VEC, int TPR>
-int run(const int* row_ptr, const int* col, const float* w, const float* x,
-        float* out, float* carry, int* share_row, int num_rows,
+template <typename In, int VEC, int TPR>
+int run(const int* row_ptr, const int* col, const float* w, const In* x,
+        In* out, float* carry, float* head, int* share_row, int num_rows,
         int num_edges, int F, int share, cudaStream_t s) {
   using L = Layout<TPR>;
   if (share != L::share) return (int)cudaErrorInvalidValue;
   const int total = num_rows + num_edges;
   const int shares = (total + L::share - 1) / L::share;
-  csr_scatter_kernel<VEC, TPR>
+  csr_scatter_kernel<In, VEC, TPR>
       <<<(total + L::items - 1) / L::items, kThreads, 0, s>>>(
-          row_ptr, col, w, x, out, carry, share_row, num_rows, num_edges, F);
+          row_ptr, col, w, x, out, carry, head, share_row, num_rows,
+          num_edges, F);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_edges <= L::share) return (int)err;
   constexpr int kPerCta = kThreads / TPR;
-  csr_carry_kernel<VEC, TPR><<<(shares + kPerCta - 1) / kPerCta, kThreads, 0,
-                               s>>>(row_ptr, share_row, carry, out, shares,
-                                    F);
+  csr_carry_kernel<In, VEC, TPR><<<(shares + kPerCta - 1) / kPerCta,
+                                   kThreads, 0, s>>>(
+      row_ptr, share_row, carry, head, out, shares, F);
   return (int)cudaGetLastError();
+}
+
+bool valid(int num_rows, int num_edges, int F, int vec, int max_vec) {
+  return num_edges >= 0 &&
+         (long long)num_rows + num_edges <= (long long)INT_MAX - 8192 &&
+         (vec == 1 || ((vec == 4 || vec == max_vec) && F % vec == 0));
+}
+
+// the launch of the form for In at vec and the lanes F / vec needs
+template <typename In, int... VECS>
+int dispatch(const int* row_ptr, const int* col, const float* w, const In* x,
+             In* out, float* carry, float* head, int* share_row,
+             int num_rows, int num_edges, int F, int vec, int share,
+             cudaStream_t s) {
+  const int chunks = F / vec;
+  const int tpr = chunks < 32 ? pow2_at_least(chunks) : 32;
+  int code = (int)cudaErrorInvalidValue;
+  auto one = [&](auto v, auto t) {
+    constexpr int V = decltype(v)::value, T = decltype(t)::value;
+    if (vec == V && tpr == T) {
+      code = run<In, V, T>(row_ptr, col, w, x, out, carry, head, share_row,
+                           num_rows, num_edges, F, share, s);
+    }
+  };
+  auto lanes = [&](auto v) {
+    one(v, std::integral_constant<int, 1>());
+    one(v, std::integral_constant<int, 2>());
+    one(v, std::integral_constant<int, 4>());
+    one(v, std::integral_constant<int, 8>());
+    one(v, std::integral_constant<int, 16>());
+    one(v, std::integral_constant<int, 32>());
+  };
+  (lanes(std::integral_constant<int, VECS>()), ...);
+  return code;
 }
 
 }  // namespace
@@ -357,30 +384,32 @@ int mpgnn_csr_scatter(const int* row_ptr, const int* col, const float* w,
                       int* share_row, int num_rows, int num_edges, int F,
                       int vec, int share, void* stream) {
   if (num_rows <= 0 || F <= 0) return (int)cudaSuccess;
-  if (num_edges < 0 ||
-      (long long)num_rows + num_edges > (long long)INT_MAX - 8192 ||
-      (vec != 1 && (vec != 4 || F % 4 != 0))) {
+  if (!valid(num_rows, num_edges, F, vec, 4)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int chunks = vec == 4 ? F / 4 : F;
-  const int tpr = chunks < 32 ? pow2_at_least(chunks) : 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MPGNN_RUN(VECV, TPRV)                                                 \
-  if (vec == VECV && tpr == TPRV)                                             \
-    return run<VECV, TPRV>(row_ptr, col, w, x, out, carry, share_row,         \
-                           num_rows, num_edges, F, share, s);
-#define MPGNN_TPR(VECV)                                                       \
-  MPGNN_RUN(VECV, 1)                                                          \
-  MPGNN_RUN(VECV, 2)                                                          \
-  MPGNN_RUN(VECV, 4)                                                          \
-  MPGNN_RUN(VECV, 8)                                                          \
-  MPGNN_RUN(VECV, 16)                                                         \
-  MPGNN_RUN(VECV, 32)
-  MPGNN_TPR(1)
-  MPGNN_TPR(4)
-#undef MPGNN_TPR
-#undef MPGNN_RUN
-  return (int)cudaErrorInvalidValue;
+  return dispatch<float, 1, 4>(row_ptr, col, w, x, out, carry, nullptr,
+                               share_row, num_rows, num_edges, F, vec, share,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: x and out bf16 ([num_cols, F], [num_rows, F],
+// contiguous), float32 sums rounded once. vec: 8 when F % 8 == 0 and x,
+// out are 16-byte aligned, else 4 when F % 4 == 0 and they are 8-byte
+// aligned, else 1. carry and head: float32 scratch [shares, F]; share and
+// share_row as above.
+int mpgnn_csr_scatter_bf16(const int* row_ptr, const int* col,
+                           const float* w, const void* x, void* out,
+                           float* carry, float* head, int* share_row,
+                           int num_rows, int num_edges, int F, int vec,
+                           int share, void* stream) {
+  if (num_rows <= 0 || F <= 0) return (int)cudaSuccess;
+  if (!valid(num_rows, num_edges, F, vec, 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch<__nv_bfloat16, 1, 4, 8>(
+      row_ptr, col, w, static_cast<const __nv_bfloat16*>(x),
+      static_cast<__nv_bfloat16*>(out), carry, head, share_row, num_rows,
+      num_edges, F, vec, share, static_cast<cudaStream_t>(stream));
 }
 
 const char* mpgnn_error_string(int code) {

@@ -4,6 +4,9 @@
 //                                  float32, out: [n, F] float32 (float32 sums)
 //   K3: agg = A @ bf16(h)          the same product over A = a, then
 //       out = relu(agg @ W + h @ root + b)   W, root: [F, H], b: [H] float32
+//       h float32, or bf16 (mpgnn_dense_conv_bf16h: the hop 0 of a
+//       compute_dtype='bfloat16' run, whose h is the bf16 input features);
+//       agg and out float32 either way, as the JAX kernel's are.
 //
 // K4 replaces mpgnn_tpu/ops/pallas_conv.py::_matmul_kernel (launched by
 // _blocked_matmul in _conv_vjp_bwd, with A = the transposed adjacency a_t);
@@ -166,15 +169,25 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// xt[f, k] = bf16(x[k, f]) for f < F, k < n; 0 elsewhere in [FP, np]
-__global__ void round_bf16_t_kernel(const float* __restrict__ x,
+// a float32 value of x: float32 as it is, bf16 widened (exact)
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// xt[f, k] = bf16(x[k, f]) for f < F, k < n; 0 elsewhere in [FP, np]. For a
+// bf16 x the rounding keeps every value: the pre-pass only transposes.
+template <typename In>
+__global__ void round_bf16_t_kernel(const In* __restrict__ x,
                                     __nv_bfloat16* __restrict__ xt, int n,
                                     int F, int FP, int np) {
   __shared__ float tile[32][33];
   const int k0 = blockIdx.x * 32, f0 = blockIdx.y * 32;
   for (int j = threadIdx.y; j < 32; j += blockDim.y) {
     const int k = k0 + j, f = f0 + threadIdx.x;
-    tile[j][threadIdx.x] = k < n && f < F ? __ldg(x + (size_t)k * F + f) : 0.f;
+    tile[j][threadIdx.x] =
+        k < n && f < F ? load_f(x + (size_t)k * F + f) : 0.f;
   }
   __syncthreads();
   for (int j = threadIdx.y; j < 32; j += blockDim.y) {
@@ -336,12 +349,14 @@ size_t epilogue_smem(int F, int H) {
 // added in split order (part is agg itself when splits == 1), then
 // out = relu((agg @ w + h @ root) + b), each sum a float32 FMA chain over
 // f in order. The block's rows of agg and h are read coalesced, 8 loads in
-// flight a thread, and stored transposed; a thread then takes 4 rows by CW
-// columns (4 where H % 4 == 0), so that each step over f reads shared
-// memory 16 bytes at a time for 8 * CW FMAs.
-template <int CW>
+// flight a thread, and stored transposed (a bf16 h widened to float32, as
+// the JAX kernel's jnp.dot(hblk, root, preferred_element_type=f32) takes
+// it); a thread then takes 4 rows by CW columns (4 where H % 4 == 0), so
+// that each step over f reads shared memory 16 bytes at a time for 8 * CW
+// FMAs.
+template <typename HIn, int CW>
 __global__ void __launch_bounds__(kEpiThreads)
-conv_epilogue_kernel(const float* part, const float* __restrict__ h,
+conv_epilogue_kernel(const float* part, const HIn* __restrict__ h,
                      const float* __restrict__ w,
                      const float* __restrict__ root,
                      const float* __restrict__ b, float* __restrict__ out,
@@ -362,7 +377,7 @@ conv_epilogue_kernel(const float* part, const float* __restrict__ h,
     for (int u = 0; u < kEpiLoads; ++u) {
       const int q = q0 + u * kEpiThreads;
       a[u] = q < count ? part[base + q] : 0.f;
-      hv[u] = q < count ? __ldg(h + base + q) : 0.f;
+      hv[u] = q < count ? load_f(h + base + q) : 0.f;
     }
     for (int s = 1; s < splits; ++s) {
 #pragma unroll
@@ -493,12 +508,12 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
 
 // the bf16 pre-pass and the main loop: A @ bf16(x) into dst ([splits, n, F]
 // when splits > 1, else [n, F])
-template <int FP>
-int main_loop(const void* a, int lda, __nv_bfloat16* xt, const float* x,
+template <int FP, typename In>
+int main_loop(const void* a, int lda, __nv_bfloat16* xt, const In* x,
               float* dst, int n, int F, int splits, cudaStream_t s) {
   const int np = (n + 7) / 8 * 8;
   const dim3 tgrid((np + 31) / 32, FP / 32);
-  round_bf16_t_kernel<<<tgrid, dim3(32, 8), 0, s>>>(x, xt, n, F, FP, np);
+  round_bf16_t_kernel<In><<<tgrid, dim3(32, 8), 0, s>>>(x, xt, n, F, FP, np);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_a, map_b;
@@ -532,6 +547,35 @@ bool valid(const void* a, int lda, int n, int F, int splits) {
   return F > 0 && F <= 256 && lda >= n && lda % 8 == 0 &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0 && splits >= 1 &&
          splits <= (n + kBK - 1) / kBK;
+}
+
+// K3 with h of type HIn (float32, or bf16 at the hop 0 of a bf16 run)
+template <typename HIn>
+int dense_conv(const void* a, int lda, void* xt, const HIn* h,
+               const float* w, const float* root, const float* b, float* out,
+               float* agg, float* part, int n, int F, int H, int splits,
+               void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem = epilogue_smem(F, H);
+  if (!valid(a, lda, n, F, splits) || H <= 0 || smem > (size_t)kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
+  float* dst = splits > 1 ? part : agg;
+  int err = by_width(F, [&](auto fp) {
+    return main_loop<decltype(fp)::value>(a, lda, xb, h, dst, n, F, splits,
+                                          s);
+  });
+  if (err != 0) return err;
+  auto epilogue = H % 4 == 0 ? conv_epilogue_kernel<HIn, 4>
+                             : conv_epilogue_kernel<HIn, 1>;
+  err = (int)cudaFuncSetAttribute(
+      epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return err;
+  epilogue<<<(n + kEpiRows - 1) / kEpiRows, kEpiThreads, smem, s>>>(
+      dst, h, w, root, b, out, agg, n, F, H, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -571,27 +615,18 @@ int mpgnn_dense_conv(const void* a, int lda, void* xt, const float* h,
                      const float* w, const float* root, const float* b,
                      float* out, float* agg, float* part, int n, int F, int H,
                      int splits, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const size_t smem = epilogue_smem(F, H);
-  if (!valid(a, lda, n, F, splits) || H <= 0 || smem > (size_t)kMaxSmem) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
-  float* dst = splits > 1 ? part : agg;
-  int err = by_width(F, [&](auto fp) {
-    return main_loop<decltype(fp)::value>(a, lda, xb, h, dst, n, F, splits,
-                                          s);
-  });
-  if (err != 0) return err;
-  auto epilogue =
-      H % 4 == 0 ? conv_epilogue_kernel<4> : conv_epilogue_kernel<1>;
-  err = (int)cudaFuncSetAttribute(
-      epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != 0) return err;
-  epilogue<<<(n + kEpiRows - 1) / kEpiRows, kEpiThreads, smem, s>>>(
-      dst, h, w, root, b, out, agg, n, F, H, splits);
-  return (int)cudaGetLastError();
+  return dense_conv(a, lda, xt, h, w, root, b, out, agg, part, n, F, H,
+                    splits, stream);
+}
+
+// K3 with a bf16 h ([n, F], contiguous), everything else as above: agg and
+// out float32, h @ root summed in float32 over the widened bf16 values.
+int mpgnn_dense_conv_bf16h(const void* a, int lda, void* xt, const void* h,
+                           const float* w, const float* root, const float* b,
+                           float* out, float* agg, float* part, int n, int F,
+                           int H, int splits, void* stream) {
+  return dense_conv(a, lda, xt, static_cast<const __nv_bfloat16*>(h), w, root,
+                    b, out, agg, part, n, F, H, splits, stream);
 }
 
 const char* mpgnn_error_string(int code) {

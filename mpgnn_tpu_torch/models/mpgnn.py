@@ -7,9 +7,19 @@ are concatenated, then fc1 -> ReLU -> fc2 -> log_softmax. With
 ``train=True`` dropout follows every hop, as in the reference
 (model.py:210-214).
 
+Every hop conv is a plain RelConv, or with ``num_bases`` / ``num_blocks``
+one of CustomRGCNConv's decompositions (``models.relconv``). With
+``compute_dtype=torch.bfloat16`` the forward runs as the JAX package's
+mixed precision: activations in bf16, the parameters float32 and cast to
+each product's dtype, log_softmax in float32.
+
 ``MPNetmStack`` holds C single-metapath MPNetms of one length with a
 leading candidate axis on every parameter, for the batched final
 evaluation of the search (``train/batch_eval.py``).
+
+``MetapathNet`` is the reference's two-conv MPNet (model.py:153-176) and
+``RgcnNet`` its plain all-relations RGCN ``Net`` (model.py:132-149), the
+model of the RGCN baseline (``rgcn_baseline.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +31,16 @@ import torch
 from torch import nn
 
 from mpgnn_tpu_torch.device import resolve_device
-from mpgnn_tpu_torch.models.relconv import RelConv, init_relconv, uniform
+from mpgnn_tpu_torch.models.relconv import (
+    RelConv,
+    RgcnConv,
+    RgcnEdges,
+    init_params_like,
+    init_relconv,
+    make_relconv,
+    rgcn_aggregate,
+    uniform,
+)
 from mpgnn_tpu_torch.ops.conv import dense_conv, grouped_dense_aggregate
 from mpgnn_tpu_torch.ops.csr import csr_mean_aggregate
 from mpgnn_tpu_torch.ops.onehot import onehot_spmm_mean
@@ -70,18 +89,49 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
     raise ValueError(f"unknown hop op {kind!r}")
 
 
+def dropout_scale(p: float, dtype: torch.dtype) -> float:
+    """1 - p as the JAX package divides by it, ``jnp.asarray(1 - p, dt)``
+    in the compute dtype (0.400390625 in bf16 at p = 0.6), as a Python
+    float: a float32 h divides by that value too."""
+    return float(torch.tensor(1.0 - p, dtype=dtype))
+
+
+def linear(fc: nn.Linear, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``h @ W.T + b`` with the parameters cast to ``dtype`` and the product
+    in the promotion of h's dtype and ``dtype`` (the JAX package's
+    ``h @ cast(w) + cast(b)``: a float32 h meets bf16-rounded weights in
+    float32)."""
+    if h.dtype == dtype == fc.weight.dtype:
+        return fc(h)
+    t = torch.promote_types(h.dtype, dtype)
+    return (h.to(t) @ fc.weight.to(dtype).t().to(t)
+            + fc.bias.to(dtype).to(t))
+
+
+def _drop(h: torch.Tensor, dropout_rate: float, scale: float,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each entry with probability 1 - p (a float32 draw on h's shape,
+    whatever h's dtype) and divide the kept ones by ``scale``."""
+    keep = torch.rand(h.shape, generator=generator,
+                      device=h.device) < 1.0 - dropout_rate
+    return torch.where(keep, h / scale, torch.zeros_like(h))
+
+
 class MPNetm(nn.Module):
-    """Parameters: ``convs[m][j]`` (RelConv), ``fc1`` and ``fc2``
-    (nn.Linear). Built empty; ``init_mpgnn`` or ``weights.params_from_jax``
-    fills them."""
+    """Parameters: ``convs[m][j]`` (a RelConv of ``models.relconv``: plain,
+    or the basis / block variant when ``num_bases`` / ``num_blocks`` is
+    set, bases winning), ``fc1`` and ``fc2`` (nn.Linear). Built empty;
+    ``init_mpgnn`` or ``weights.params_from_jax`` fills them."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_classes: int,
-                 metapath_lengths: Sequence[int], device=None):
+                 metapath_lengths: Sequence[int], device=None,
+                 num_bases: Optional[int] = None,
+                 num_blocks: Optional[int] = None):
         super().__init__()
         self.convs = nn.ModuleList(
             nn.ModuleList(
-                RelConv(input_dim if j == 0 else hidden_dim, hidden_dim,
-                        device=device)
+                make_relconv(input_dim if j == 0 else hidden_dim, hidden_dim,
+                             num_bases, num_blocks, device=device)
                 for j in range(n)
             )
             for n in metapath_lengths
@@ -96,15 +146,25 @@ class MPNetm(nn.Module):
                 dropout_rate: float = 0.6,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
-                first_hop_agg: Optional[List] = None) -> torch.Tensor:
-        """[N, C] log-probabilities; ``hop_ops[m][j]`` is hop j of metapath
-        m (``build_hop_arrays``).
+                first_hop_agg: Optional[List] = None,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """[N, C] float32 log-probabilities; ``hop_ops[m][j]`` is hop j of
+        metapath m (``build_hop_arrays``).
 
         With ``train`` and ``dropout_rate > 0`` each hop's output is kept
         with probability 1 - p and scaled by 1 / (1 - p); the masks are
         drawn from ``generator`` (on x's device), one draw per hop in hop
         order. ``first_hop_agg`` (``precompute_first_hop``) holds each
-        metapath's cached hop-0 aggregation, or None to compute it."""
+        metapath's cached hop-0 aggregation, or None to compute it.
+
+        ``compute_dtype`` (default x's) is the JAX package's: x is cast to
+        it, each conv computes in its input's dtype, fc1 and fc2 take their
+        parameters cast to it, and log_softmax runs in float32. A fused hop
+        (K3) returns float32 whatever its input, as in the JAX package, so
+        under bf16 the hops after a fused hop 0 run in float32."""
+        dt = compute_dtype or x.dtype
+        x = x.to(dt)
+        scale = dropout_scale(dropout_rate, dt)
         num_nodes = x.shape[0]
         embeddings = []
         for i, (stack, ops) in enumerate(zip(self.convs, hop_ops)):
@@ -112,30 +172,31 @@ class MPNetm(nn.Module):
             for j, (conv, op) in enumerate(zip(stack, ops)):
                 cached = first_hop_agg[i] if j == 0 and first_hop_agg else None
                 if cached is not None:
-                    h = torch.relu(conv(cached, h))
+                    h = torch.relu(conv(cached.to(dt), h))
                 elif op[0] == "fused":
-                    h = dense_conv(op[1], h, conv.weight, conv.root, conv.bias)
+                    h = dense_conv(op[1], h, conv.effective_weight(),
+                                   conv.root, conv.bias)
                 else:
                     h = torch.relu(conv(hop_aggregate(h, op, num_nodes), h))
                 if train and dropout_rate > 0.0:
-                    keep = torch.rand(h.shape, generator=generator,
-                                      device=h.device) < 1.0 - dropout_rate
-                    h = torch.where(keep, h / (1.0 - dropout_rate),
-                                    torch.zeros_like(h))
+                    h = _drop(h, dropout_rate, scale, generator)
             embeddings.append(h)
-        h = torch.relu(self.fc1(torch.cat(embeddings, dim=1)))
-        h = self.fc2(h)
+        h = torch.relu(linear(self.fc1, torch.cat(embeddings, dim=1), dt))
+        h = linear(self.fc2, h, dt)
         return torch.log_softmax(h.float(), dim=1)
 
 
 @torch.no_grad()
-def precompute_first_hop(x: torch.Tensor, hop_ops) -> List:
-    """Per-metapath hop-0 aggregation of the input features, which are
-    constant for a whole training run (dropout comes after each conv), so it
-    is computed once outside the epoch loop. None for a fused hop, whose
-    kernel owns its aggregation: it runs on x every epoch."""
+def precompute_first_hop(x: torch.Tensor, hop_ops,
+                         compute_dtype: Optional[torch.dtype] = None) -> List:
+    """Per-metapath hop-0 aggregation of the input features (cast to
+    ``compute_dtype``, default x's), which are constant for a whole
+    training run (dropout comes after each conv), so it is computed once
+    outside the epoch loop. None for a fused hop, whose kernel owns its
+    aggregation: it runs on x every epoch."""
+    xd = x.to(compute_dtype or x.dtype)
     return [None if ops[0][0] == "fused"
-            else hop_aggregate(x, ops[0], x.shape[0]) for ops in hop_ops]
+            else hop_aggregate(xd, ops[0], x.shape[0]) for ops in hop_ops]
 
 
 @torch.no_grad()
@@ -146,26 +207,38 @@ def init_mpgnn(
     metapaths: Sequence[Sequence[int]],
     generator: Optional[torch.Generator] = None,
     device=None,
+    num_bases: Optional[int] = None,
+    num_blocks: Optional[int] = None,
 ) -> MPNetm:
     """An MPNetm with one conv stack per metapath, initialized like the
-    reference: glorot conv weights, zero conv biases, and torch.nn.Linear's
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for fc1 and fc2. Draws come from
-    ``generator`` (a CPU generator; seed 0 when None), so one seed gives the
-    same parameters on every device."""
+    reference: glorot conv weights (bases and their coefficients, or
+    blocks, for the decomposed convs; ``num_bases`` wins over
+    ``num_blocks``, as the reference's ctor), zero conv biases, and
+    torch.nn.Linear's U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for fc1 and fc2.
+    Draws come from ``generator`` (a CPU generator; seed 0 when None), conv
+    by conv in hop order (``relconv.init_params_like``), then fc1 and fc2,
+    so one seed gives the same parameters on every device."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = MPNetm(input_dim, hidden_dim, num_classes,
-                   [len(mp) for mp in metapaths], device=device)
+                   [len(mp) for mp in metapaths], device=device,
+                   num_bases=num_bases, num_blocks=num_blocks)
     for stack in model.convs:
         for conv in stack:
-            conv.load_params(init_relconv(conv.weight.shape[0],
-                                          conv.weight.shape[1], generator))
-    for fc in (model.fc1, model.fc2):
-        bound = 1.0 / math.sqrt(fc.in_features)
-        fc.weight.copy_(uniform(fc.weight.shape, bound, generator))
-        fc.bias.copy_(uniform(fc.bias.shape, bound, generator))
+            conv.load_params(init_params_like(conv, generator))
+    init_linear_(model.fc1, generator)
+    init_linear_(model.fc2, generator)
     return model
+
+
+@torch.no_grad()
+def init_linear_(fc: nn.Linear, generator: torch.Generator) -> None:
+    """torch.nn.Linear's U(-1/sqrt(fan_in), 1/sqrt(fan_in)), weight then
+    bias, drawn from ``generator``."""
+    bound = 1.0 / math.sqrt(fc.in_features)
+    fc.weight.copy_(uniform(fc.weight.shape, bound, generator))
+    fc.bias.copy_(uniform(fc.bias.shape, bound, generator))
 
 
 def stack_hop_aggregate(h: torch.Tensor, parts) -> torch.Tensor:
@@ -334,3 +407,99 @@ class MPNetmStack(nn.Module):
         h = torch.relu(stacked_matmul(h, self.fc1_w) + self.fc1_b[:, None, :])
         h = stacked_matmul(h, self.fc2_w) + self.fc2_b[:, None, :]
         return torch.log_softmax(h.float(), dim=2)
+
+
+# ----------------------------------------------------------- MPNet (2-conv)
+class MetapathNet(nn.Module):
+    """The reference's single-metapath MPNet (model.py:153-176): ``conv1``
+    (input -> hidden) on the first hop, ``conv2`` (hidden -> output) shared
+    by every later hop, ReLU after each, a ``linear`` head, raw logits."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 num_classes: int, device=None):
+        super().__init__()
+        self.conv1 = RelConv(input_dim, hidden_dim, device=device)
+        self.conv2 = RelConv(hidden_dim, output_dim, device=device)
+        self.linear = nn.utils.skip_init(nn.Linear, output_dim, num_classes,
+                                         device=device)
+
+    def forward(self, x: torch.Tensor, hop_ops) -> torch.Tensor:
+        """[N, C] logits; ``hop_ops[j]`` is hop j's aggregation operand."""
+        h = x
+        for j, op in enumerate(hop_ops):
+            conv = self.conv1 if j == 0 else self.conv2
+            h = torch.relu(conv(hop_aggregate(h, op, x.shape[0]), h))
+        return self.linear(h)
+
+
+@torch.no_grad()
+def init_metapath_net(input_dim: int, hidden_dim: int, output_dim: int,
+                      num_classes: int,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> MetapathNet:
+    """A ``MetapathNet`` drawn from ``generator`` (seed 0 when None):
+    conv1, conv2 (glorot weight and root, zero bias), then the linear
+    head."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = MetapathNet(input_dim, hidden_dim, output_dim, num_classes,
+                        device=device)
+    for conv in (model.conv1, model.conv2):
+        conv.load_params(init_relconv(conv.in_dim, conv.out_dim, generator))
+    init_linear_(model.linear, generator)
+    return model
+
+
+# ------------------------------------------------------------ the RGCN Net
+class RgcnNet(nn.Module):
+    """The reference's plain RGCN ``Net`` (model.py:132-149): ``conv1``
+    (input -> hidden) then ``conv2`` (hidden -> output) repeated, each over
+    every relation (``relconv.rgcn_aggregate``) with its root and bias,
+    ReLU after each, a ``linear`` head and log_softmax."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_rel: int,
+                 output_dim: int, num_classes: int,
+                 num_bases: Optional[int] = None,
+                 num_blocks: Optional[int] = None, device=None):
+        super().__init__()
+        if num_bases is not None:
+            num_blocks = None
+        self.conv1 = RgcnConv(input_dim, hidden_dim, num_rel, num_bases,
+                              num_blocks, device=device)
+        self.conv2 = RgcnConv(hidden_dim, output_dim, num_rel, num_bases,
+                              num_blocks, device=device)
+        self.linear = nn.utils.skip_init(nn.Linear, output_dim, num_classes,
+                                         device=device)
+
+    def forward(self, x: torch.Tensor, edges: RgcnEdges,
+                metapath_length: int) -> torch.Tensor:
+        """[N, C] log-probabilities after ``metapath_length`` layers over
+        ``edges`` (``relconv.rgcn_edges``)."""
+        h = x
+        for layer in range(metapath_length):
+            conv = self.conv1 if layer == 0 else self.conv2
+            agg = rgcn_aggregate(h, conv.effective_weights(), edges)
+            h = torch.relu(agg + h @ conv.root + conv.bias)
+        return torch.log_softmax(self.linear(h), dim=1)
+
+
+@torch.no_grad()
+def init_rgcn_net(input_dim: int, hidden_dim: int, num_rel: int,
+                  output_dim: int, num_classes: int,
+                  num_bases: Optional[int] = None,
+                  num_blocks: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> RgcnNet:
+    """An ``RgcnNet`` drawn from ``generator`` (seed 0 when None): conv1,
+    conv2 (``RgcnConv.init_``), then the linear head. ``num_bases`` wins
+    over ``num_blocks``, as the reference's ctor."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = RgcnNet(input_dim, hidden_dim, num_rel, output_dim, num_classes,
+                    num_bases, num_blocks, device=device)
+    model.conv1.init_(generator)
+    model.conv2.init_(generator)
+    init_linear_(model.linear, generator)
+    return model

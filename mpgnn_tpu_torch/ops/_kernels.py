@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels in ``mpgnn_tpu_torch/csrc``.
 
-Each ``*.cu`` source has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library at first use, then loaded with
-``ctypes``; nothing includes PyTorch's headers, so a build takes seconds.
-The libraries go to ``mpgnn_tpu_torch/build/`` under a name that carries a
-hash of the source and flags, so an edited source builds anew. All missing
+Each ``*.cu`` source (with the ``*.cuh`` headers beside it) has a plain C
+interface and is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library at first use, then loaded with ``ctypes``; nothing includes
+PyTorch's headers, so a build takes seconds. The libraries go to
+``mpgnn_tpu_torch/build/`` under a name that carries a hash of the source,
+the headers and the flags, so an edited source builds anew. All missing
 libraries are compiled at once, one ``nvcc`` per source in parallel.
 ``-Xptxas=-v`` keeps each kernel's register and shared-memory report in a
 ``.log`` beside its library.
@@ -35,10 +36,16 @@ _SIGNATURES = {
     # kernel name: (source in csrc/, C function, argtypes)
     "csr_scatter": ("csr_scatter", "mpgnn_csr_scatter",
                     [_P] * 7 + [_I] * 5 + [_P]),
+    "csr_scatter_bf16": ("csr_scatter", "mpgnn_csr_scatter_bf16",
+                         [_P] * 8 + [_I] * 5 + [_P]),
     "csr_dedup": ("csr_dedup", "mpgnn_csr_dedup",
                   [_P] * 9 + [_I, _P, _I, _I, _I, _I, _P]),
+    "csr_dedup_bf16": ("csr_dedup", "mpgnn_csr_dedup_bf16",
+                       [_P] * 9 + [_I, _P, _I, _I, _I, _I, _P]),
     "dense_conv": ("dense_matmul", "mpgnn_dense_conv",
                    [_P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
+    "dense_conv_bf16h": ("dense_matmul", "mpgnn_dense_conv_bf16h",
+                         [_P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
     "dense_matmul": ("dense_matmul", "mpgnn_dense_matmul",
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "dma_gather": ("dma_gather", "mpgnn_dma_gather",
@@ -63,7 +70,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers of ``csrc/`` it may include, and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{tag}.so"
 

@@ -26,7 +26,10 @@ candidates of one relation side by side, at most ``MAX_WIDTH`` columns a
 launch). Each kernel has a plain PyTorch version beside it
 (float64 sums over the same bf16-rounded operands, rounded once); a wrapper
 takes it for CPU tensors only and launches its kernel for CUDA tensors.
-``CONV_LAUNCHES`` and ``MATMUL_LAUNCHES`` count the kernels' launches.
+``CONV_LAUNCHES`` and ``MATMUL_LAUNCHES`` count the kernels' launches,
+``CONV_BF16H_LAUNCHES`` K3's with a bf16 h: the hop 0 of a
+``compute_dtype='bfloat16'`` run, whose input is bf16(x); K3's output, and
+so every later hop's input, is float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from mpgnn_tpu_torch.ops import _kernels
 
 CONV_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
+# K3's launches with a bf16 h (the hop 0 of a compute_dtype='bfloat16' run)
+CONV_BF16H_LAUNCHES = 0
 # widest input the kernels take (four 64-wide wgmma products), and the
 # largest F * H whose W and root the K3 epilogue stages in shared memory
 MAX_WIDTH = 256
@@ -92,10 +97,11 @@ def dense_conv_plain(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                      root: torch.Tensor,
                      b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's function in PyTorch: (out, agg), float64 sums over the bf16
-    adjacency and bf16-rounded h, each output rounded once to float32."""
+    adjacency and bf16-rounded h (h @ root over h as it is, float32 or
+    bf16), each output rounded once to float32."""
     agg = a.double() @ h.to(torch.bfloat16).double()
     z = agg @ w.double() + h.double() @ root.double() + b.double()
-    return torch.relu(z).to(h.dtype), agg.to(h.dtype)
+    return torch.relu(z).float(), agg.float()
 
 
 def dense_matmul_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -113,7 +119,7 @@ def _same_device(*xs: torch.Tensor) -> None:
 def _check(a: torch.Tensor, *xs: torch.Tensor) -> None:
     """Types and layouts the kernels take: ``a`` needs 16-byte aligned
     rows (TMA), as ``DenseConvOperand.a`` and ``a_t`` have, the rest
-    contiguity."""
+    contiguity and float32 (K3's h is checked by its wrapper)."""
     if a.dtype != torch.bfloat16 or a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise TypeError(f"kernel takes a square bf16 adjacency, got {a.dtype} "
                         f"{tuple(a.shape)}")
@@ -164,15 +170,19 @@ def _split_scratch(out: torch.Tensor, splits: int) -> torch.Tensor:
 def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                    root: torch.Tensor,
                    b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, agg): K3 on CUDA tensors, its plain version on CPU tensors. On
-    the card ``a``'s rows must be 16-byte aligned (row stride a multiple of
-    8), as ``DenseConvOperand.a`` is."""
+    """(out, agg), both float32: K3 on CUDA tensors (its bf16-h form for a
+    bf16 h), its plain version on CPU tensors. On the card ``a``'s rows
+    must be 16-byte aligned (row stride a multiple of 8), as
+    ``DenseConvOperand.a`` is."""
     _same_device(a, h, w, root, b)
     if h.device.type == "cpu":
         return dense_conv_plain(a, h, w, root, b)
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
-    _check(a, h, w, root, b)
+    bf16h = h.dtype == torch.bfloat16
+    _check(a, w, root, b, *([] if bf16h else [h]))
+    if not h.is_contiguous():
+        raise ValueError("kernel takes contiguous tensors")
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
                          f"be 2-D")
@@ -186,19 +196,22 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     if f > MAX_WIDTH or f * hdim > MAX_EPILOGUE_WEIGHTS:
         raise ValueError(f"K3 takes F <= {MAX_WIDTH} and F * H <= "
                          f"{MAX_EPILOGUE_WEIGHTS}, got F={f}, H={hdim}")
-    out = torch.empty((n, hdim), dtype=h.dtype, device=h.device)
-    agg = torch.empty((n, f), dtype=h.dtype, device=h.device)
+    out = torch.empty((n, hdim), dtype=torch.float32, device=h.device)
+    agg = torch.empty((n, f), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         splits, xt = _main_loop_scratch(h)
         part = _split_scratch(agg, splits)
         _kernels.launch(
-            "dense_conv", a.data_ptr(), a.stride(0), xt.data_ptr(),
-            h.data_ptr(), w.data_ptr(), root.data_ptr(), b.data_ptr(),
-            out.data_ptr(), agg.data_ptr(), part.data_ptr(), n, f, hdim,
-            splits, _stream(h),
+            "dense_conv_bf16h" if bf16h else "dense_conv", a.data_ptr(),
+            a.stride(0), xt.data_ptr(), h.data_ptr(), w.data_ptr(),
+            root.data_ptr(), b.data_ptr(), out.data_ptr(), agg.data_ptr(),
+            part.data_ptr(), n, f, hdim, splits, _stream(h),
         )
-    global CONV_LAUNCHES
-    CONV_LAUNCHES += 1
+    global CONV_LAUNCHES, CONV_BF16H_LAUNCHES
+    if bf16h:
+        CONV_BF16H_LAUNCHES += 1
+    else:
+        CONV_LAUNCHES += 1
     return out, agg
 
 
@@ -253,17 +266,18 @@ class _DenseConv(torch.autograd.Function):
         dz = torch.where(out > 0, g, torch.zeros_like(g))
         dw = agg.t() @ dz
         db = dz.sum(0)
-        droot = h.t() @ dz
+        droot = h.to(dz.dtype).t() @ dz    # a bf16 h widened, as in JAX
         dh = None
         if ctx.needs_input_grad[2]:
             dh = dense_matmul(a_t, (dz @ w.t()).contiguous()) + dz @ root.t()
+            dh = dh.to(h.dtype)
         return None, None, dh, dw, droot, db
 
 
 def dense_conv(op: DenseConvOperand, h: torch.Tensor, w: torch.Tensor,
                root: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu((A @ bf16(h)) @ w + h @ root + b) for the relation of ``op``,
-    differentiable in h, w, root and b."""
+    float32, differentiable in h, w, root and b; h float32 or bf16."""
     return _DenseConv.apply(op.a, op.a_t, h, w, root, b)
 
 

@@ -60,6 +60,9 @@ DEDUP_PIECE = 64
 SCATTER_LAUNCHES = 0
 DEDUP_LAUNCHES = 0
 CSR_BACKWARD_LAUNCHES = 0
+# launches of the bf16 forms (bf16 rows in and out, float32 sums)
+SCATTER_BF16_LAUNCHES = 0
+DEDUP_BF16_LAUNCHES = 0
 
 
 def _i32(a) -> torch.Tensor:
@@ -318,9 +321,9 @@ def csr_dedup_plain(blk: DedupCsrBlocking, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ wrappers
 def _check_cuda(x: torch.Tensor, blk: Blocking) -> None:
-    if x.dtype != torch.float32 or x.dim() != 2:
-        raise TypeError(f"kernel takes a 2-D float32 tensor, got {x.dtype} "
-                        f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
+        raise TypeError(f"kernel takes a 2-D float32 or bf16 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("kernel takes a contiguous tensor")
     if x.shape[0] != blk.num_cols:
@@ -336,6 +339,17 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def row_vec(x: torch.Tensor) -> int:
+    """Values a lane loads at once from x's rows (16 bytes where F and the
+    alignment allow): float32 4 or 1, bf16 8, 4 or 1."""
+    f, ptr = x.shape[1], x.data_ptr()
+    if x.dtype == torch.bfloat16:
+        if f % 8 == 0 and ptr % 16 == 0:
+            return 8
+        return 4 if f % 4 == 0 and ptr % 8 == 0 else 1
+    return 4 if f % 4 == 0 and ptr % 16 == 0 else 1
+
+
 def k1_layout(width: int, vec: int) -> Tuple[int, int]:
     """(lanes a group, items a share) of K1 for ``width`` columns read
     ``vec`` floats at a time, as ``csrc/csr_scatter.cu`` lays them out: the
@@ -348,57 +362,73 @@ def k1_layout(width: int, vec: int) -> Tuple[int, int]:
 
 
 def csr_scatter(blk: CsrBlocking, x: torch.Tensor) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K1 on a CUDA tensor (its bf16 form for a bf16 x: float32 sums, each
+    row rounded to bf16 once), its plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return csr_scatter_plain(blk, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda(x, blk)
     f = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((blk.num_rows, f), dtype=x.dtype, device=x.device)
     e = blk.col.shape[0]
-    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    vec = row_vec(x)
     _, share = k1_layout(f, vec)
     shares = max(-(-(blk.num_rows + e) // share), 1)
-    carry = torch.empty((shares, f), dtype=x.dtype, device=x.device)
+    # float32 carries (and, in the bf16 form, the float32 part of each cut
+    # row that its last share sums)
+    carry = torch.empty((shares, f), dtype=torch.float32, device=x.device)
     share_row = torch.empty(shares, dtype=torch.int32, device=x.device)
+    ptrs = [blk.row_ptr.data_ptr(), blk.col.data_ptr(), blk.weight.data_ptr(),
+            x.data_ptr(), out.data_ptr(), carry.data_ptr()]
+    if bf16:
+        head = torch.empty_like(carry)
+        ptrs.append(head.data_ptr())
     with torch.cuda.device(x.device):
         _kernels.launch(
-            "csr_scatter", blk.row_ptr.data_ptr(), blk.col.data_ptr(),
-            blk.weight.data_ptr(), x.data_ptr(), out.data_ptr(),
-            carry.data_ptr(), share_row.data_ptr(), blk.num_rows, e, f, vec,
-            share, _stream(x),
+            "csr_scatter_bf16" if bf16 else "csr_scatter", *ptrs,
+            share_row.data_ptr(), blk.num_rows, e, f, vec, share, _stream(x),
         )
-    global SCATTER_LAUNCHES
-    SCATTER_LAUNCHES += 1
+    global SCATTER_LAUNCHES, SCATTER_BF16_LAUNCHES
+    if bf16:
+        SCATTER_BF16_LAUNCHES += 1
+    else:
+        SCATTER_LAUNCHES += 1
     return out
 
 
 def csr_dedup(blk: DedupCsrBlocking, x: torch.Tensor) -> torch.Tensor:
-    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K2 on a CUDA tensor (its bf16 form for a bf16 x: float32 sums and
+    partial sums, each row rounded to bf16 once), its plain version on a
+    CPU tensor."""
     if x.device.type == "cpu":
         return csr_dedup_plain(blk, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda(x, blk)
     f = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((blk.num_rows, f), dtype=x.dtype, device=x.device)
-    part = torch.empty((max(blk.num_partials, 1), f), dtype=x.dtype,
+    part = torch.empty((max(blk.num_partials, 1), f), dtype=torch.float32,
                        device=x.device)
     scale = blk.scale.data_ptr()
     pre, post = (scale, None) if blk.scale_is_pre else (None, scale)
     levels = np.asarray(blk.level_pieces, dtype=np.int32)
-    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
     with torch.cuda.device(x.device):
         _kernels.launch(
-            "csr_dedup", blk.piece_ptr.data_ptr(), blk.piece_dest.data_ptr(),
+            "csr_dedup_bf16" if bf16 else "csr_dedup",
+            blk.piece_ptr.data_ptr(), blk.piece_dest.data_ptr(),
             blk.col.data_ptr(), pre, post, x.data_ptr(), part.data_ptr(),
             out.data_ptr(), blk.zero_rows.data_ptr(),
             blk.zero_rows.shape[0], levels.ctypes.data, len(levels) - 1,
-            blk.col.shape[0], f, vec, _stream(x),
+            blk.col.shape[0], f, row_vec(x), _stream(x),
         )
-    global DEDUP_LAUNCHES
-    DEDUP_LAUNCHES += 1
+    global DEDUP_LAUNCHES, DEDUP_BF16_LAUNCHES
+    if bf16:
+        DEDUP_BF16_LAUNCHES += 1
+    else:
+        DEDUP_LAUNCHES += 1
     return out
 
 
@@ -433,7 +463,17 @@ def csr_mean_aggregate(x: torch.Tensor, fwd: Blocking,
 
     Differentiable in ``x``: the backward runs the kernel of ``bwd``, the
     destination-sorted blocking that ``build_csr_blocking`` returns beside
-    ``fwd``."""
+    ``fwd``. A bf16 x runs the kernels' bf16 forms both ways, bf16(float32
+    sum), the value of the JAX package's route (``mpgnn.py:146-152``: cast
+    to float32, the float32 kernel, cast back), which the TPU took because
+    bf16 rows gathered slower there. On an NVIDIA H100 80GB HBM3 at 700 W
+    (``chip_smoke.py`` 7 (f), device ms, bf16 form against that cast
+    route) the bf16 form was faster at every shape measured: K1 on a
+    2.5M-edge uniform relation 0.061 / 0.080 at F = 16, 0.132 / 0.242 at
+    F = 64, backward 0.132 / 0.241; on the power-law KG's relation 141
+    0.018 / 0.024 at F = 1, 0.025 / 0.038 at F = 4, 0.034 / 0.106 at
+    F = 64; K2 on its hub relation 0.024 / 0.032 at F = 4, 0.040 / 0.055
+    at F = 16, 0.066 / 0.141 at F = 64, backward 0.054 / 0.129."""
     return _CsrMeanAggregate.apply(x, fwd, bwd)
 
 

@@ -50,16 +50,20 @@ def rel_mean_aggregate(
 
 @contextlib.contextmanager
 def full_fp32():
-    """Float32 products in full float32 inside the block, whatever the
-    process set: ``torch.backends.cuda.matmul.allow_tf32`` is read, set to
-    False and restored on exit. (TF32 keeps about three decimal digits; the
-    JAX package's float32 GEMMs keep float32.)"""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Float32 products in full float32, and bf16 products summed in
+    float32, inside the block, whatever the process set:
+    ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``allow_bf16_reduced_precision_reduction`` are read, set to False and
+    restored on exit. (TF32 keeps about three decimal digits; the JAX
+    package's float32 GEMMs keep float32, and its bf16 ones accumulate in
+    float32, ``preferred_element_type=f32``.)"""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
 
 
 # ------------------------------------------------------------------- ell
@@ -126,17 +130,21 @@ def _weighted_gather(h: torch.Tensor, nbr: torch.Tensor,
 class _Ell2Mean(torch.autograd.Function):
     """out[i] = sum_d h[out_nbr[i, d]] * out_w[i, d]; the backward gathers
     over the transposed table: dh[d] = sum over in-edges (s -> d) of
-    g[s] / deg(s)."""
+    g[s] / deg(s). A bf16 h (or g) is summed in float32 against the float32
+    weights and rounded to bf16 once, both ways. (The JAX package's
+    ``ell2`` does not train in bf16: its VJP returns a float32 cotangent for
+    the bf16 primal and JAX refuses it.)"""
 
     @staticmethod
     def forward(ctx, out_nbr, out_w, in_nbr, in_w, h):
         ctx.save_for_backward(in_nbr, in_w)
-        return _weighted_gather(h, out_nbr, out_w)
+        return _weighted_gather(h, out_nbr, out_w).to(h.dtype)
 
     @staticmethod
     def backward(ctx, g):
         in_nbr, in_w = ctx.saved_tensors
-        return None, None, None, None, _weighted_gather(g, in_nbr, in_w)
+        return (None, None, None, None,
+                _weighted_gather(g, in_nbr, in_w).to(g.dtype))
 
 
 def ell2_mean_aggregate(op: Ell2Operand, h: torch.Tensor) -> torch.Tensor:
@@ -165,7 +173,9 @@ def dense_adjacency(src, dst, num_nodes: int,
 
 class _DenseMean(torch.autograd.Function):
     """A @ h forward, A^T @ g backward over the stored transpose, both in
-    full float32 (``full_fp32``)."""
+    full float32 (``full_fp32``); for a bf16 h, a bf16 GEMM summed in
+    float32 and rounded to bf16, both ways, over the operand's A (which a
+    bf16 run stores in bf16: ``train.loops.relation_operand``)."""
 
     @staticmethod
     def forward(ctx, a, a_t, h):

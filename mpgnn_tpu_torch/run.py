@@ -18,9 +18,9 @@ Differences from the JAX CLI:
 * ``--device`` (default ``cuda``) picks the device; ``--platform cpu`` is
   its alias, so the JAX command lines run unchanged;
 * refused, each with the ROADMAP.md item that brings it: ``--mesh`` (A12),
-  ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), ``--compute_dtype bfloat16``
-  (A1), and ``--dropout_rng threefry|rbg``: the port draws dropout masks
-  from a ``torch.Generator`` only ("What the port does not inherit").
+  ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), and ``--dropout_rng
+  threefry|rbg``: the port draws dropout masks from a ``torch.Generator``
+  only ("What the port does not inherit").
   ``--no_warm`` is accepted and does nothing: the port has no
   compile-ahead warmer (A13).
 
@@ -142,7 +142,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "torch.Generator")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="MPNetm precision; only float32 is ported")
+                   help="MPNetm precision of the greedy stage and the "
+                        "saved models (the batched final evaluation trains "
+                        "in float32, as the JAX CLI's)")
     return p
 
 
@@ -157,9 +159,6 @@ def _refusals(args) -> list:
     if args.dataset in NOT_PORTED_DATASETS:
         out.append(f"dataset {args.dataset} is not ported yet "
                    f"(ROADMAP.md A2)")
-    if args.compute_dtype != "float32":
-        out.append(f"compute_dtype {args.compute_dtype!r} is not ported yet "
-                   f"(ROADMAP.md A1)")
     if args.dropout_rng != "auto":
         out.append(f"dropout_rng {args.dropout_rng!r} is not ported: dropout "
                    f"masks come from a torch.Generator (ROADMAP.md, 'What "

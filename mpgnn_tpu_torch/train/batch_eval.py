@@ -269,7 +269,13 @@ def evaluate_candidates(
     whether named or from ``cfg.backend``: its candidates train one
     ``train_mpgnn`` each (``find_metapaths`` does that). The JAX package
     trains them with 'segment' instead, which on the card would put plain
-    PyTorch where the caller asked for kernels."""
+    PyTorch where the caller asked for kernels.
+
+    As the JAX package's, the candidates train as plain float32 convs
+    whatever ``cfg.compute_dtype``, ``cfg.num_bases`` and ``cfg.num_blocks``
+    say: its ``init_mpgnn`` calls omit the decompositions and its forwards
+    the compute dtype (``mpgnn_tpu/train/batch_eval.py`` :190, :529,
+    :1019, :1206)."""
     cfg = cfg or MPGNNConfig()
     backend = backend or cfg.backend
     by_len = _by_length(paths)

@@ -122,6 +122,7 @@ def build_hop_arrays(
     metapaths: Sequence[Sequence[int]],
     backend: str = "segment",
     device=None,
+    dtype: torch.dtype = torch.float32,
 ) -> List[List[tuple]]:
     """Per-(metapath, hop) aggregation operands on ``device``, as tagged
     tuples for ``models.mpgnn.hop_aggregate``:
@@ -139,28 +140,36 @@ def build_hop_arrays(
 
     Every hop that aggregates a relation shares its operand
     (``relation_operand``). 'auto' is not a backend here:
-    ``resolve_backend`` resolves it."""
+    ``resolve_backend`` resolves it. ``dtype`` is the compute dtype of the
+    model the operands serve: under bf16 'dense' keeps A and A^T in bf16,
+    cast once (the JAX package casts A to h's dtype in every product)."""
     _check_backend(backend)
     device = resolve_device(device)
     hop_ops: List[List[tuple]] = []
     for mp in metapaths:
-        hop_ops.append([relation_operand(graph, rel, backend, device)
+        hop_ops.append([relation_operand(graph, rel, backend, device, dtype)
                         for rel in mp])
     return hop_ops
 
 
 def relation_operand(graph: HeteroGraph, rel: int, backend: str,
-                     device: torch.device) -> tuple:
+                     device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> tuple:
     """``relation_op`` of one relation, built once per graph, backend and
     device and kept on the graph, so that a search's evaluations and its
     greedy stage share it (the dense ones too, as the JAX package keeps
-    them: N^2 each)."""
+    them: N^2 each). A 'dense' operand for a bf16 model is kept apart, in
+    bf16."""
     cache = getattr(graph, "_operand_cache", None)
     if cache is None:
         cache = graph._operand_cache = {}
-    key = (backend, int(rel), device_key(device))
+    low = backend == "dense" and dtype != torch.float32
+    key = (backend, int(rel), device_key(device)) + ((str(dtype),) if low
+                                                     else ())
     if key not in cache:
-        cache[key] = relation_op(graph, int(rel), backend, device)
+        op = relation_op(graph, int(rel), backend, device)
+        cache[key] = (op[0],) + tuple(a.to(dtype) for a in op[1:]) if low \
+            else op
     return cache[key]
 
 
@@ -246,6 +255,16 @@ def weighted_nll(logp: torch.Tensor, idx: torch.Tensor, y: torch.Tensor,
     return (per * w).sum() / w.sum()
 
 
+def compute_dtype(cfg: MPGNNConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype`` ('float32' or
+    'bfloat16')."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
+                         f"{cfg.compute_dtype!r}")
+    return dtypes[cfg.compute_dtype]
+
+
 def fit_mpgnn(
     model: MPNetm,
     hop_ops,
@@ -266,15 +285,20 @@ def fit_mpgnn(
     before the epochs. With ``track_best`` the model is evaluated after
     every step and ends holding the parameters of the epoch with the best
     validation macro-F1 (the earliest on ties; the initial parameters if
-    none beat 0.0), as the JAX package does."""
+    none beat 0.0), as the JAX package does. The forward runs in
+    ``cfg.compute_dtype``; the parameters, their gradients and Adam's state
+    stay float32."""
     train_idx, train_y, val_idx, val_y, test_idx, test_y = split
+    dt = compute_dtype(cfg)
+    x = x.to(dt)          # once, not in every epoch's forward
     opt = make_optimizer(model, cfg)
-    first = precompute_first_hop(x, hop_ops)
+    first = precompute_first_hop(x, hop_ops, dt)
     params = list(model.parameters())
 
     @torch.no_grad()
     def evaluate():
-        preds = model(x, hop_ops, first_hop_agg=first).argmax(dim=1)
+        preds = model(x, hop_ops, first_hop_agg=first,
+                      compute_dtype=dt).argmax(dim=1)
         return (macro_f1(preds[train_idx], train_y, num_classes),
                 macro_f1(preds[val_idx], val_y, num_classes),
                 macro_f1(preds[test_idx], test_y, num_classes))
@@ -287,7 +311,8 @@ def fit_mpgnn(
     for _ in range(cfg.epochs):
         opt.zero_grad(set_to_none=True)
         logp = model(x, hop_ops, dropout_rate=cfg.dropout,
-                     generator=generator, train=True, first_hop_agg=first)
+                     generator=generator, train=True, first_hop_agg=first,
+                     compute_dtype=dt)
         loss = weighted_nll(logp, train_idx, train_y, w)
         loss.backward()
         opt.step()
@@ -344,11 +369,13 @@ def train_mpgnn(
 
     Mirrors the JAX package's ``train_mpgnn``: NLL on the train split (class
     weights applied only with ``class_weighted``), Adam with L2 weight
-    decay, dropout after every hop. The parameters are drawn by
-    ``init_mpgnn`` from ``seed``; the dropout generator is seeded from a
-    draw of the same stream after them. ``backend`` (default
-    ``cfg.backend``) is one of ``BACKENDS``, or 'auto', which
-    ``resolve_backend`` resolves for this workload and ``device``."""
+    decay, dropout after every hop, the forward in ``cfg.compute_dtype``,
+    the convs decomposed by ``cfg.num_bases`` / ``cfg.num_blocks``. The
+    parameters are drawn by ``init_mpgnn`` from ``seed``; the dropout
+    generator is seeded from a draw of the same stream after them.
+    ``backend`` (default ``cfg.backend``) is one of ``BACKENDS``, or
+    'auto', which ``resolve_backend`` resolves for this workload and
+    ``device``."""
     cfg = cfg or MPGNNConfig()
     device = resolve_device(device)
     metapaths = [list(mp) for mp in metapaths]
@@ -365,9 +392,10 @@ def train_mpgnn(
         x_override if x_override is not None else graph.x, dtype=np.float32),
         device=device)
     hop_ops = build_hop_arrays(graph, metapaths, backend=backend,
-                               device=device)
+                               device=device, dtype=compute_dtype(cfg))
     model, drop_seed = seeded_init(x.shape[1], cfg.hidden_dim, num_classes,
-                                   metapaths, seed, device)
+                                   metapaths, seed, device, cfg.num_bases,
+                                   cfg.num_blocks)
     generator = torch.Generator(device=device).manual_seed(drop_seed)
     cw = torch.as_tensor(class_weights(split.train_y, num_classes,
                                        class_weighted), device=device)
@@ -380,13 +408,9 @@ def train_mpgnn(
 
 def check_config(cfg: MPGNNConfig) -> None:
     """Refuse the settings of ``MPGNNConfig`` that the port does not have
-    yet, naming their ROADMAP.md item."""
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not ported "
-                         f"yet (ROADMAP.md A1): the port trains in float32")
-    if cfg.num_bases is not None or cfg.num_blocks is not None:
-        raise ValueError("num_bases / num_blocks are not ported yet "
-                         "(ROADMAP.md A4)")
+    yet (the halo ones), naming their ROADMAP.md item, and a compute dtype
+    that is not float32 or bfloat16."""
+    compute_dtype(cfg)
     default = MPGNNConfig()
     if (cfg.halo_exchange, cfg.halo_local) != (default.halo_exchange,
                                                default.halo_local):
@@ -396,14 +420,18 @@ def check_config(cfg: MPGNNConfig) -> None:
 
 def seeded_init(input_dim: int, hidden_dim: int, num_classes: int,
                 metapaths: Sequence[Sequence[int]], seed: int,
-                device) -> Tuple[MPNetm, int]:
+                device, num_bases: Optional[int] = None,
+                num_blocks: Optional[int] = None) -> Tuple[MPNetm, int]:
     """(initial MPNetm, dropout seed) of a run seeded with ``seed``: the
     parameters drawn by ``init_mpgnn`` from a CPU generator seeded with
-    ``seed``, the dropout seed one further draw of the same stream. The
-    draws depend on the metapaths' lengths, not on their relations."""
+    ``seed`` (a decomposed conv draws in the JAX package's key order:
+    bases, comp, root; blocks, root), the dropout seed one further draw of
+    the same stream. The draws depend on the metapaths' lengths, not on
+    their relations."""
     init_gen = torch.Generator().manual_seed(seed)
     model = init_mpgnn(input_dim, hidden_dim, num_classes, metapaths,
-                       generator=init_gen, device=device)
+                       generator=init_gen, device=device,
+                       num_bases=num_bases, num_blocks=num_blocks)
     return model, int(torch.randint(2 ** 62, (1,), generator=init_gen))
 
 
@@ -417,9 +445,12 @@ def evaluate_mpgnn(
     num_classes: int,
     x_override: Optional[np.ndarray] = None,
     device=None,
+    cfg: Optional[MPGNNConfig] = None,
 ) -> Tuple[float, np.ndarray]:
     """(macro-F1 on ``idx`` against ``y``, [N] predictions) of ``model``
-    (moved to ``device``), with the segment backend, as the JAX package."""
+    (moved to ``device``; any conv variant), with the segment backend, as
+    the JAX package, in ``cfg.compute_dtype`` (default float32, as the JAX
+    package's evaluation)."""
     device = resolve_device(device)
     model = model.to(device)
     x = torch.as_tensor(np.asarray(
@@ -427,7 +458,9 @@ def evaluate_mpgnn(
         device=device)
     hop_ops = build_hop_arrays(graph, [list(m) for m in metapaths],
                                device=device)
-    preds = model(x, hop_ops).argmax(dim=1)
+    preds = model(x, hop_ops,
+                  compute_dtype=compute_dtype(cfg or MPGNNConfig())
+                  ).argmax(dim=1)
     f1 = macro_f1(preds[torch.as_tensor(np.asarray(idx, dtype=np.int64),
                                         device=device)],
                   torch.as_tensor(np.asarray(y, dtype=np.int64),

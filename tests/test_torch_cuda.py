@@ -15,7 +15,12 @@ over their parts) and the plain versions float64, in other orders;
 K3 and K4 sum the same bf16-rounded operands as their plain versions.
 K5 copies, so it is held bitwise.
 Gradients through K3 and K4 are held at 1e-4: their small GEMMs are
-float32 on the card and on the CPU, in other orders."""
+float32 on the card and on the CPU, in other orders.
+The bf16 forms of K1 and K2 (bf16 rows, float32 sums, one rounding a row)
+are held at one bf16 unit in the last place, rtol 2^-7 with atol 1e-6:
+their float32 sums and the plain versions' float64 ones can round to
+neighbouring bf16 values. K3 with a bf16 h writes float32 and is held at
+1e-5 like K3."""
 
 import numpy as np
 import pytest
@@ -648,3 +653,117 @@ def test_batched_dense_evaluation_launches_k4(dev):
         one = train_mpgnn(graph, [p], split, 2, cfg, backend="dense",
                           device=dev)
         assert abs(got[str(p)] - one.val_f1) <= 8e-2, p
+
+
+# ------------------------------------------------------ the bf16 forms
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 8, 12, 16, 64, 65])
+@pytest.mark.parametrize("dedup", ["never", "always"])
+def test_bf16_forms_match_plain(dev, dedup, f):
+    """K1 and K2 on bf16 rows: a 6,000-edge row cut across K1's shares
+    (its carries and head slot), rows without edges, every load width
+    (8, 4 and 1 values a lane), both directions; bitwise repeats."""
+    rng = np.random.default_rng(3)
+    n = 3000
+    src = np.concatenate([rng.integers(0, n, 20000), np.full(6000, 7),
+                          np.full(130, 11)])
+    dst = rng.integers(0, n, len(src))
+    src[src % 41 == 5] = 6
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
+        dev).bfloat16()
+    before = (csr.SCATTER_BF16_LAUNCHES, csr.DEDUP_BF16_LAUNCHES)
+    for blk in csr.build_csr_blocking(src, dst, n, dedup=dedup):
+        blk = blk.to(dev)
+        is_dedup = isinstance(blk, csr.DedupCsrBlocking)
+        kernel = csr.csr_dedup if is_dedup else csr.csr_scatter
+        plain = csr.csr_dedup_plain if is_dedup else csr.csr_scatter_plain
+        got, again = kernel(blk, x), kernel(blk, x)
+        want = plain(blk, x)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    after = (csr.SCATTER_BF16_LAUNCHES, csr.DEDUP_BF16_LAUNCHES)
+    assert after[1 if dedup == "always" else 0] > before[
+        1 if dedup == "always" else 0]
+
+
+@pytest.mark.parametrize("dedup", ["never", "always"])
+def test_bf16_csr_hop_gradient_on_the_card(dev, dedup):
+    """A bf16 csr hop and its gradient through the bf16 forms, against the
+    float32 kernels between two casts (the JAX package's route)."""
+    rng = np.random.default_rng(4)
+    n = 2000
+    src, dst = rng.integers(0, n, 30000), rng.integers(0, n, 30000)
+    fwd, bwd = (b.to(dev) for b in csr.build_csr_blocking(src, dst, n,
+                                                          dedup=dedup))
+    h = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(
+        dev).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(
+        dev).bfloat16()
+    outs = []
+    for cast in (False, True):
+        hh = h.clone().requires_grad_()
+        out = (csr._CsrMeanAggregate.apply(hh.float(), fwd, bwd).bfloat16()
+               if cast else csr.csr_mean_aggregate(hh, fwd, bwd))
+        out.backward(g)
+        outs.append((out.detach().float(), hh.grad.float()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], **BF16_TOL)
+    torch.testing.assert_close(outs[0][1], outs[1][1], **BF16_TOL)
+
+
+@pytest.mark.parametrize("f", [1, 2, 64, 200])
+@pytest.mark.parametrize("n", [257, 5000])
+def test_conv_kernel_takes_a_bf16_h(dev, n, f):
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, w, root, b) = _conv_inputs(n, 10 * n, f, 64, dev)
+    h = h.bfloat16()
+    before = conv.CONV_BF16H_LAUNCHES
+    out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+    again = conv.dense_conv_fwd(op.a, h, w, root, b)
+    want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+    torch.cuda.synchronize()
+    assert out.dtype == agg.dtype == torch.float32
+    assert conv.CONV_BF16H_LAUNCHES == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(agg, again[1])
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(agg, want_agg, **TOL)
+
+
+@pytest.mark.parametrize("backend", ["csr", "pallas", "segment", "dense"])
+def test_bf16_training_on_the_card(dev, backend):
+    """``train_mpgnn`` in bf16 on the card against the same run on the
+    CPU (the kernels' plain versions): the same first-step loss within
+    1e-2 and float32 parameters; csr launches the bf16 forms of K1/K2,
+    pallas K3's bf16-h form."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.ops import conv
+    from mpgnn_tpu_torch.train import loops
+
+    rng = np.random.default_rng(5)
+    n = 1500
+    g = HeteroGraph(rng.normal(size=(n, 8)).astype(np.float32),
+                    rng.integers(0, n, 20000), rng.integers(0, n, 20000),
+                    rng.integers(0, 3, 20000), num_relations=3)
+    split = split_nodes(rng.integers(0, 2, n))
+    cfg = MPGNNConfig(epochs=1, hidden_dim=16, dropout=0.0,
+                      compute_dtype="bfloat16")
+    def bf16_launches():
+        return (csr.SCATTER_BF16_LAUNCHES + csr.DEDUP_BF16_LAUNCHES,
+                conv.CONV_BF16H_LAUNCHES)
+
+    before = bf16_launches()
+    card = loops.train_mpgnn(g, [[0, 1]], split, 2, cfg, backend=backend)
+    after = bf16_launches()
+    host = loops.train_mpgnn(g, [[0, 1]], split, 2, cfg, backend=backend,
+                             device="cpu")
+    assert abs(card.final_loss - host.final_loss) <= 1e-2
+    assert card.params.fc1.weight.dtype == torch.float32
+    # csr: K1's or K2's bf16 form, as each direction routes
+    assert (after[0] > before[0]) == (backend == "csr")
+    assert (after[1] > before[1]) == (backend == "pallas")

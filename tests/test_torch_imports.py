@@ -28,7 +28,8 @@ need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
         "mpgnn_tpu_torch.search.engine", "mpgnn_tpu_torch.models.scorer",
         "mpgnn_tpu_torch.run", "mpgnn_tpu_torch.ops.gather",
         "mpgnn_tpu_torch.benchmarks.bench_dma_gather",
-        "mpgnn_tpu_torch.train.batch_eval"}}
+        "mpgnn_tpu_torch.train.batch_eval", "mpgnn_tpu_torch.rgcn_baseline",
+        "mpgnn_tpu_torch.benchmarks.bench_train"}}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """
@@ -77,3 +78,25 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_new_entry_points_refuse_without_a_device():
+    """The RGCN baseline runs on the card unless asked (no quiet CPU run);
+    the training bench refuses without one."""
+    _no_cuda()
+    from mpgnn_tpu_torch import rgcn_baseline
+    from mpgnn_tpu_torch.benchmarks import bench_train
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.models.mpgnn import init_rgcn_net
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rgcn_baseline.main(["--folder", "data/synthetic_multiclass",
+                            "--epochs", "1"])
+    g = HeteroGraph(np.zeros((40, 2), np.float32), [0, 1], [1, 2], [0, 0])
+    labels = np.array([0, 1] * 20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rgcn_baseline.train_rgcn_baseline(g, labels, split_nodes(labels), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_rgcn_net(2, 4, 1, 4, 2)
+    assert bench_train.main(["--epochs", "1"]) == 2

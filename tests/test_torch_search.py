@@ -271,7 +271,6 @@ def test_cli_runs_and_resumes_from_a_jax_checkpoint(dataset, tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "A12"),
     (["--trace_dir", "t"], "A10"),
-    (["--compute_dtype", "bfloat16"], "A1"),
     (["--dropout_rng", "rbg"], "does not inherit"),
     (["--dropout_rng", "threefry"], "does not inherit"),
 ])

@@ -263,8 +263,6 @@ def test_train_mpgnn_runs_on_the_cpu(planted):
 
 @pytest.mark.parametrize("change", [
     dict(backend="halo"),
-    dict(cfg=MPGNNConfig(compute_dtype="bfloat16")),
-    dict(cfg=MPGNNConfig(num_bases=2)), dict(cfg=MPGNNConfig(num_blocks=2)),
     dict(cfg=MPGNNConfig(halo_exchange="ppermute")),
     dict(cfg=MPGNNConfig(halo_local="csr")),
 ])
