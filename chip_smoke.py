@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --search-only
+    python3 chip_smoke.py --ooc-only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -136,7 +137,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    against one float32 dense ``train_mpgnn`` a candidate (the same
    candidates, validation F1s within 8e-2), then K4 on every grouped
    product of its final set against its plain version and a second
-   launch, the widest timed beside its bound and cuBLAS.
+   launch, the widest timed beside its bound and cuBLAS;
+9. out-of-core training (``train/stream.py``): (a) phase 2's KG written by
+   ``python -m mpgnn_tpu_torch.generate powerlaw --format npy`` in a child
+   process and loaded back as memmaps, bitwise phase 2's arrays; (b) on
+   those memmaps a ``PartitionedHeteroGraph`` of 8 blocks, groups of 2,
+   the planted path trained with csr at hidden 64 (``OOC_EPOCHS``,
+   dropout 0): streaming (``resident=False``), resident and fused, each
+   run's K1 and K2 launches equal to what its groups and hops imply,
+   streaming bitwise resident, fused within ``OOC_FUSED_*`` of streaming,
+   streaming's device peak below resident's; then streaming at dropout 0.6
+   (``OOC_QUALITY_EPOCHS``), test F1 at least 0.9; a profile of a
+   streaming run (host prep, training and evaluation walls; device time
+   by kernel and copy); (c) ``python -m mpgnn_tpu_torch.run --trace_dir``
+   on ``data/synthetic_multiclass`` (csr, ``OOC_CLI``) in a child
+   process: a trace a class, naming K1's kernel; (d) the CLI with
+   ``--dataset ACM`` on labels_{train,val,test}.dat written from
+   ``data/synthetic_multiclass``, and with ``--dataset fb15k-237`` on
+   ``data/fb15k-237-continent`` with an all-zero node.dat written beside
+   it (each cut to ``OOC_CLI``).
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -149,7 +168,9 @@ searches count their own: (a) and (d) in their child processes, which
 start at 0 and print their counts when the CLI ends, (c) and (e) set to 0
 just before them and read just after; K1
 and the csr backward must have launched in (a) and (c), in (c) K2 too
-where a candidate's relation routes to it, and K4 in (e). K5's probe
+where a candidate's relation routes to it, and K4 in (e). Phase 9 (b)
+sets them to 0 before each clustered run and reads them after it; their
+sum is the kernels line's ``launches_ooc``. K5's probe
 counts its own in its child process, which starts at 0.
 The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -159,7 +180,8 @@ per kernel shape; ``--package-root DIR`` takes ``mpgnn_tpu_torch`` from the
 checkout DIR (the parent of a change, say), so that two versions of the
 kernels are timed by the same script on one card, in turns (K5's probe
 runs where that checkout has it).
-``--search-only`` runs phases 1 and 8 alone.
+``--search-only`` runs phases 1 and 8 alone, ``--ooc-only`` phases 1
+and 9.
 """
 
 from __future__ import annotations
@@ -2064,6 +2086,336 @@ def mixed_precision(torch, csr, conv, graph_u, split_u, graph_k, split_k,
     return recs, launches
 
 
+# ------------------------------------------------- 9. out-of-core training
+# The power-law KG of phase 2, generated by the port's CLI, partitioned into
+# 8 blocks, trained in groups of 2 blocks on its planted path.
+OOC_GENERATE = ["powerlaw", "--num_nodes", "200000", "--num_edges",
+                "2000000", "--num_relations", "237", "--metapath_len", "3",
+                "--seed", "5", "--format", "npy"]
+OOC_PARTS = 8
+OOC_BLOCKS_PER_STEP = 2
+# dropout 0 for the mode comparisons, dropout 0.6 (the default) for the
+# quality bar of tests/test_partition.py, test F1 >= 0.9
+OOC_EPOCHS = 20
+OOC_QUALITY_EPOCHS = 40
+OOC_MIN_TEST_F1 = 0.9
+# fused against streaming, dropout 0: fused runs K1 on blockings at the
+# common row count where streaming runs K2 on the hub relations, so the
+# two sum each row in another float32 order, which Adam's steps amplify in
+# the parameters (by up to lr = 0.01 an element a step where a gradient
+# element is float32 noise); the loss and the predictions barely move.
+OOC_FUSED_LOSS_ATOL = 1e-3
+OOC_FUSED_F1_ATOL = 1e-2
+OOC_FUSED_PARAM_ATOL = 1e-2
+# 9 (c) and (d): the CLI's MPNetm epochs and extension hops, cut from 1000
+# and 3 so that each run takes seconds
+OOC_CLI = ["--hidden_dim", str(HIDDEN), "--epochs", "20", "--max_hops", "1",
+           "--backend", "csr"]
+FB15K = os.path.join(ROOT, "data", "fb15k-237-continent")
+
+
+def cli_child(argv, timeout=600) -> dict:
+    """``python -m mpgnn_tpu_torch.run`` with ``argv`` in a child process
+    whose launch counts start at 0 (``_CLI_CHILD``): its summary line, its
+    launches, its stderr and its wall time."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _CLI_CHILD, *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"CLI {argv} failed:\n{out.stderr[-3000:]}")
+    launches = json.loads(out.stderr.strip().splitlines()[-1].split(
+        "LAUNCHES ", 1)[1])
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    for k, v in summary["classes"].items():
+        check(0.0 <= v["test_f1"] <= 1.0, f"class {k}: {v}")
+    return dict(summary=summary, launches=launches, stderr=out.stderr,
+                wall=wall)
+
+
+def ooc_generate(tmp, kg, planted):
+    """9 (a): the KG through ``python -m mpgnn_tpu_torch.generate powerlaw
+    --format npy`` in a child process, loaded back as memmaps: bitwise
+    phase 2's arrays."""
+    from mpgnn_tpu_torch.graph.generate import load_npy_dir
+
+    folder = os.path.join(tmp, "kg")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mpgnn_tpu_torch.generate",
+                          *OOC_GENERATE, "--out", folder], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    gen_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"generate failed:\n{out.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    meta, x, src, dst, rel, labels, label_nodes = load_npy_dir(folder)
+    load_s = time.perf_counter() - t0
+    same = {
+        "x": np.array_equal(x, kg["node_features"].astype(np.float32)),
+        "src": np.array_equal(src, kg["src"].astype(np.int32)),
+        "dst": np.array_equal(dst, kg["dst"].astype(np.int32)),
+        "rel": np.array_equal(rel, kg["rel"].astype(np.int32)),
+        "labels": np.array_equal(labels, kg["labels"].astype(np.int8)),
+        "label_nodes": np.array_equal(label_nodes, kg["label_nodes"]),
+        "planted": meta["metapath_relations"] == planted,
+    }
+    log(phase="ooc_generate", command=OOC_GENERATE, generate_s=gen_s,
+        load_s=load_s, summary=out.stdout.strip(), bitwise=same,
+        memmap=isinstance(x, np.memmap))
+    check(all(same.values()) and isinstance(x, np.memmap),
+          f"the generated KG is not phase 2's: {same}")
+    return meta, x, src, dst, rel, labels, label_nodes
+
+
+def ooc_expected_launches(csr, pg, planted, groups, epochs, fused):
+    """(K1, K2) launches that a clustered csr run of ``epochs`` epochs over
+    ``groups`` implies: each group visited once an epoch and once at
+    evaluation, every hop's forward each time and, in training, the
+    backward of every hop past the first (hop 0 reads x, which needs no
+    gradient); a direction runs K2 where ``build_csr_blocking`` routes it
+    (its ``dedup_ratio``), K1 else, and K1 alone in fused mode."""
+    k1 = k2 = 0
+    rels = sorted(set(planted))
+    for blocks in groups:
+        sub = pg.subgraph(blocks, halo_hops=len(planted),
+                          halo_relations=rels)
+        for h, r in enumerate(planted):
+            s, d = sub.graph.rel_edges(r)
+            for rows, cols, n in ((s, d, epochs + 1),
+                                  (d, s, epochs if h else 0)):
+                dedup = (not fused and len(s) > 0 and csr.dedup_ratio(
+                    rows, cols, csr.DEDUP_BLOCK_ROWS) >= csr.DEDUP_MIN_RATIO)
+                k2 += n * dedup
+                k1 += n * (not dedup)
+    return k1, k2
+
+
+def ooc_train(torch, csr, conv, pg, planted, split):
+    """9 (b): streaming, resident and fused csr runs at dropout 0 (streaming
+    bitwise resident, fused within ``OOC_FUSED_*``), then a streaming run
+    at dropout 0.6 (test F1 >= ``OOC_MIN_TEST_F1``); each run's K1 and K2
+    launches against what its groups and hops imply."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train.stream import train_mpgnn_clustered
+
+    runs, launches = {}, {}
+    for name, epochs, dropout, kw in (
+            ("streaming", OOC_EPOCHS, 0.0, dict(resident=False)),
+            ("resident", OOC_EPOCHS, 0.0, dict(resident=True)),
+            ("fused", OOC_EPOCHS, 0.0, dict(fused=True)),
+            ("streaming_dropout", OOC_QUALITY_EPOCHS, 0.6,
+             dict(resident=False))):
+        cfg = MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN, dropout=dropout)
+        rep = {}
+        torch.cuda.empty_cache()
+        reset_counts(csr, conv)
+        t0 = time.perf_counter()
+        res = train_mpgnn_clustered(
+            pg, [planted], split, 2, cfg, blocks_per_step=OOC_BLOCKS_PER_STEP,
+            seed=0, backend="csr", report=rep, **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts(csr, conv)
+        want = ooc_expected_launches(
+            csr, pg, planted, [g["blocks"] for g in rep["groups"]], epochs,
+            kw.get("fused", False))
+        got = (counts["csr_scatter"], counts["csr_dedup"])
+        epoch_ms = sorted(1e3 * t for t in rep["epoch_s"])
+        rec = dict(
+            phase="ooc_train", mode=name, epochs=epochs, dropout=dropout,
+            hidden=HIDDEN, parts=OOC_PARTS,
+            blocks_per_step=OOC_BLOCKS_PER_STEP, wall_s=wall,
+            prep_s=rep["prep_s"], train_s=rep["train_s"],
+            eval_s=rep["eval_s"], stack_build_s=rep.get("stack_build_s"),
+            upload_s=rep.get("upload_s"),
+            epoch_ms_median=epoch_ms[len(epoch_ms) // 2],
+            epoch_ms_first=1e3 * rep["epoch_s"][0],
+            mp_edges_per_epoch=rep["mp_edges_per_epoch"],
+            mp_edges_per_s=rep["mp_edges_per_epoch"] * epochs
+            / rep["train_s"],
+            device_peak_bytes=rep["device_peak_bytes"],
+            host_bytes=sum(g["host_bytes"] for g in rep["groups"]),
+            groups=[{k: g[k] for k in ("blocks", "real_nodes", "real_edges",
+                                       "mp_edges")} for g in rep["groups"]],
+            launches=dict(csr_scatter=got[0], csr_dedup=got[1],
+                          csr_backward_passes=counts["csr_backward_passes"]),
+            expected_launches=dict(csr_scatter=want[0], csr_dedup=want[1]),
+            train_f1=res.train_f1, val_f1=res.val_f1, test_f1=res.test_f1,
+            final_loss=res.final_loss)
+        log(**rec)
+        check(got == want and got[0] > 0,
+              f"{name}: K1/K2 launches {got}, the groups and hops imply "
+              f"{want}")
+        runs[name], launches[name] = (res, rec), counts
+    (st, st_rec), (re_, re_rec), (fu, fu_rec), (dr, dr_rec) = runs.values()
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        st.params.parameters(), re_.params.parameters()))
+    fused_param = max(float((a - b).abs().max()) for a, b in zip(
+        fu.params.parameters(), st.params.parameters()))
+    fused_loss = abs(fu.final_loss - st.final_loss)
+    fused_f1 = max(abs(getattr(fu, k) - getattr(st, k))
+                   for k in ("train_f1", "val_f1", "test_f1"))
+    log(phase="ooc_check", streaming_bitwise_resident=bitwise,
+        fused_vs_streaming=dict(param_max_abs=fused_param, loss=fused_loss,
+                                f1=fused_f1),
+        bounds=dict(param=OOC_FUSED_PARAM_ATOL, loss=OOC_FUSED_LOSS_ATOL,
+                    f1=OOC_FUSED_F1_ATOL),
+        peak_bytes=dict(streaming=st_rec["device_peak_bytes"],
+                        resident=re_rec["device_peak_bytes"],
+                        fused=fu_rec["device_peak_bytes"]),
+        dropout_test_f1=dr.test_f1)
+    check(bitwise, "streaming is not bitwise equal to resident")
+    check(fused_param <= OOC_FUSED_PARAM_ATOL
+          and fused_loss <= OOC_FUSED_LOSS_ATOL
+          and fused_f1 <= OOC_FUSED_F1_ATOL,
+          f"fused against streaming: params {fused_param}, loss "
+          f"{fused_loss}, F1 {fused_f1}")
+    check(st_rec["device_peak_bytes"] < re_rec["device_peak_bytes"],
+          "streaming's device peak is not below resident's")
+    check(dr.test_f1 >= OOC_MIN_TEST_F1,
+          f"clustered training at dropout 0.6: test F1 {dr.test_f1}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in ("csr_scatter", "csr_dedup")}
+    return total
+
+
+def ooc_profile(torch, pg, planted, split, epochs=5) -> None:
+    """Where a streaming clustered run's time goes: the report's host prep,
+    training and evaluation walls, and torch.profiler's device time by
+    kernel and copy over the whole call (the profiler slows the host, so
+    the busy share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train.stream import train_mpgnn_clustered
+
+    rep = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_mpgnn_clustered(
+            pg, [planted], split, 2,
+            MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN),
+            blocks_per_step=OOC_BLOCKS_PER_STEP, backend="csr",
+            resident=False, report=rep)
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    copy_us = sum(r[1] for r in rows if "HtoD" in r[0])
+    steps_s = rep["train_s"] + rep["eval_s"]
+    log(phase="ooc_profile", mode="streaming", epochs=epochs,
+        prep_s=rep["prep_s"], train_s=rep["train_s"], eval_s=rep["eval_s"],
+        device_ms=busy_us / 1e3, copy_htod_ms=copy_us / 1e3,
+        device_busy_share_of_steps=busy_us / 1e6 / steps_s,
+        top=[dict(name=k[:80], ms=t / 1e3, count=c) for k, t, c in rows[:10]])
+
+
+def ooc_trace(tmp) -> dict:
+    """9 (c): the search CLI with ``--trace_dir`` in a child process: one
+    trace a class, K1's kernel named in them."""
+    trace_dir = os.path.join(tmp, "trace")
+    run = cli_child(["--dataset", "synthetic", "--folder", SYNTH,
+                     "--node_file", "node.dat", "--link_file", "link.dat",
+                     "--label_file", "label.dat", *OOC_CLI, "--trace_dir",
+                     trace_dir])
+    names = sorted(os.listdir(trace_dir))
+    k1 = 0
+    for name in names:
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        k1 += sum(1 for e in events if e.get("cat") == "kernel"
+                  and "csr_scatter_kernel" in e.get("name", ""))
+    rec = dict(phase="ooc_trace", dataset="data/synthetic_multiclass",
+               cli=OOC_CLI, traces=names,
+               trace_bytes=sum(os.path.getsize(os.path.join(trace_dir, n))
+                               for n in names),
+               k1_kernel_events=k1, launches=run["launches"],
+               process_wall_s=run["wall"],
+               reduced=["MPNetm epochs 1000 -> 20", "extension hops 3 -> 1"])
+    log(**rec)
+    check(len(names) == 3 and k1 > 0,
+          f"--trace_dir wrote {names}, {k1} K1 kernel events")
+    return run["launches"]
+
+
+def ooc_clis(tmp) -> list:
+    """9 (d): ``--dataset ACM`` on labels_{train,val,test}.dat written from
+    ``data/synthetic_multiclass``, and ``--dataset fb15k-237`` on
+    ``data/fb15k-237-continent`` with an all-zero node.dat."""
+    from mpgnn_tpu_torch.graph.io import read_labels
+
+    acm = os.path.join(tmp, "acm")
+    os.makedirs(acm)
+    for name in ("node.dat", "link.dat"):
+        os.symlink(os.path.join(SYNTH, name), os.path.join(acm, name))
+    ids, labels = read_labels(os.path.join(SYNTH, "label.dat"))
+    order = np.random.default_rng(0).permutation(len(ids))
+    cut = [0, len(ids) * 6 // 10, len(ids) * 8 // 10, len(ids)]
+    for k, split in enumerate(("train", "val", "test")):
+        with open(os.path.join(acm, f"labels_{split}.dat"), "w") as f:
+            for i in order[cut[k]: cut[k + 1]]:
+                f.write(f"{ids[i]}\t{labels[i]}\n")
+    fb = os.path.join(tmp, "fb15k")
+    os.makedirs(fb)
+    num_nodes = 0
+    for name in ("link.dat", "label.dat"):
+        os.symlink(os.path.join(FB15K, name), os.path.join(fb, name))
+        with open(os.path.join(FB15K, name)) as f:
+            for line in f:
+                ids = line.split()
+                num_nodes = max(num_nodes, int(ids[0]) + 1,
+                                int(ids[-1]) + 1 if name == "link.dat"
+                                else 0)
+    with open(os.path.join(fb, "node.dat"), "w") as f:
+        for i in range(num_nodes):
+            f.write(f"{i}\t0.0\t0.0\t\n")
+    recs = []
+    for dataset, folder, label_file, reduced in (
+            ("ACM", acm, "unused.dat",
+             ["MPNetm epochs 1000 -> 20", "extension hops 3 -> 1"]),
+            ("fb15k-237", fb, "label.dat",
+             ["MPNetm epochs 1000 -> 20", "extension hops 3 -> 1",
+              "node.dat: 2 all-zero columns, where the preprocessing "
+              "writes 1 + the label relation's destinations (the features "
+              "are all zero either way)"])):
+        run = cli_child(["--dataset", dataset, "--folder", folder,
+                         "--node_file", "node.dat", "--link_file",
+                         "link.dat", "--label_file", label_file, *OOC_CLI])
+        rec = dict(phase="ooc_cli", dataset=dataset, cli=OOC_CLI,
+                   classes=run["summary"]["classes"],
+                   launches=run["launches"], process_wall_s=run["wall"],
+                   reduced=reduced)
+        log(**rec)
+        check(run["summary"]["dataset"] == dataset
+              and len(run["summary"]["classes"]) >= 2,
+              f"{dataset}: {run['summary']}")
+        recs.append(rec)
+    return recs
+
+
+def ooc_phase(torch, csr, conv, kg, planted) -> dict:
+    """Phase 9: out-of-core training. Returns the K1/K2 launches of the
+    clustered runs, each counted from 0 (9 (b))."""
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.graph.partition import PartitionedHeteroGraph
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        meta, x, src, dst, rel, labels, label_nodes = ooc_generate(
+            tmp, kg, planted)
+        t0 = time.perf_counter()
+        pg = PartitionedHeteroGraph(x, src, dst, rel, meta["num_relations"],
+                                    OOC_PARTS, labels=labels)
+        log(phase="ooc_partition", seconds=time.perf_counter() - t0,
+            graph=repr(pg),
+            edge_cut=pg.edge_cut_fraction(OOC_BLOCKS_PER_STEP))
+        lab = np.asarray(labels)[np.asarray(label_nodes)].astype(np.int64)
+        split = split_nodes(lab, node_idx=np.asarray(label_nodes).tolist())
+        launches = ooc_train(torch, csr, conv, pg, planted, split)
+        ooc_profile(torch, pg, planted, split)
+        del pg, x, src, dst, rel
+        ooc_trace(tmp)
+        ooc_clis(tmp)
+    log(phase="ooc_done", seconds=time.perf_counter() - t_start,
+        launches=launches)
+    return launches
+
+
 def reset_counts(csr, conv) -> None:
     csr.SCATTER_LAUNCHES = csr.DEDUP_LAUNCHES = 0
     csr.SCATTER_BF16_LAUNCHES = csr.DEDUP_BF16_LAUNCHES = 0
@@ -2098,6 +2450,8 @@ def main() -> int:
                     help="run phases 1, 2 and 6 alone")
     ap.add_argument("--search-only", action="store_true",
                     help="run phases 1 and 8 alone")
+    ap.add_argument("--ooc-only", action="store_true",
+                    help="run phases 1 and 9 alone")
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose mpgnn_tpu_torch is driven")
     args = ap.parse_args()
@@ -2149,6 +2503,10 @@ def main() -> int:
         search_phase(torch, csr, conv, graph_k, planted, kg)
         log(phase="done", seconds=time.perf_counter() - t_start,
             search_s=time.perf_counter() - t0)
+        return 0
+    if args.ooc_only:
+        ooc_phase(torch, csr, conv, kg, planted)
+        log(phase="done", seconds=time.perf_counter() - t_start)
         return 0
     records = kernel_phase(torch, csr, graph_u, graph_k, [0, 1], largest,
                            planted[2])
@@ -2230,6 +2588,11 @@ def main() -> int:
                                                      graph_k, planted, kg)
     log(phase="search_done", seconds=time.perf_counter() - t0)
 
+    # 9. out-of-core training
+    del graph_k
+    torch.cuda.empty_cache()
+    ooc_launches = ooc_phase(torch, csr, conv, kg, planted)
+
     meta = {
         "csr_scatter": ("mpgnn_tpu_torch/csrc/csr_scatter.cu",
                         "mpgnn_tpu/ops/pallas_csr.py:372"),
@@ -2274,14 +2637,16 @@ def main() -> int:
                              "per_candidate_launches"],
                          stacked_max_abs_err=stacked["max_abs_err"],
                          probe_k1_gather=probe["k1_gather"])
+        ooc = ooc_launches.get(name, 0)
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
             launches=(serve_launches[name] + train_launches[name]
-                      + search_launches[name]),
+                      + search_launches[name] + ooc),
             launches_serve=serve_launches[name],
             launches_train=train_launches[name],
             launches_search=search_launches[name],
+            **({"launches_ooc": ooc} if name in ooc_launches else {}),
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],

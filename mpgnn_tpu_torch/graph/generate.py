@@ -1,15 +1,242 @@
-"""Power-law knowledge-graph generator with one planted metapath.
+"""Graph generators with planted metapaths, and the binary dataset layout.
 
-Same algorithm and random stream as the JAX package's generator, so one seed
-gives bit-identical arrays in both packages.
+* ``generate_synthetic_graph``: the reference's coloured generator
+  (data/synthetic/create_graph_multi_metapath_deterministic.py:24-436),
+  vectorized: colored nodes, typed edges whose relation vocabulary is chosen
+  per (src-color, dst-color) pair from an (overlap x shared_relations) grid
+  of tables, backward-reachability labels along up to three planted
+  metapaths, sparsification of off-metapath edges;
+* ``generate_powerlaw_kg``: a power-law knowledge graph with one planted
+  metapath, the KG-scale stress workload;
+* ``write_dat_files``: the reference's five text files; ``write_npy_dir`` /
+  ``load_npy_dir``: per-array ``.npy`` files and a raw float32 feature
+  memmap, for graphs beyond text scale.
+
+Same algorithms and random streams as the JAX package's generators, so one
+seed gives bit-identical arrays and byte-identical files in both packages.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+COLOR_LIST = ["red", "blue"]  # reference :36 (red=[0,1] one-hot col order)
+
+# (overlap, shared_relations) -> {color-pair: relation ids}; reference :71-185
+_RELATION_TABLES: Dict[int, Dict[str, List[int]]] = {
+    0: {"red-red": [0], "red-blue": [1], "blue-red": [2], "blue-blue": [3]},
+    1: {"red-red": [0, 1], "red-blue": [2, 3], "blue-red": [4, 5], "blue-blue": [6, 7]},
+    2: {"red-red": [0, 1, 2], "red-blue": [3, 4], "blue-red": [5, 6, 7], "blue-blue": [8, 9]},
+    3: {"red-red": [0, 1, 2], "red-blue": [3, 4, 5], "blue-red": [6, 7, 8, 9], "blue-blue": [10, 11, 12, 13]},
+    4: {"red-red": [0, 1], "red-blue": [1], "blue-red": [2, 3], "blue-blue": [2]},
+    5: {"red-red": [0, 7], "red-blue": [1, 2], "blue-red": [2, 3, 5], "blue-blue": [3, 4]},
+    6: {"red-red": [0, 1, 2], "red-blue": [3, 4, 0], "blue-red": [5, 6, 7], "blue-blue": [8, 9, 2]},
+    7: {"red-red": [0, 1, 2, 9], "red-blue": [3, 4, 5, 10], "blue-red": [6, 7, 8, 9], "blue-blue": [10, 11, 12, 13]},
+    8: {"red-red": [0, 3], "red-blue": [1, 2], "blue-red": [2, 3], "blue-blue": [0, 1]},
+    9: {"red-red": [0, 1, 5], "red-blue": [1, 2, 7], "blue-red": [4, 6, 5], "blue-blue": [7, 0, 3]},
+    10: {"red-red": [0, 1, 2, 7], "red-blue": [3, 4, 0], "blue-red": [5, 6, 7], "blue-blue": [8, 9, 2, 3]},
+    11: {"red-red": [0, 1, 2, 9, 8], "red-blue": [3, 4, 5, 10], "blue-red": [6, 7, 8, 9, 11], "blue-blue": [10, 11, 12, 13]},
+    12: {k: list(range(4)) for k in ("red-red", "red-blue", "blue-red", "blue-blue")},
+    13: {k: list(range(8)) for k in ("red-red", "red-blue", "blue-red", "blue-blue")},
+    14: {k: list(range(10)) for k in ("red-red", "red-blue", "blue-red", "blue-blue")},
+    15: {k: list(range(15)) for k in ("red-red", "red-blue", "blue-red", "blue-blue")},
+}
+
+
+def relation_table(overlap: int, shared_relations: int) -> Dict[str, List[int]]:
+    """Select the relation vocabulary table (reference :54-69)."""
+    return _RELATION_TABLES[overlap * 4 + shared_relations]
+
+
+def generate_synthetic_graph(
+    num_nodes: int,
+    max_rel_for_node: int,
+    metapath: str,
+    overlap: int = 0,
+    shared_relations: int = 0,
+    seed: int = 0,
+    out_dir: Optional[str] = None,
+    planted_relations: Optional[Sequence[int]] = None,
+    metapath2: Optional[str] = None,
+    planted_relations2: Optional[Sequence[int]] = None,
+    metapath3: Optional[str] = None,
+    planted_relations3: Optional[Sequence[int]] = None,
+    multiclass: bool = False,
+):
+    """Generate a synthetic colored graph with up to three planted metapaths.
+
+    Returns a dict with in-memory arrays and (if ``out_dir``) writes the five
+    reference-format files. ``metapath`` is a color path like
+    ``"red-red-blue"``; the planted relation per hop is drawn from the
+    color-pair table (reference :195-204) unless pinned via
+    ``planted_relations``. With ``metapath2`` a second metapath is planted
+    and node labels become the UNION of both reachability sets (reference
+    :299-352: label1[k]=1 wherever label2[k]=1); sparsification applies only
+    to metapath 1, as in the reference (:369-393).
+
+    ``multiclass=True`` (a framework extension — the reference generator
+    only emits binary labels) assigns one CLASS per planted path instead of
+    the union: label c for the heads of path c (1-based; a later path wins
+    ties, matching the one-vs-rest search's per-class binarization), 0 for
+    background nodes. With K planted paths the dataset has K+1 classes, each
+    non-background class carrying its own recoverable metapath — the
+    signal-bearing multi-class workload for run.py's class loop
+    (main.py:1214)."""
+    rng = np.random.default_rng(seed)
+    rel_table = relation_table(overlap, shared_relations)
+
+    def pick_relations(path_str, pinned):
+        cp = path_str.split("-")
+        oc = [COLOR_LIST.index(c) for c in cp]
+        if pinned is None:
+            fwd = [
+                int(rng.choice(rel_table[f"{cp[i]}-{cp[i+1]}"]))
+                for i in range(len(cp) - 1)
+            ]
+        else:
+            fwd = [int(r) for r in pinned]
+        return oc, fwd
+
+    order_colors, meta_fwd = pick_relations(metapath, planted_relations)
+    metapath_length = len(meta_fwd)
+    # Reference reverses both lists before use (:200-203): meta[0] becomes the
+    # LAST relation on the path; labels propagate backwards from the far end.
+    meta = meta_fwd[::-1]
+    order_colors_rev = order_colors[::-1]
+
+    # ------------------------------------------------------------- nodes
+    colors = rng.integers(0, len(COLOR_LIST), size=num_nodes)
+    node_feats = np.zeros((num_nodes, len(COLOR_LIST)), dtype=np.int64)
+    node_feats[np.arange(num_nodes), colors] = 1
+
+    # ------------------------------------------------------------- edges
+    out_deg = rng.integers(1, max_rel_for_node + 1, size=num_nodes)
+    E = int(out_deg.sum())
+    src = np.repeat(np.arange(num_nodes), out_deg)
+    # dst sampled uniformly from [0, num_nodes-1) excluding src (reference
+    # :245 excludes self-loops; its off-by-one also excludes node N-1 as a
+    # destination — reproduced for distributional parity).
+    dst = rng.integers(0, num_nodes - 1, size=E)
+    clash = dst == src
+    while clash.any():
+        dst[clash] = rng.integers(0, num_nodes - 1, size=int(clash.sum()))
+        clash = dst == src
+    # relation drawn uniformly from the color-pair vocabulary (:246-249)
+    pair_key = colors[src] * len(COLOR_LIST) + colors[dst]
+    rel = np.empty(E, dtype=np.int64)
+    for sc in range(len(COLOR_LIST)):
+        for dc in range(len(COLOR_LIST)):
+            key = sc * len(COLOR_LIST) + dc
+            sel = pair_key == key
+            vocab = np.asarray(
+                rel_table[f"{COLOR_LIST[sc]}-{COLOR_LIST[dc]}"], dtype=np.int64
+            )
+            rel[sel] = vocab[rng.integers(0, len(vocab), size=int(sel.sum()))]
+
+    # ---------------------------------------- backward reachability labels
+    # Hop 0 (reference :260-269): src has color oc_rev[1], edge has relation
+    # m[0], dst has color oc_rev[0]. Hop k (:270-290): src color oc_rev[k+1]
+    # (relaxed for the last hop), relation m[k], dst reachable at hop k-1
+    # with color oc_rev[k].
+    def backward_reachability(m, oc_rev):
+        embs: List[np.ndarray] = []
+        current = np.zeros(num_nodes, dtype=np.int64)
+        L = len(m)
+        for k in range(L):
+            nxt = np.zeros(num_nodes, dtype=np.int64)
+            dst_color_ok = colors[dst] == oc_rev[k]
+            rel_ok = rel == m[k]
+            if k == 0:
+                src_ok = colors[src] == oc_rev[1]
+                hit = src_ok & rel_ok & dst_color_ok
+            elif k == L - 1:
+                hit = rel_ok & dst_color_ok & (current[dst] == 1)
+            else:
+                src_ok = colors[src] == oc_rev[k + 1]
+                hit = src_ok & rel_ok & dst_color_ok & (current[dst] == 1)
+            nxt[src[hit]] = 1
+            embs.append(nxt)
+            current = nxt
+        return embs, current
+
+    embeddings, labels = backward_reachability(meta, order_colors_rev)
+    labels = labels.copy()
+
+    meta2 = meta3 = None
+    extra_heads = []                         # per extra path: head mask
+    for path_str, pinned in (
+        (metapath2, planted_relations2), (metapath3, planted_relations3),
+    ):
+        if path_str is None:
+            continue
+        oc_k, fwd_k = pick_relations(path_str, pinned)
+        meta_k = fwd_k[::-1]
+        embs_k, labels_k = backward_reachability(meta_k, oc_k[::-1])
+        embeddings = embeddings + embs_k     # appended to embedding.dat (:311)
+        extra_heads.append(labels_k)
+        if meta2 is None:
+            meta2 = meta_k
+        else:
+            meta3 = meta_k
+    if multiclass:
+        # one class per planted path: 1 = path-1 heads, 2 = path-2 heads, ...
+        # (later path wins overlaps), 0 = background
+        y = np.zeros(num_nodes, dtype=np.int64)
+        for ci, heads in enumerate([labels] + extra_heads, start=1):
+            y[heads == 1] = ci
+        labels = y
+    else:
+        for heads in extra_heads:
+            labels[heads == 1] = 1           # label union (:349-352)
+
+    # ------------------------------------------------- sparsification
+    # Reference :369-393: an edge is KEPT unless, for some hop k, its source
+    # is hop-k reachable, its destination has the hop-k color, and its
+    # relation is NOT the hop-k planted relation — unless the same (source,
+    # color) pair also matches the planted relation for some hop (bool=True
+    # wins over False).
+    emb_fwd = [embeddings[i] for i in range(metapath_length)][::-1]
+    meta1 = meta[::-1]
+    meta_c1 = order_colors_rev[::-1]
+    keep_true = np.zeros(E, dtype=bool)
+    keep_false = np.zeros(E, dtype=bool)
+    for i in range(metapath_length):
+        lbl = emb_fwd[i] == 1
+        col_ok = colors[dst] == meta_c1[i]
+        src_ok = lbl[src]
+        keep_true |= (rel == meta1[i]) & col_ok & src_ok
+    for i in range(metapath_length):
+        lbl = emb_fwd[i] == 1
+        col_ok = colors[dst] == meta_c1[i]
+        src_ok = lbl[src]
+        keep_false |= (rel != meta1[i]) & col_ok & src_ok & ~keep_true
+    keep = ~keep_false
+    src_k, rel_k, dst_k = src[keep], rel[keep], dst[keep]
+
+    result = {
+        "colors": colors,
+        "node_features": node_feats,
+        "src": src_k,
+        "rel": rel_k,
+        "dst": dst_k,
+        "labels": labels,
+        "embeddings": embeddings,
+        "metapath_relations": meta,          # reversed order, as metapath.dat
+        "metapath_relations_path_order": meta_fwd,
+        "metapath_colors": order_colors_rev,
+        "metapath_str": metapath,
+        "metapath2_relations": meta2,        # None unless metapath2 given
+        "metapath3_relations": meta3,        # None unless metapath3 given
+    }
+
+    if out_dir is not None:
+        write_dat_files(out_dir, result)
+    return result
+
 
 
 def generate_powerlaw_kg(
@@ -232,3 +459,60 @@ def write_dat_files(out_dir: str, g: dict) -> None:
             with open(os.path.join(out_dir, fname), "w") as f:
                 f.write("\n")
                 f.write(" ".join(str(v) for v in g[key]) + " \n")
+
+
+def write_npy_dir(out_dir: str, g: dict, num_relations: int) -> None:
+    """Binary dataset layout for beyond-text-scale graphs (100M+ edges).
+
+    Per-array ``.npy`` files (loadable with ``np.load(..., mmap_mode='r')``
+    — the out-of-core ingestion path ``load_npy_dir`` uses) plus the node
+    features as a raw float32 memmap ``x.f32`` so training never
+    materializes them in RAM. The ``.dat`` text files serialize the same
+    graph in minutes of pure python I/O at this scale; this writes at disk
+    bandwidth."""
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "src.npy"), g["src"].astype(np.int32))
+    np.save(os.path.join(out_dir, "dst.npy"), g["dst"].astype(np.int32))
+    np.save(os.path.join(out_dir, "rel.npy"), g["rel"].astype(np.int32))
+    np.save(os.path.join(out_dir, "labels.npy"), g["labels"].astype(np.int8))
+    np.save(os.path.join(out_dir, "label_nodes.npy"),
+            g["label_nodes"].astype(np.int64))
+    x = g["node_features"].astype(np.float32)
+    mm = np.memmap(os.path.join(out_dir, "x.f32"), dtype=np.float32,
+                   mode="w+", shape=x.shape)
+    mm[:] = x
+    mm.flush()
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({
+            "num_nodes": int(x.shape[0]), "feat_dim": int(x.shape[1]),
+            "num_edges": int(len(g["src"])),
+            "num_relations": int(num_relations),
+            "metapath_relations": list(map(int, g["metapath_relations"])),
+        }, f)
+
+
+def load_npy_dir(folder: str):
+    """Load a ``write_npy_dir`` dataset with O(1) RAM for the big arrays.
+
+    Returns ``(meta, x_memmap, src, dst, rel, labels, label_nodes)`` where
+    ``x`` is a read-only float32 memmap and the edge arrays are
+    ``mmap_mode='r'`` views — nothing is materialized until touched."""
+    with open(os.path.join(folder, "meta.json")) as f:
+        meta = json.load(f)
+    x = np.memmap(os.path.join(folder, "x.f32"), dtype=np.float32, mode="r",
+                  shape=(meta["num_nodes"], meta["feat_dim"]))
+    ld = lambda n: np.load(os.path.join(folder, n), mmap_mode="r")  # noqa: E731
+    return (meta, x, ld("src.npy"), ld("dst.npy"), ld("rel.npy"),
+            ld("labels.npy"), ld("label_nodes.npy"))
+
+
+def read_planted_metapath(folder: str) -> List[int]:
+    """Read the planted relation sequence from metapath.dat (line 2).
+
+    The stored order is the reference's reversed order, which is exactly the
+    order MultiMetapathGNN applies relations hop-by-hop and the order the
+    search engine discovers them (prepending each earlier hop, main.py:1427).
+    """
+    with open(os.path.join(folder, "metapath.dat")) as f:
+        lines = f.read().splitlines()
+    return [int(v) for v in lines[1].split()]

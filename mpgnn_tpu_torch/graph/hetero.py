@@ -10,7 +10,7 @@ rows for sources with no edge of the selected relation.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +38,27 @@ class NodeSplit:
         return int(len(np.unique(
             np.concatenate([self.train_y, self.val_y, self.test_y])
         )))
+
+
+@dataclasses.dataclass(frozen=True)
+class RelationBatch:
+    """A padded batch of per-relation edge lists: ``src`` / ``dst`` are
+    ``[R, E_max]`` int32 whose padding points at node 0 and is masked out by
+    ``mask``; ``relations`` holds the relation id of each row."""
+
+    relations: np.ndarray  # [R] int32
+    src: np.ndarray        # [R, E_max] int32
+    dst: np.ndarray        # [R, E_max] int32
+    mask: np.ndarray       # [R, E_max] bool
+    counts: np.ndarray     # [R] int32 true edge counts
+
+    @property
+    def num_relations(self) -> int:
+        return int(self.relations.shape[0])
+
+    @property
+    def max_edges(self) -> int:
+        return int(self.src.shape[1])
 
 
 class HeteroGraph:
@@ -95,6 +116,48 @@ class HeteroGraph:
         """(src, dst) arrays of one relation, in file order."""
         s, e = self.rel_slice(relation)
         return self.sorted_src[s:e], self.sorted_dst[s:e]
+
+    def present_relations(self) -> List[int]:
+        """Relations with at least one edge, ascending."""
+        return [r for r in range(self.num_relations) if self.rel_counts[r] > 0]
+
+    def relation_batch(
+        self,
+        relations: Sequence[int],
+        pad_to: Optional[int] = None,
+        pad_multiple: int = 128,
+    ) -> RelationBatch:
+        """The edges of ``relations`` as one ``[R, E_max]`` batch, E_max the
+        largest count (at least 1 and ``pad_to``) rounded up to a multiple
+        of ``pad_multiple``."""
+        rels = _as_int32(relations)
+        counts = np.array([self.rel_counts[r] for r in rels], dtype=np.int32)
+        e_max = max(int(counts.max()) if counts.size else 1, 1)
+        if pad_to is not None:
+            e_max = max(e_max, int(pad_to))
+        e_max = -(-e_max // pad_multiple) * pad_multiple
+        src = np.zeros((len(rels), e_max), dtype=np.int32)
+        dst = np.zeros((len(rels), e_max), dtype=np.int32)
+        mask = np.zeros((len(rels), e_max), dtype=bool)
+        for i, r in enumerate(rels):
+            s, d = self.rel_edges(int(r))
+            src[i, :len(s)], dst[i, :len(s)], mask[i, :len(s)] = s, d, True
+        return RelationBatch(relations=rels, src=src, dst=dst, mask=mask,
+                             counts=counts)
+
+    def edge_dictionary(
+        self, relation: int, source_nodes: Sequence[int]
+    ) -> Dict[int, List[int]]:
+        """``{src: [dsts in file order]}`` of one relation, restricted to
+        ``source_nodes``; sources without an edge are left out (the
+        reference's create_edge_dictionary, main.py:387-407)."""
+        src, dst = self.rel_edges(relation)
+        wanted = set(int(v) for v in source_nodes)
+        out: Dict[int, List[int]] = {}
+        for s, d in zip(src.tolist(), dst.tolist()):
+            if s in wanted:
+                out.setdefault(s, []).append(d)
+        return out
 
     def rel_edges_csr(self, relation: int) -> Tuple[np.ndarray, np.ndarray]:
         """(src, dst) of one relation with src sorted ascending (stable, so

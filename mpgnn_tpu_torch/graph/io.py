@@ -8,7 +8,9 @@ Formats:
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,6 +100,13 @@ def load_dat_files(
     return _graph(node_file, link_file, labels), labels, binarize_labels(labels)
 
 
+def load_synthetic(folder: str) -> Tuple[HeteroGraph, np.ndarray,
+                                         List[np.ndarray]]:
+    """``load_dat_files`` on a generator folder's node/link/label.dat."""
+    return load_dat_files(*(os.path.join(folder, f) for f in (
+        "node.dat", "link.dat", "label.dat")))
+
+
 def load_fb15k237(
     node_file: str, link_file: str, label_file: str
 ) -> Tuple[HeteroGraph, np.ndarray, List[np.ndarray], List[int]]:
@@ -106,6 +115,62 @@ def load_fb15k237(
     label_nodes, labels = read_labels(label_file)
     return (_graph(node_file, link_file, labels), labels,
             binarize_labels(labels), [int(v) for v in label_nodes])
+
+
+def load_acm_style(
+    node_file: str, link_file: str, folder: str
+) -> Tuple[HeteroGraph, "PreSplitLabels", List[np.ndarray]]:
+    """ACM/DBLP/IMDB loader (the reference's ``load_files_acm``,
+    main.py:86-136): labels come pre-split in ``labels_{train,val,test}.dat``
+    (node id, label); they are concatenated train, val, test, the order the
+    binary label vectors and the source-node list share."""
+    parts = {}
+    for name in ("train", "val", "test"):
+        arr = load_int_tsv(os.path.join(folder, f"labels_{name}.dat"))
+        parts[name] = (arr[:, 0].copy(), arr[:, 1].copy())
+    sources = np.concatenate([parts[k][0] for k in ("train", "val", "test")])
+    labels = np.concatenate([parts[k][1] for k in ("train", "val", "test")])
+    presplit = PreSplitLabels(
+        train_idx=parts["train"][0], train_y=parts["train"][1],
+        val_idx=parts["val"][0], val_y=parts["val"][1],
+        test_idx=parts["test"][0], test_y=parts["test"][1],
+        sources=sources, labels=labels,
+    )
+    return (_graph(node_file, link_file, labels), presplit,
+            binarize_labels(labels))
+
+
+@dataclasses.dataclass(frozen=True)
+class PreSplitLabels:
+    """Pre-split labels as ACM/DBLP/IMDB ship them."""
+
+    train_idx: np.ndarray
+    train_y: np.ndarray
+    val_idx: np.ndarray
+    val_y: np.ndarray
+    test_idx: np.ndarray
+    test_y: np.ndarray
+    sources: np.ndarray
+    labels: np.ndarray
+
+    def as_split(self) -> NodeSplit:
+        return NodeSplit(
+            node_idx=self.sources,
+            train_idx=self.train_idx, train_y=self.train_y,
+            val_idx=self.val_idx, val_y=self.val_y,
+            test_idx=self.test_idx, test_y=self.test_y,
+        )
+
+
+def one_hot_features(values: Sequence) -> np.ndarray:
+    """[len(values), distinct values] float32 one-hot, one column per
+    distinct value in sorted order (``pd.get_dummies`` of the reference's
+    get_node_features, main.py:347-355)."""
+    _, codes = np.unique(np.asarray(list(values)), return_inverse=True)
+    out = np.zeros((len(codes), int(codes.max()) + 1 if len(codes) else 0),
+                   dtype=np.float32)
+    out[np.arange(len(codes)), codes] = 1.0
+    return out
 
 
 # --------------------------------------------------------------------- split

@@ -17,12 +17,18 @@ length group to 'csr' or 'segment' by the same cutover
 Differences from the JAX CLI:
 * ``--device`` (default ``cuda``) picks the device; ``--platform cpu`` is
   its alias, so the JAX command lines run unchanged;
-* refused, each with the ROADMAP.md item that brings it: ``--mesh`` (A12),
-  ``--trace_dir`` (A10), DBLP/IMDB/ACM (A2), and ``--dropout_rng
+* refused: ``--mesh`` (ROADMAP.md A12), and ``--dropout_rng
   threefry|rbg``: the port draws dropout masks from a ``torch.Generator``
   only ("What the port does not inherit").
   ``--no_warm`` is accepted and does nothing: the port has no
-  compile-ahead warmer (A13).
+  compile-ahead warmer (A13);
+* ``--trace_dir DIR`` writes one ``torch.profiler`` Chrome trace JSON a
+  class into DIR (``utils.prof.device_trace``), where the JAX CLI writes a
+  ``jax.profiler`` trace.
+
+``--dataset DBLP|IMDB|ACM`` reads the pre-split ``labels_{train,val,test}
+.dat`` of ``--folder`` (``graph.io.load_acm_style``) and trains on that
+split; ``--label_file`` is not read for them.
 
 Stdout ends with one JSON line: ``dataset``, ``classes.{i: {metapaths,
 test_f1}}``, ``wall_s``; logs go to stderr.
@@ -39,7 +45,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED_DATASETS = ("DBLP", "IMDB", "ACM")
+ACM_STYLE_DATASETS = ("DBLP", "IMDB", "ACM")
 
 
 def _supervise(args, argv) -> int:
@@ -83,8 +89,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim", type=int, required=True,
                    help="hidden dimension")
     p.add_argument("--dataset", type=str, required=True,
-                   help="synthetic | fb15k-237 (DBLP | IMDB | ACM are not "
-                        "ported yet)")
+                   help="synthetic | fb15k-237 | DBLP | IMDB | ACM")
     p.add_argument("--folder", type=str, required=True, help="dataset folder")
     p.add_argument("--node_file", type=str, required=True)
     p.add_argument("--link_file", type=str, required=True)
@@ -116,7 +121,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="directory to save the final joint model's "
                         "parameters per class (params.pt)")
     p.add_argument("--trace_dir", type=str, default=None,
-                   help="not ported yet (ROADMAP.md A10)")
+                   help="write a torch.profiler trace (Chrome JSON) of each "
+                        "class's search into this directory")
     p.add_argument("--no_warm", action="store_true",
                    help="accepted for the JAX command lines; the port has "
                         "no compile-ahead warmer")
@@ -154,11 +160,6 @@ def _refusals(args) -> list:
     out = []
     if args.mesh:
         out.append("--mesh is not ported yet (ROADMAP.md A12)")
-    if args.trace_dir:
-        out.append("--trace_dir is not ported yet (ROADMAP.md A10)")
-    if args.dataset in NOT_PORTED_DATASETS:
-        out.append(f"dataset {args.dataset} is not ported yet "
-                   f"(ROADMAP.md A2)")
     if args.dropout_rng != "auto":
         out.append(f"dropout_rng {args.dropout_rng!r} is not ported: dropout "
                    f"masks come from a torch.Generator (ROADMAP.md, 'What "
@@ -190,6 +191,7 @@ def main(argv=None):
     from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
     from mpgnn_tpu_torch.device import resolve_device
     from mpgnn_tpu_torch.graph.io import (
+        load_acm_style,
         load_dat_files,
         load_fb15k237,
         mask_label_leak,
@@ -197,6 +199,7 @@ def main(argv=None):
     )
     from mpgnn_tpu_torch.search import find_metapaths
     from mpgnn_tpu_torch.utils.checkpoint import SearchCheckpoint
+    from mpgnn_tpu_torch.utils.prof import device_trace
 
     device = resolve_device(_device(args))
     t_start = time.time()
@@ -206,10 +209,16 @@ def main(argv=None):
     label_f = folder + args.label_file
 
     source_nodes = None
+    presplit = None
     if args.dataset == "fb15k-237":
         graph, labels, binary_labels, source_nodes = load_fb15k237(
             node_f, link_f, label_f
         )
+    elif args.dataset in ACM_STYLE_DATASETS:
+        graph, presplit, binary_labels = load_acm_style(node_f, link_f,
+                                                        folder)
+        labels = presplit.labels
+        source_nodes = presplit.sources.tolist()
     else:
         graph, labels, binary_labels = load_dat_files(node_f, link_f, label_f)
 
@@ -227,34 +236,44 @@ def main(argv=None):
 
     results = {}
     for list_index, binary_lab in enumerate(binary_labels):
-        # per-class split and label-leak masking (main.py:1214-1240)
-        split = split_nodes(labels, node_idx=source_nodes, seed=cfg.split_seed)
+        # per-class split and label-leak masking (main.py:1214-1240);
+        # ACM/DBLP/IMDB ship pre-split labels (main.py:96-113)
+        if presplit is not None:
+            split = presplit.as_split()
+        else:
+            split = split_nodes(labels, node_idx=source_nodes,
+                                seed=cfg.split_seed)
         x = graph.x
         if args.dataset == "fb15k-237":
             x = mask_label_leak(graph.x, split)
-        num_classes = int(len(np.unique(labels)))
+        # one output a label id: the JAX CLI takes the count of distinct
+        # labels, which on ids with gaps (fb15k-237-continent's 0, 1, 3, 6)
+        # leaves labels past the last output, where its NLL gathers NaN
+        num_classes = max(int(len(np.unique(labels))),
+                          int(np.max(labels)) + 1)
 
         if ckpt and ckpt.has(list_index):
             results[list_index] = ckpt.load(list_index)
             logging.info("class %d restored from checkpoint", list_index)
             continue
 
-        res = find_metapaths(
-            graph,
-            np.asarray(binary_lab, dtype=np.float32),
-            split,
-            num_classes=num_classes,
-            config=cfg,
-            dataset=args.dataset,
-            source_nodes=source_nodes,
-            x_features=x,
-            seed=args.seed,
-            frontier_checkpoint=(
-                f"{args.frontier}.class{list_index}.pkl"
-                if args.frontier else None
-            ),
-            device=device,
-        )
+        with device_trace(args.trace_dir):
+            res = find_metapaths(
+                graph,
+                np.asarray(binary_lab, dtype=np.float32),
+                split,
+                num_classes=num_classes,
+                config=cfg,
+                dataset=args.dataset,
+                source_nodes=source_nodes,
+                x_features=x,
+                seed=args.seed,
+                frontier_checkpoint=(
+                    f"{args.frontier}.class{list_index}.pkl"
+                    if args.frontier else None
+                ),
+                device=device,
+            )
         results[list_index] = res
         if ckpt:
             ckpt.save(list_index, res)

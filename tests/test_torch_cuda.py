@@ -767,3 +767,62 @@ def test_bf16_training_on_the_card(dev, backend):
     # csr: K1's or K2's bf16 form, as each direction routes
     assert (after[0] > before[0]) == (backend == "csr")
     assert (after[1] > before[1]) == (backend == "pallas")
+
+
+def _planted_partition(parts):
+    from mpgnn_tpu_torch.graph.generate import generate_synthetic_graph
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.graph.partition import PartitionedHeteroGraph
+
+    g = generate_synthetic_graph(800, 4, "red-red-blue", seed=7)
+    pg = PartitionedHeteroGraph(g["node_features"].astype(np.float32),
+                                g["src"], g["dst"], g["rel"], 4, parts,
+                                labels=g["labels"])
+    return pg, [list(g["metapath_relations"])], split_nodes(g["labels"])
+
+
+def test_streaming_equals_resident_on_the_card(dev):
+    """Clustered csr training with every group copied one visit ahead on
+    a side stream (``resident=False``) gives bitwise the parameters of the
+    run with every group on the card, dropout on; K1 runs in both."""
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train.stream import train_mpgnn_clustered
+
+    pg, mp, split = _planted_partition(5)
+    cfg = MPGNNConfig(epochs=8, hidden_dim=16)
+    runs = []
+    for resident in (True, False):
+        before = csr.SCATTER_LAUNCHES
+        rep = {}
+        res = train_mpgnn_clustered(pg, mp, split, 2, cfg, backend="csr",
+                                    resident=resident, report=rep)
+        assert csr.SCATTER_LAUNCHES > before
+        assert rep["resident"] is resident and rep["device_peak_bytes"] > 0
+        runs.append(res)
+    for a, b in zip(runs[0].params.parameters(), runs[1].params.parameters()):
+        assert torch.equal(a, b)
+    assert runs[0].test_f1 == runs[1].test_f1
+
+
+def test_fused_csr_visit_k1_matches_plain(dev):
+    """A fused visit's blockings: a group's relation at the common row
+    count n_max (rows past the group's own stay empty), dedup off, both
+    directions through K1 against its plain version."""
+    pg, mp, _ = _planted_partition(5)
+    subs = [pg.subgraph(b, halo_hops=2, halo_relations=mp[0])
+            for b in ([0, 1], [2, 3], [4])]
+    n_max = max(s.num_real_nodes for s in subs)
+    sub = min(subs, key=lambda s: s.num_real_nodes)
+    assert sub.num_real_nodes < n_max
+    x = torch.randn(n_max, 16, generator=torch.Generator().manual_seed(0))
+    for rel in mp[0]:
+        fwd, bwd = csr.build_csr_blocking(*sub.graph.rel_edges(rel), n_max,
+                                          dedup="never")
+        for blk in (fwd, bwd):
+            assert isinstance(blk, csr.CsrBlocking)
+            before = csr.SCATTER_LAUNCHES
+            got = csr.csr_scatter(blk.to(dev), x.to(dev))
+            assert csr.SCATTER_LAUNCHES == before + 1
+            want = csr.csr_scatter_plain(blk, x)
+            torch.testing.assert_close(got.cpu(), want, **TOL)
+            assert not got[sub.num_real_nodes:].any()

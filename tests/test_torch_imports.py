@@ -29,7 +29,12 @@ need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
         "mpgnn_tpu_torch.run", "mpgnn_tpu_torch.ops.gather",
         "mpgnn_tpu_torch.benchmarks.bench_dma_gather",
         "mpgnn_tpu_torch.train.batch_eval", "mpgnn_tpu_torch.rgcn_baseline",
-        "mpgnn_tpu_torch.benchmarks.bench_train"}}
+        "mpgnn_tpu_torch.benchmarks.bench_train",
+        "mpgnn_tpu_torch.graph.partition", "mpgnn_tpu_torch.train.stream",
+        "mpgnn_tpu_torch.benchmarks.bench_ooc", "mpgnn_tpu_torch.generate",
+        "mpgnn_tpu_torch.graph.fb15k", "mpgnn_tpu_torch.graph.continents",
+        "mpgnn_tpu_torch.graph.gtn", "mpgnn_tpu_torch.utils.misc",
+        "mpgnn_tpu_torch.utils.prof"}}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """
@@ -100,3 +105,20 @@ def test_new_entry_points_refuse_without_a_device():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_rgcn_net(2, 4, 1, 4, 2)
     assert bench_train.main(["--epochs", "1"]) == 2
+
+
+def test_out_of_core_entry_points_refuse_without_a_device():
+    """The clustered trainer runs on the card unless asked for the CPU;
+    the out-of-core bench refuses without one."""
+    _no_cuda()
+    from mpgnn_tpu_torch.benchmarks import bench_ooc
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.graph.partition import PartitionedHeteroGraph
+    from mpgnn_tpu_torch.train.stream import train_mpgnn_clustered
+
+    labels = np.array([0, 1] * 20)
+    pg = PartitionedHeteroGraph(np.zeros((40, 2), np.float32), [0, 1],
+                                [1, 2], [0, 0], 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mpgnn_clustered(pg, [[0]], split_nodes(labels), 2)
+    assert bench_ooc.main(["--epochs", "1"]) == 2

@@ -270,7 +270,6 @@ def test_cli_runs_and_resumes_from_a_jax_checkpoint(dataset, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "A12"),
-    (["--trace_dir", "t"], "A10"),
     (["--dropout_rng", "rbg"], "does not inherit"),
     (["--dropout_rng", "threefry"], "does not inherit"),
 ])
@@ -284,10 +283,104 @@ def test_cli_refuses_what_is_not_ported(capsys, flag, item):
     assert item in capsys.readouterr().err
 
 
-def test_cli_refuses_acm_style_datasets(capsys):
+def _stub_eval(graph, paths, split, num_classes, cfg=None, seed=0,
+               x_override=None, backend=None, existing=None, sink=None,
+               **kw):
+    """The batched evaluation's stand-in: each candidate's validation F1
+    from ``_stub_train``."""
+    train = _stub_train()
+    return {str(list(p)): train(graph, [list(p)], split, num_classes).val_f1
+            for p in paths}
+
+
+def _stub_both_engines(monkeypatch):
+    import mpgnn_tpu.train.batch_eval as j_batch
+
+    monkeypatch.setattr(teng, "train_mpgnn", _stub_train())
+    monkeypatch.setattr(teng, "evaluate_candidates", _stub_eval)
+    monkeypatch.setattr(jeng, "train_mpgnn", _stub_train())
+    monkeypatch.setattr(j_batch, "evaluate_candidates", _stub_eval)
+
+
+def _acm_fixture(folder):
+    """A DBLP-style folder (tests/test_train.py's layout): node.dat,
+    link.dat and labels_{train,val,test}.dat, the labels a three-class
+    planted graph's, split 60/20/20 in a seeded order."""
+    g = generate_synthetic_graph(300, 4, "red-red-blue",
+                                 metapath2="blue-red", multiclass=True,
+                                 seed=3, out_dir=folder)
+    order = np.random.default_rng(0).permutation(300)
+    for name, part in (("train", order[:180]), ("val", order[180:240]),
+                       ("test", order[240:])):
+        with open(os.path.join(folder, f"labels_{name}.dat"), "w") as f:
+            for i in part:
+                f.write(f"{i}\t{g['labels'][i]}\n")
+    return folder
+
+
+def test_cli_acm_style_dataset_matches_jax(tmp_path, capsys, monkeypatch):
+    """``--dataset DBLP`` reads the pre-split labels and trains each class
+    on that split, as the JAX CLI does: with the MPNetm training stubbed in
+    both engines, the same per-class metapaths and test F1s."""
+    from mpgnn_tpu.run import main as j_main
     from mpgnn_tpu_torch.run import main
 
-    with pytest.raises(SystemExit):
-        main(["--hidden_dim", "8", "--dataset", "ACM", "--folder", ".",
-              "--node_file", "n", "--link_file", "l", "--label_file", "l"])
-    assert "A2" in capsys.readouterr().err
+    folder = _acm_fixture(str(tmp_path / "dblp"))
+    argv = ["--hidden_dim", "8", "--dataset", "DBLP", "--folder", folder,
+            "--node_file", "node.dat", "--link_file", "link.dat",
+            "--label_file", "unused.dat", "--epochs", "10", "--max_hops",
+            "1"]
+    _stub_both_engines(monkeypatch)
+    j_main(argv + ["--no_warm"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    main(argv + ["--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["dataset"] == "DBLP" and len(got["classes"]) == 3
+    assert got["classes"] == want["classes"]
+    assert any(c["metapaths"] for c in got["classes"].values())
+
+
+def test_cli_trace_dir_writes_a_trace(dataset, tmp_path, capsys,
+                                      monkeypatch):
+    """``--trace_dir`` profiles each class's search into one Chrome trace
+    JSON (one class here: binary labels)."""
+    from mpgnn_tpu_torch.run import main
+
+    monkeypatch.setattr(teng, "train_mpgnn", _stub_train())
+    monkeypatch.setattr(teng, "evaluate_candidates", _stub_eval)
+    trace_dir = str(tmp_path / "trace")
+    main(["--device", "cpu", "--hidden_dim", "8", "--dataset", "synthetic",
+          "--folder", dataset, "--node_file", "node.dat", "--link_file",
+          "link.dat", "--label_file", "label.dat", "--epochs", "10",
+          "--max_hops", "1", "--trace_dir", trace_dir])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(summary["classes"]) == ["0"]
+    (name,) = os.listdir(trace_dir)
+    assert name.startswith("trace-") and name.endswith(".json")
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_cli_trains_labels_with_gaps(tmp_path, capsys):
+    """Label ids with gaps (fb15k-237-continent's are 0, 1, 3 and 6): the
+    CLI gives the model one output a label id, so every label has its
+    output. (The JAX CLI sizes it by the count of distinct labels, and its
+    NLL gathers NaN for the labels past the last output.)"""
+    from mpgnn_tpu_torch.run import main
+
+    folder = _acm_fixture(str(tmp_path / "gaps"))
+    for name in ("train", "val", "test"):
+        path = os.path.join(folder, f"labels_{name}.dat")
+        rows = [line.split() for line in open(path)]
+        with open(path, "w") as f:
+            for node, label in rows:
+                f.write(f"{node}\t{3 * int(label)}\n")
+    main(["--device", "cpu", "--hidden_dim", "8", "--dataset", "IMDB",
+          "--folder", folder, "--node_file", "node.dat", "--link_file",
+          "link.dat", "--label_file", "unused.dat", "--epochs", "5",
+          "--max_hops", "1"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["dataset"] == "IMDB" and len(summary["classes"]) == 3
+    for cls in summary["classes"].values():
+        assert 0.0 < cls["test_f1"] <= 1.0 and cls["metapaths"]
