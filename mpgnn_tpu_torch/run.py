@@ -249,8 +249,7 @@ def main(argv=None):
         # one output a label id: the JAX CLI takes the count of distinct
         # labels, which on ids with gaps (fb15k-237-continent's 0, 1, 3, 6)
         # leaves labels past the last output, where its NLL gathers NaN
-        num_classes = max(int(len(np.unique(labels))),
-                          int(np.max(labels)) + 1)
+        num_classes = int(np.max(labels)) + 1
 
         if ckpt and ckpt.has(list_index):
             results[list_index] = ckpt.load(list_index)

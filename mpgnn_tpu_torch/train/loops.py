@@ -199,12 +199,22 @@ def drop_operands(graph: HeteroGraph, backend: str) -> None:
 
 
 def relation_op(graph: HeteroGraph, rel: int, backend: str,
-                device: torch.device) -> tuple:
+                device: torch.device, num_rows: Optional[int] = None,
+                dedup: str = "auto") -> tuple:
     """One relation's aggregation operand on ``device``, the tagged tuple
-    of ``build_hop_arrays`` for ``backend``, built anew."""
+    of ``build_hop_arrays`` for ``backend``, built anew.
+
+    ``num_rows`` (at least ``graph.num_nodes``; 'segment' and 'csr' only)
+    gives the operand that many rows, the extra ones with no edges: the
+    fused clustered mode's common row count. ``dedup`` is
+    ``build_csr_blocking``'s."""
+    if num_rows is not None and backend not in ("segment", "csr"):
+        raise ValueError(f"num_rows is for segment and csr, not {backend!r}")
+    n = graph.num_nodes if num_rows is None else num_rows
     if backend == "segment":
         s, d = graph.rel_edges_csr(rel)
-        deg = graph.rel_degrees(rel)
+        deg = np.zeros(n, dtype=np.int64)
+        deg[: graph.num_nodes] = graph.rel_degrees(rel)
         inv = (1.0 / np.maximum(deg, 1)).astype(np.float32)
         return ("segment",
                 torch.from_numpy(s.astype(np.int64)).to(device),
@@ -216,7 +226,7 @@ def relation_op(graph: HeteroGraph, rel: int, backend: str,
                 torch.from_numpy(mask).to(device))
     s, d = graph.rel_edges(rel)
     if backend == "csr":
-        fwd, bwd = build_csr_blocking(s, d, graph.num_nodes)
+        fwd, bwd = build_csr_blocking(s, d, n, dedup=dedup)
         return ("csr", fwd.to(device), bwd.to(device))
     if backend == "ell2":
         return ("ell2",) + tuple(

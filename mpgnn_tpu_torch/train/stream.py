@@ -45,7 +45,6 @@ from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.graph.hetero import NodeSplit
 from mpgnn_tpu_torch.graph.partition import PartitionedHeteroGraph, Subgraph
 from mpgnn_tpu_torch.models.mpgnn import MPNetm
-from mpgnn_tpu_torch.ops.csr import build_csr_blocking
 from mpgnn_tpu_torch.train.loops import (
     MPGNNTrainResult,
     _check_backend,
@@ -202,50 +201,23 @@ def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def _host_hop_ops(sub: Subgraph, metapaths, backend: str,
-                  dt: torch.dtype) -> list:
-    """Per-(metapath, hop) operands of one group, built on the host (CPU
-    tensors), one a relation; not kept on the subgraph, so that a streamed
-    group's pinned copy is its only copy."""
+def host_hop_ops(sub: Subgraph, metapaths, backend: str,
+                 dt: torch.dtype = torch.float32,
+                 fused_rows: Optional[int] = None) -> list:
+    """Per-(metapath, hop) operands of one group as a clustered run builds
+    them, on the host (CPU tensors), one a relation; not kept on the
+    subgraph, so that a streamed group's pinned copy is its only copy.
+    ``fused_rows``, fused mode's common row count, builds them at that many
+    rows with dedup off (K1 alone)."""
     built: Dict[int, tuple] = {}
     for rel in sorted(set(int(r) for mp in metapaths for r in mp)):
-        op = relation_op(sub.graph, rel, backend, torch.device("cpu"))
+        op = relation_op(sub.graph, rel, backend, torch.device("cpu"),
+                         num_rows=fused_rows,
+                         dedup="auto" if fused_rows is None else "never")
         if backend == "dense" and dt != torch.float32:
             op = (op[0],) + tuple(a.to(dt) for a in op[1:])
         built[rel] = op
     return [[built[int(r)] for r in mp] for mp in metapaths]
-
-
-def _fused_groups(subs, host, metapaths, backend: str,
-                  dt: torch.dtype) -> List[_Group]:
-    """Every group's operands at the common row count n_max (the largest
-    group's): features, mask and labels zero-padded; csr blockings built at
-    n_max rows with dedup off (K1 only); segment edge lists with
-    1/max(deg, 1) over n_max rows."""
-    n_max = max(sub.num_real_nodes for sub in subs)
-    out = []
-    for sub, g in zip(subs, host):
-        hop_ops = []
-        for mp in metapaths:
-            row = []
-            for rel in mp:
-                s, d = sub.graph.rel_edges(int(rel))
-                if backend == "csr":
-                    fwd, bwd = build_csr_blocking(s, d, n_max, dedup="never")
-                    row.append(("csr", fwd, bwd))
-                else:
-                    s, d = sub.graph.rel_edges_csr(int(rel))
-                    deg = np.bincount(s, minlength=n_max)
-                    inv = (1.0 / np.maximum(deg, 1)).astype(np.float32)
-                    row.append(("segment",
-                                torch.from_numpy(s.astype(np.int64)),
-                                torch.from_numpy(d.astype(np.int64)),
-                                torch.from_numpy(inv)))
-            hop_ops.append(row)
-        out.append(_Group(x=_pad_rows(g.x, n_max), hop_ops=hop_ops,
-                          tmask=_pad_rows(g.tmask, n_max),
-                          y=_pad_rows(g.y, n_max)))
-    return out
 
 
 def fit_mpgnn_clustered(
@@ -295,7 +267,7 @@ def fit_mpgnn_clustered(
     def host_group(sub: Subgraph) -> _Group:
         # fused csr builds its blockings at the common row count later;
         # per-group layouts here would double the host build for nothing
-        hop_ops = [] if fused else _host_hop_ops(sub, metapaths, backend, dt)
+        hop_ops = [] if fused else host_hop_ops(sub, metapaths, backend, dt)
         return _Group(
             x=torch.from_numpy(np.asarray(sub.graph.x, dtype=np.float32)),
             hop_ops=hop_ops,
@@ -332,11 +304,19 @@ def fit_mpgnn_clustered(
     host = [arrs for _, arrs in prepared]
     del prepared
     if fused:
+        # every group at the largest group's row count, zero-padded
         t0 = time.perf_counter()
-        host = _fused_groups(subs, host, metapaths, backend, dt)
+        n_max = max(sub.num_real_nodes for sub in subs)
+        host = [_Group(x=_pad_rows(g.x, n_max),
+                       hop_ops=host_hop_ops(sub, metapaths, backend, dt,
+                                            fused_rows=n_max),
+                       tmask=_pad_rows(g.tmask, n_max),
+                       y=_pad_rows(g.y, n_max))
+                for sub, g in zip(subs, host)]
         if report is not None:
             report["stack_build_s"] = time.perf_counter() - t0
             report["stacked_bytes"] = sum(_nbytes(g) for g in host)
+            report["fused_rows"] = int(n_max)
         resident = True
     elif resident is None:
         resident = (sum(_nbytes(g) for g in host)
@@ -451,7 +431,8 @@ def train_mpgnn_clustered(
     ``auto_dense_budget_bytes``. ``report``, a dict, receives per-group
     sizes (``groups``), the phase walls (``prep_s``, ``train_s``,
     ``epoch_s``, ``eval_s``; fused: ``stack_build_s``, ``upload_s``),
-    ``steps``, ``mp_edges_per_epoch`` and, on the card,
+    ``steps``, ``mp_edges_per_epoch``, fused mode's row count
+    (``fused_rows``) and, on the card,
     ``device_peak_bytes`` (``torch.cuda.max_memory_allocated`` since the
     operands' upload began)."""
     cfg = cfg or MPGNNConfig()

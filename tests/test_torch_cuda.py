@@ -808,6 +808,8 @@ def test_fused_csr_visit_k1_matches_plain(dev):
     """A fused visit's blockings: a group's relation at the common row
     count n_max (rows past the group's own stay empty), dedup off, both
     directions through K1 against its plain version."""
+    from mpgnn_tpu_torch.train.stream import host_hop_ops
+
     pg, mp, _ = _planted_partition(5)
     subs = [pg.subgraph(b, halo_hops=2, halo_relations=mp[0])
             for b in ([0, 1], [2, 3], [4])]
@@ -815,10 +817,8 @@ def test_fused_csr_visit_k1_matches_plain(dev):
     sub = min(subs, key=lambda s: s.num_real_nodes)
     assert sub.num_real_nodes < n_max
     x = torch.randn(n_max, 16, generator=torch.Generator().manual_seed(0))
-    for rel in mp[0]:
-        fwd, bwd = csr.build_csr_blocking(*sub.graph.rel_edges(rel), n_max,
-                                          dedup="never")
-        for blk in (fwd, bwd):
+    for op in host_hop_ops(sub, mp, "csr", fused_rows=n_max)[0]:
+        for blk in op[1:]:
             assert isinstance(blk, csr.CsrBlocking)
             before = csr.SCATTER_LAUNCHES
             got = csr.csr_scatter(blk.to(dev), x.to(dev))
@@ -826,3 +826,26 @@ def test_fused_csr_visit_k1_matches_plain(dev):
             want = csr.csr_scatter_plain(blk, x)
             torch.testing.assert_close(got.cpu(), want, **TOL)
             assert not got[sub.num_real_nodes:].any()
+
+
+def test_hold_group_kernels_on_both_layouts(dev):
+    """bench_ooc's check of a clustered run's kernels: K1 (and K2 where a
+    direction routes to it) on every group's blockings as a streaming and
+    a fused run built them, against the plain versions."""
+    from mpgnn_tpu_torch.benchmarks.bench_ooc import hold_group_kernels
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train.stream import train_mpgnn_clustered
+
+    pg, mp, split = _planted_partition(5)
+    for fused in (False, True):
+        rep = {}
+        train_mpgnn_clustered(pg, mp, split, 2,
+                              MPGNNConfig(epochs=2, hidden_dim=16),
+                              backend="csr", resident=False, fused=fused,
+                              report=rep)
+        held = hold_group_kernels(pg, mp, rep, range(len(rep["groups"])),
+                                  (16, pg.feat_dim))
+        assert held["csr_scatter"]["blockings"] > 0
+        assert all(k["close"] for k in held.values())
+        if fused:
+            assert held["csr_dedup"]["blockings"] == 0

@@ -249,6 +249,34 @@ def test_clustered_training_with_dropout_learns_the_planted_path(planted):
     assert res.val_f1 > 0.95 and res.test_f1 > 0.9
 
 
+@pytest.mark.parametrize("backend", ["segment", "csr"])
+def test_host_hop_ops_at_fused_rows(planted, backend):
+    """A group's operands at fused mode's common row count aggregate its
+    rows exactly as at its own row count (csr: dedup off, K1's plain
+    version) and leave the rows past its own at zero."""
+    from mpgnn_tpu_torch.ops.csr import CsrBlocking
+    from mpgnn_tpu_torch.models.mpgnn import hop_aggregate
+    from mpgnn_tpu_torch.train.stream import host_hop_ops
+
+    _, tg, g = planted
+    mp = [list(g["metapath_relations"])]
+    sub = TPart.from_graph(tg, 5, seed=0).subgraph([4], halo_hops=3)
+    n, n_max = sub.num_real_nodes, sub.num_real_nodes + 37
+    x = torch.randn(n, 8, generator=torch.Generator().manual_seed(0))
+    x_pad = torch.cat([x, torch.zeros(n_max - n, 8)])
+    own = host_hop_ops(sub, mp, backend)[0]
+    fused = host_hop_ops(sub, mp, backend, fused_rows=n_max)[0]
+    for a, b in zip(own, fused):
+        if backend == "csr":
+            assert all(isinstance(blk, CsrBlocking) and blk.num_rows == n_max
+                       for blk in b[1:])
+        want = hop_aggregate(x, a, n)
+        got = hop_aggregate(x_pad, b, n_max)
+        np.testing.assert_allclose(got[:n].numpy(), want.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        assert not got[n:].any()
+
+
 def test_fused_refuses_other_backends(planted):
     _, tg, g = planted
     with pytest.raises(ValueError, match="segment or csr"):
