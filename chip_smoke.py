@@ -5,11 +5,15 @@
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --search-only
     python3 chip_smoke.py --ooc-only
+    python3 chip_smoke.py --parallel-only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. build the CUDA kernels from ``mpgnn_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and print each kernel's register report;
+   source, in parallel) and print each kernel's register report; then the
+   first-call costs the JAX package's warmer hides (``warm_costs``): the
+   card's context, the first K1 launch after the build against the
+   second, and a ``train_mpgnn`` run's first epoch against its second;
 2. kernels: on the uniform graph (200k nodes / 10M edges / 4 relations,
    the 200k-node north-star shape of ``bench.py``) and the power-law KG
    (200k nodes / 2M edges / 237 relations / planted path of 3 / seed 5),
@@ -159,7 +163,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``--dataset ACM`` on labels_{train,val,test}.dat written from
    ``data/synthetic_multiclass``, and with ``--dataset fb15k-237`` on
    ``data/fb15k-237-continent`` with an all-zero node.dat written beside
-   it (each cut to ``OOC_CLI``).
+   it (each cut to ``OOC_CLI``);
+10. multi-rank, ``parallel/`` on torch.distributed, correctness runs on
+   the one card (several ranks share it; gloo stages CUDA tensors through
+   pinned host memory, so no time here is a scaling number): (a) K1 on the
+   rectangular blockings of every shard of the uniform graph's relations
+   0 and 1 at P = 2 and 4, local and halo, forward and backward, F = 16
+   and 64, against its plain version (``KERNEL_TOL``), local + halo
+   against the full relation's mean (1e-5), each shard's launches timed at
+   F = 64 beside bound, plain, ``torch.sparse.mm`` and the square K1; (b)
+   ``train_mpgnn(backend='halo')`` on the uniform graph, [[0, 1]], hidden
+   64, ``HALO_EPOCHS``, dropout 0, ``halo_local='csr'``, on 2 gloo ranks
+   with 'a2a' and 'ppermute' (each rank's K1 launches equal to what its
+   hops imply, its epoch and exchange ms) against the single-process csr
+   run (``HALO_*`` bounds), a bf16 ``num_bases=2`` run, a world-1 NCCL
+   halo run equal to csr, what gloo does with CUDA tensors and what NCCL
+   says to 2 ranks on one card; (c) ``build_sharded_train_step`` on 4
+   ranks as (data, model) = (2, 2), ``SHARDED_STEPS`` steps on
+   ``data/synthetic_multiclass`` against the replicated step; (d)
+   ``train_elastic`` 4 -> 2 ranks with a fault at step ``ELASTIC_FAULT``
+   against the run without; (e) ``torchrun --nproc_per_node 2 -m
+   mpgnn_tpu_torch.run --mesh 2`` at ``MESH_CLI``'s cut settings against
+   the single-process CLI: the same selections and F1s.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -174,7 +199,9 @@ just before them and read just after; K1
 and the csr backward must have launched in (a) and (c), in (c) K2 too
 where a candidate's relation routes to it, and K4 in (e). Phase 9 (b)
 sets them to 0 before each clustered run and reads them after it; their
-sum is the kernels line's ``launches_ooc``. K5's probe
+sum is the kernels line's ``launches_ooc``. Phase 10 (b)'s ranks set
+theirs to 0 before each halo run and read them after it; their sum is
+``launches_halo``. K5's probe
 counts its own in its child process, which starts at 0.
 The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -185,7 +212,7 @@ checkout DIR (the parent of a change, say), so that two versions of the
 kernels are timed by the same script on one card, in turns (K5's probe
 runs where that checkout has it).
 ``--search-only`` runs phases 1 and 8 alone, ``--ooc-only`` phases 1
-and 9.
+and 9, ``--parallel-only`` phases 1 and 10.
 """
 
 from __future__ import annotations
@@ -945,8 +972,10 @@ def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
 # reference's 1000 so that phase 8 stays within about 6 minutes: at 1000,
 # (a) took 655 s and (b) 178 s of host-bound training (75 and 15 candidates
 # at 5-8 ms an epoch on an H100 80GB HBM3 at its 700 W limit), at 300 phase
-# 8 took 472 s. The sweeps do not depend on it.
-SEARCH_EPOCHS = 150
+# 8 took 472 s, at 150 356 s. Cut to 100 when phase 10 came, so that the
+# whole script stays near half its 1200 s limit (607 s before phase 10).
+# The sweeps do not depend on it.
+SEARCH_EPOCHS = 100
 # the README's line (its default --backend is 'auto'), at SEARCH_EPOCHS
 SEARCH_LINE = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
                "--folder", SYNTH, "--node_file", "node.dat", "--link_file",
@@ -2437,6 +2466,342 @@ def ooc_phase(torch, csr, conv, kg, planted) -> dict:
     return launches
 
 
+# 10. multi-rank: parallel/ on torch.distributed
+#
+# Every multi-rank run of phase 10 is a correctness run on ONE card: two or
+# four ranks share its SMs and its memory, and gloo stages each CUDA tensor
+# through pinned host memory, so its times say what an exchange costs, not
+# how training scales.
+HALO_EPOCHS = 20
+HALO_BF16_EPOCHS = 5
+SHARDED_STEPS = 10
+ELASTIC_STEPS, ELASTIC_FAULT, ELASTIC_EVERY = 12, 5, 4
+# the node-sharded runs hold to the single-process csr run from the same
+# seed within bench_parallel.HALO_LOSS_RTOL / HALO_F1_ATOL (dropout 0);
+# one rank over NCCL: its halo is empty, so its K1 launches sum what the
+# single-process run's do, in the same order, plus an empty halo blocking:
+# bitwise equal in the reading above, and held so
+HALO_WORLD1_ATOL = 0.0
+# the (2, 2) sharded step against the replicated single-process step, and
+# the faulted elastic run against the one without a fault: float32 sums
+# split over other ranks. Read (the same run): 1.6e-7 relative at most in
+# each; the bounds leave 60x
+SHARDED_LOSS_RTOL = 1e-5
+ELASTIC_LOSS_RTOL = 1e-5
+# 10 (e): the search CLI on 2 ranks against one process, cut from 1000
+# epochs and 3 extension hops so that each takes seconds; 'auto' resolves
+# to dense (K4) on this 5,000-node graph, whose products of one candidate
+# do not depend on the others beside it
+MESH_CLI = ["--hidden_dim", str(HIDDEN), "--dataset", "synthetic",
+            "--folder", SYNTH, "--node_file", "node.dat", "--link_file",
+            "link.dat", "--label_file", "label.dat", "--epochs", "50",
+            "--max_hops", "1"]
+
+
+def warm_costs(torch, csr, load_dat_files, split_nodes) -> dict:
+    """The first-call costs the JAX package's warmer (``utils/warm.py``)
+    hides there, here in a fresh process: the card's context and first
+    allocation, the first K1 launch after the build (the library's load
+    included) against the second, and two ``train_mpgnn`` runs on fresh
+    copies of ``data/synthetic_multiclass`` (none of whose operands a later
+    phase finds built), the process's first and its second: each one's
+    set-up to its model's first forward and its first three epochs (host
+    clock, synchronised after each step)."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.train import train_mpgnn
+
+    rec = {}
+
+    def first(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rec[name] = time.perf_counter() - t0
+
+    first("context_s", lambda: torch.zeros(1, device="cuda"))
+    # what a first run touches once, one at a time: the device generator,
+    # a cuBLAS product, autograd's device thread, an Adam step
+    first("generator_s", lambda: torch.rand(
+        4, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0)))
+    a = torch.ones(64, 64, device="cuda", requires_grad=True)
+    first("matmul_s", lambda: a @ a)
+    first("backward_s", lambda: (a @ a).sum().backward())
+    first("adam_s", lambda: torch.optim.Adam([a], lr=0.01).step())
+    files = [os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                              "label.dat")]
+    graph, labels, _ = load_dat_files(*files)
+    s, d = graph.rel_edges(1)
+    blk, _ = csr.build_csr_blocking(s, d, graph.num_nodes)
+    blk = blk.to("cuda")
+    x = torch.ones(graph.num_nodes, HIDDEN, device="cuda")
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        csr.csr_scatter(blk, x)
+        torch.cuda.synchronize()
+        rec[f"k1_call{i}_ms"] = 1e3 * (time.perf_counter() - t0)
+    for run in (1, 2):
+        graph, labels, _ = load_dat_files(*files)
+        marks = []
+
+        def mark(*_):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        pre = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda m, _: None if marks else mark())
+        hook = register_optimizer_step_post_hook(mark)
+        try:
+            t0 = time.perf_counter()
+            train_mpgnn(graph, SYNTH_PATHS, split_nodes(labels), 3,
+                        MPGNNConfig(epochs=3, hidden_dim=HIDDEN),
+                        backend="csr")
+        finally:
+            pre.remove()
+            hook.remove()
+        rec[f"run{run}_set_up_s"] = marks[0] - t0
+        rec[f"run{run}_epoch_ms"] = [1e3 * (b - a) for a, b in
+                                     zip(marks[:-1], marks[1:])]
+    log(phase="warm", **rec)
+    return rec
+
+
+def halo_kernels(torch, csr, HeteroGraph) -> list:
+    """10 (a): K1 on the rectangular blockings of every shard of the
+    uniform graph's relations 0 and 1 at P = 2 and 4 ('a2a' plans), the
+    local and the halo blocking, forward and backward, at F = 16 and 64,
+    against ``csr_scatter_plain`` (``KERNEL_TOL``); local + halo against
+    the full relation's square K1 mean (1e-5), padded rows 0. At F = 64 on
+    relation 0 each shard's launches are timed (device ms) beside their
+    bound, ``torch.sparse.mm`` on the same CSR and the square K1."""
+    from mpgnn_tpu_torch.parallel.halo import (
+        build_halo_csr_operands,
+        build_halo_plan,
+    )
+
+    dev = torch.device("cuda")
+    graph, _ = uniform_graph(HeteroGraph)
+    n = graph.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(10)
+    records = []
+    for rel in (0, 1):
+        s, d = graph.rel_edges(rel)
+        square, _ = csr.build_csr_blocking(s, d, n)
+        check(isinstance(square, csr.CsrBlocking),
+              f"uniform relation {rel} did not route to K1")
+        square = square.to(dev)
+        for p_count in (2, 4):
+            plan = build_halo_plan(s, d, n, p_count)
+            S = plan.block
+            for p in range(p_count):
+                lf, lb, hf, hb = (b.to(dev) for b in
+                                  build_halo_csr_operands(plan, p))
+                ids = np.concatenate(
+                    [plan.halo_ids(q, p) for q in plan.recv_order(p)])
+                ids = torch.as_tensor(ids, device=dev)
+                for f in (16, 64):
+                    x = torch.randn(p_count * S, f, generator=gen,
+                                    device=dev)
+                    x[n:] = 0.0
+                    g = torch.randn(S, f, generator=gen, device=dev)
+                    xl, xh = x[p * S:(p + 1) * S], x[ids].contiguous()
+                    cases = (("local fwd", lf, xl), ("halo fwd", hf, xh),
+                             ("local bwd", lb, g), ("halo bwd", hb, g))
+                    outs = {}
+                    for tag, blk, inp in cases:
+                        got = csr.csr_scatter(blk, inp)
+                        want = csr.csr_scatter_plain(blk, inp)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max()) if got.numel() \
+                            else 0.0
+                        check(torch.allclose(got, want, **KERNEL_TOL),
+                              f"halo K1 {tag} rel {rel} P={p_count} shard "
+                              f"{p} F={f}: max abs err {err}")
+                        outs[tag] = (got, err)
+                    full = csr.csr_scatter(square, x[:n].contiguous())
+                    rows = full[p * S:min((p + 1) * S, n)]
+                    mean = outs["local fwd"][0] + outs["halo fwd"][0]
+                    mean_err = float((mean[:len(rows)] - rows).abs().max())
+                    check(mean_err <= 1e-5 and bool(
+                        (mean[len(rows):] == 0).all()),
+                          f"halo K1 rel {rel} P={p_count} shard {p} F={f}: "
+                          f"local + halo off the mean by {mean_err}")
+                    rec = dict(relation=rel, P=p_count, shard=p, F=f,
+                               rows=S, halo_rows=int(ids.numel()),
+                               local_edges=int(lf.col.numel()),
+                               halo_edges=int(hf.col.numel()),
+                               max_abs_err=max(e for _, e in outs.values()),
+                               mean_max_abs_err=mean_err)
+                    if rel == 0 and f == 64:
+                        rec.update(_time_halo_k1(torch, csr, cases, f))
+                        rec["square_ms"] = cuda_ms(
+                            torch, lambda: csr.csr_scatter(
+                                square, x[:n].contiguous()), 50)
+                    log(phase="halo_kernels", **rec)
+                    records.append(rec)
+    return records
+
+
+def _time_halo_k1(torch, csr, cases, f) -> dict:
+    """Device ms of each of a shard's four K1 launches, with its bound
+    (bytes: the gathered operand's distinct rows, the CSR, the output),
+    its plain version's ms and ``torch.sparse.mm``'s on the same CSR."""
+    out = {}
+    for tag, blk, inp in cases:
+        key = tag.replace(" ", "_")
+        e = blk.col.numel()
+        rows_read = int(torch.unique(blk.col).numel()) if e else 0
+        index_bytes = 4 * sum(t.numel() for _, t in blk.tensors())
+        b_ms, b_by = bound(4 * rows_read * f + index_bytes
+                           + 4 * blk.num_rows * f, 2.0 * e * f)
+        out[f"{key}_ms"] = cuda_ms(torch, lambda: csr.csr_scatter(blk, inp),
+                                   50)
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = b_ms, b_by
+        out[f"{key}_plain_ms"] = cuda_ms(
+            torch, lambda: csr.csr_scatter_plain(blk, inp), 3)
+        if blk.num_rows and blk.num_cols:
+            mat = torch.sparse_csr_tensor(blk.row_ptr, blk.col, blk.weight,
+                                          size=(blk.num_rows, blk.num_cols))
+            out[f"{key}_library_ms"] = cuda_ms(
+                torch, lambda: torch.sparse.mm(mat, inp), 20)
+        else:
+            out[f"{key}_library_ms"] = None
+    return out
+
+
+def parallel_phase(torch, csr, HeteroGraph) -> dict:
+    """Phase 10: (a) ``halo_kernels``; (b) node-sharded training of the
+    uniform graph on 2 gloo ranks of the card, each exchange, against the
+    single-process csr run of a world-1 NCCL rank beside a world-1 halo
+    run there, each rank's K1 launches equal to what its hops imply, a
+    bf16 ``num_bases=2`` run, and what NCCL says to 2 ranks on one card;
+    (c) the (data, model) = (2, 2) sharded step against the replicated
+    step; (d) ``train_elastic`` 4 -> 2 ranks with a fault at step
+    ``ELASTIC_FAULT`` against the run without; (e) the search CLI under
+    ``torchrun --nproc_per_node 2 ... --mesh 2`` against one process."""
+    from mpgnn_tpu_torch.benchmarks import bench_parallel
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.graph.io import load_dat_files, split_nodes
+    from mpgnn_tpu_torch.parallel.mesh import spawn_ranks
+    from mpgnn_tpu_torch.train import loops
+
+    t_phase = time.perf_counter()
+    out = {"kernels": halo_kernels(torch, csr, HeteroGraph)}
+    log(phase="halo_kernels_done", seconds=time.perf_counter() - t_phase)
+
+    # (b) node-sharded training
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(bench_parallel.halo_train_rank, 2,
+                        (HALO_EPOCHS, HALO_BF16_EPOCHS), backend="gloo",
+                        device="cuda", timeout_s=600)
+    w1 = spawn_ranks(bench_parallel.world1_rank, 1, (HALO_EPOCHS,),
+                     backend="nccl", device="cuda", timeout_s=600)[0]
+    ref = w1["csr"]
+    launches = w1["halo"]["k1_launches"]
+    check(w1["backend"] == "nccl", f"world-1 run on {w1['backend']}")
+    for run in [w1["halo"]] + [r for rk in ranks for r in rk["runs"]]:
+        log(phase="halo_train", **run, ref_loss=ref["final_loss"],
+            ref_val_f1=ref["val_f1"], ref_test_f1=ref["test_f1"],
+            ref_epoch_ms=ref["epoch_ms"])
+        check(run["k1_launches"] == run["k1_expected"]
+              and run["k1_bf16_launches"] == 0,
+              f"halo rank {run['rank']} {run['exchange']}: K1 launched "
+              f"{run['k1_launches']} times, its hops imply "
+              f"{run['k1_expected']}")
+        check(np.isfinite(run["final_loss"]), f"halo run: {run}")
+    for rk in ranks:
+        launches += sum(r["k1_launches"] for r in rk["runs"])
+    world1 = w1["halo"]
+    check(abs(world1["final_loss"] - ref["final_loss"]) <= HALO_WORLD1_ATOL
+          and all(world1[k] == ref[k] for k in ("val_f1", "test_f1")),
+          f"world-1 NCCL halo run {world1} against csr {ref}")
+    for a, b in zip(*[rk["runs"][:2] for rk in ranks]):
+        check(a["final_loss"] == b["final_loss"]
+              and a["val_f1"] == b["val_f1"],
+              f"the ranks disagree: {a} {b}")
+        check(bench_parallel.holds(a, ref),
+              f"halo {a['exchange']}: {a} against csr {ref}")
+    log(phase="halo_train_done", seconds=time.perf_counter() - t0,
+        k1_launches_halo=launches,
+        gloo_cuda_tensors=bench_parallel.gloo_cuda_probe(),
+        nccl_two_ranks_one_card=bench_parallel.nccl_shared_card_probe())
+    out.update(launches_halo=launches, train=ranks, world1=w1)
+
+    # (c) and (d): the sharded step and elastic recovery, 4 gloo ranks
+    t0 = time.perf_counter()
+    files = [os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                              "label.dat")]
+    with tempfile.TemporaryDirectory() as ckpt:
+        se = spawn_ranks(
+            bench_parallel.sharded_elastic_rank, 4,
+            (files, SYNTH_PATHS, SHARDED_STEPS, ELASTIC_FAULT, ELASTIC_STEPS,
+             ELASTIC_EVERY, ckpt), backend="gloo", device="cuda",
+            timeout_s=600)
+    graph_s, labels_s, _ = load_dat_files(*files)
+    split_s = split_nodes(labels_s)
+    cfg = MPGNNConfig(hidden_dim=HIDDEN, dropout=0.0)
+    model, _ = loops.seeded_init(graph_s.feat_dim, HIDDEN, 3, SYNTH_PATHS, 0,
+                                 "cuda")
+    hop_ops = loops.build_hop_arrays(graph_s, SYNTH_PATHS, device="cuda")
+    opt = loops.make_optimizer(model, cfg)
+    parts = loops.split_tensors(split_s, "cuda")
+    x = torch.as_tensor(graph_s.x, device="cuda")
+    w = torch.ones(len(split_s.train_y), device="cuda")
+    replicated = [float(loops.train_step(
+        model, opt, x, hop_ops, None, parts[0], parts[1], w, cfg, None,
+        torch.float32).detach()) for _ in range(SHARDED_STEPS)]
+    sharded = se[0]["sharded"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, replicated))
+    log(phase="sharded_step", mesh="data=2,model=2", sharded=sharded,
+        replicated=replicated, max_rel_diff=rel)
+    check(all(r["sharded"] == sharded for r in se) and
+          rel <= SHARDED_LOSS_RTOL,
+          f"sharded step off the replicated one by {rel}")
+    base = se[0]["no_fault"]["losses"]
+    fault = se[0]["fault"]
+    want = base[:ELASTIC_FAULT] + base[(ELASTIC_FAULT // ELASTIC_EVERY)
+                                       * ELASTIC_EVERY:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fault["losses"], want)) \
+        if len(fault["losses"]) == len(want) else float("inf")
+    log(phase="elastic", no_fault=se[0]["no_fault"], fault=fault,
+        max_rel_diff=rel, left=[r["fault"]["left"] for r in se],
+        seconds=time.perf_counter() - t0)
+    check(fault["recoveries"] == 1 and fault["final_device_count"] == 2
+          and fault["steps_run"] == ELASTIC_STEPS
+          and [r["fault"]["left"] for r in se] == [False, False, True, True]
+          and rel <= ELASTIC_LOSS_RTOL,
+          f"elastic run {fault} against {want}")
+    out.update(sharded=sharded, replicated=replicated, elastic=fault)
+
+    # (e) the search fan-out under torchrun
+    t0 = time.perf_counter()
+    single = cli_child(MESH_CLI)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mpgnn_tpu_torch.run", *MESH_CLI,
+           "--mesh", "2"]
+    t1 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    mesh_wall = time.perf_counter() - t1
+    check(res.returncode == 0, f"torchrun --mesh 2 failed:\n"
+          f"{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"torchrun printed {len(lines)} summary lines")
+    summary = json.loads(lines[0])
+    log(phase="mesh_cli", single=single["summary"], mesh=summary,
+        single_wall_s=single["wall"], mesh_wall_s=mesh_wall,
+        resolved=sorted(set(_TRAIN_AUTO_RE.findall(res.stderr)
+                            + _EVAL_CHUNK_RE.findall(res.stderr))),
+        seconds=time.perf_counter() - t0)
+    check(summary["classes"] == single["summary"]["classes"],
+          f"--mesh 2 {summary['classes']} against one process "
+          f"{single['summary']['classes']}")
+    log(phase="parallel_done", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def reset_counts(csr, conv) -> None:
     csr.SCATTER_LAUNCHES = csr.DEDUP_LAUNCHES = 0
     csr.SCATTER_BF16_LAUNCHES = csr.DEDUP_BF16_LAUNCHES = 0
@@ -2473,6 +2838,8 @@ def main() -> int:
                     help="run phases 1 and 8 alone")
     ap.add_argument("--ooc-only", action="store_true",
                     help="run phases 1 and 9 alone")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run phases 1 and 10 alone")
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose mpgnn_tpu_torch is driven")
     args = ap.parse_args()
@@ -2509,6 +2876,15 @@ def main() -> int:
         for line in _kernels.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[{name}] {line.strip()}")
+    graph_s, labels_s, _ = load_dat_files(
+        *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
+                                           "label.dat")))
+    split_s = split_nodes(labels_s)
+    warm_costs(torch, csr, load_dat_files, split_nodes)
+    if args.parallel_only:
+        parallel_phase(torch, csr, HeteroGraph)
+        log(phase="done", seconds=time.perf_counter() - t_start)
+        return 0
 
     # 2. kernels
     t0 = time.perf_counter()
@@ -2534,9 +2910,6 @@ def main() -> int:
     probe = gather_probe(records["csr_scatter"],
                          os.path.abspath(args.package_root))
     if args.kernels_only:
-        graph_s, _, _ = load_dat_files(
-            *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
-                                               "label.dat")))
         dense_phase(torch, conv, graph_s)
         log(phase="done", seconds=time.perf_counter() - t_start,
             package_root=os.path.abspath(args.package_root))
@@ -2562,13 +2935,9 @@ def main() -> int:
     del preds
 
     # 6. K3 and K4
-    graph_s, labels_s, _ = load_dat_files(
-        *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
-                                           "label.dat")))
     records.update(dense_phase(torch, conv, graph_s))
 
     # 7. the training path: first-step gradients, then train_mpgnn
-    split_s = split_nodes(labels_s)
     split_u = split_nodes(labels_u)
     split_k = split_nodes(kg["labels"][kg["label_nodes"]],
                           node_idx=kg["label_nodes"])
@@ -2613,6 +2982,9 @@ def main() -> int:
     del graph_k
     torch.cuda.empty_cache()
     ooc_launches = ooc_phase(torch, csr, conv, kg, planted)
+
+    # 10. multi-rank: node-sharded, sharded, elastic, the search fan-out
+    par = parallel_phase(torch, csr, HeteroGraph)
 
     meta = {
         "csr_scatter": ("mpgnn_tpu_torch/csrc/csr_scatter.cu",
@@ -2659,11 +3031,19 @@ def main() -> int:
                          stacked_max_abs_err=stacked["max_abs_err"],
                          probe_k1_gather=probe["k1_gather"])
         ooc = ooc_launches.get(name, 0)
+        halo_k1 = par["launches_halo"] if name == "csr_scatter" else 0
+        if name == "csr_scatter":        # 10 (a): a shard's four launches
+            at = [r for r in par["kernels"] if "local_fwd_ms" in r]
+            extra.update(launches_halo=halo_k1, halo_shards={
+                f"P={r['P']} shard {r['shard']}": {
+                    k: r[k] for k in r if k.endswith(("_ms", "_by"))}
+                for r in at}, halo_max_abs_err=max(
+                    r["max_abs_err"] for r in par["kernels"]))
         kernels.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
             launches=(serve_launches[name] + train_launches[name]
-                      + search_launches[name] + ooc),
+                      + search_launches[name] + ooc + halo_k1),
             launches_serve=serve_launches[name],
             launches_train=train_launches[name],
             launches_search=search_launches[name],

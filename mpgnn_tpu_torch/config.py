@@ -46,17 +46,17 @@ class MPGNNConfig:
     epochs: int = 1000                   # main.py:1121 / 1145
     hidden_dim: int = 64                 # run.sh (--hidden_dim 64)
     dropout: float = 0.6                 # model.py:200-201
-    # Mixed precision: "float32" (reference parity) or "bfloat16" in the
-    # JAX package. The port trains in float32 only and refuses "bfloat16"
-    # (ROADMAP.md A1).
+    # Mixed precision: "float32" (reference parity) or "bfloat16" (the
+    # forward's activations in bf16; parameters, gradients and Adam float32).
     compute_dtype: str = "float32"
     # Aggregation backend for MPGNN training/eval: "auto" | "segment"
     # (gather + index_add_) | "csr" (the sorted-CSR kernels K1/K2) |
     # "pallas" (the fused dense RelConv kernels K3/K4) | "ell" | "ell2" |
     # "dense" | "onehot". "auto" resolves per workload
     # (train.loops.resolve_backend; the batched evaluation
-    # batch_eval.resolve_eval_backend, per length group). The JAX
-    # package's "halo" raises until it is ported (ROADMAP.md A12).
+    # batch_eval.resolve_eval_backend, per length group). "halo" trains
+    # node-sharded over a mesh of ranks (train_mpgnn(mesh=...),
+    # parallel/halo.py).
     backend: str = "segment"
     # Dropout-mask RNG, kept for parity of the config with the JAX
     # package. In the port every value means the same thing: masks are
@@ -66,16 +66,17 @@ class MPGNNConfig:
     dropout_rng: str = "auto"
     # Weight decompositions of CustomRGCNConv (mp_rgcn_layer.py:120-137):
     # num_bases shares B basis matrices across hop convs' weights; num_blocks
-    # makes every hop weight block-diagonal. None = full weights, the only
-    # form the port trains so far (ROADMAP.md A4).
+    # makes every hop weight block-diagonal. None = full weights.
     num_bases: Optional[int] = None
     num_blocks: Optional[int] = None
-    # Halo (node-sharded) collective: "a2a" or "ppermute" in the JAX
-    # package. The port has no halo backend yet and refuses any value but
-    # the default (ROADMAP.md A12).
+    # Halo (node-sharded) exchange: "a2a" (one all_to_all_single with the
+    # exact per-peer row counts) or "ppermute" (P - 1 point-to-point
+    # rounds, parallel/halo.py).
     halo_exchange: str = "a2a"
-    # Halo local aggregation: "segment", "csr" or "auto" in the JAX
-    # package. The port refuses any value but the default (ROADMAP.md A12).
+    # Halo local aggregation: "segment" (index_add_, float32 sums), "csr"
+    # (K1 on each rank's local and halo blockings) or "auto" (csr from
+    # train.loops.CSR_EDGE_CUTOVER edges in the relation, as the JAX
+    # package decides).
     halo_local: str = "auto"
 
 

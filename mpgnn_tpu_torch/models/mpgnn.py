@@ -51,6 +51,7 @@ from mpgnn_tpu_torch.ops.spmm import (
     ell_mean_aggregate,
     rel_mean_aggregate,
 )
+from mpgnn_tpu_torch.parallel.halo import halo_sharded_mean_aggregate
 
 
 def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
@@ -64,6 +65,9 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
                                       weighted gathers both ways
       ('dense', a, a_t)               float32 adjacency GEMM, A^T stored
       ('onehot', fwd, bwd)            block one-hot batched GEMM
+      ('halo', mesh, axis, shard)     this rank's rows of the node-sharded
+                                      mean, h its [S, F] block
+                                      (parallel/halo.py)
 
     All compute the same mean, with zero rows for edgeless sources. A
     ``('fused', operand)`` hop has no separate aggregation: its kernel
@@ -86,6 +90,9 @@ def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
     if kind == "onehot":
         _, fwd, bwd = op
         return onehot_spmm_mean(fwd, bwd, h)
+    if kind == "halo":
+        _, mesh, axis, shard = op
+        return halo_sharded_mean_aggregate(mesh, h, shard, axis)
     raise ValueError(f"unknown hop op {kind!r}")
 
 
@@ -109,11 +116,18 @@ def linear(fc: nn.Linear, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _drop(h: torch.Tensor, dropout_rate: float, scale: float,
-          generator: Optional[torch.Generator]) -> torch.Tensor:
+          generator: Optional[torch.Generator],
+          shard_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Keep each entry with probability 1 - p (a float32 draw on h's shape,
-    whatever h's dtype) and divide the kept ones by ``scale``."""
-    keep = torch.rand(h.shape, generator=generator,
-                      device=h.device) < 1.0 - dropout_rate
+    whatever h's dtype) and divide the kept ones by ``scale``. With
+    ``shard_rows`` = (first row, total rows), h is one block of a
+    node-sharded [total, H] activation: the draw is over the whole of it,
+    alike on every rank, and h keeps its own rows."""
+    shape = h.shape if shard_rows is None else (shard_rows[1], h.shape[1])
+    draw = torch.rand(shape, generator=generator, device=h.device)
+    if shard_rows is not None:
+        draw = draw[shard_rows[0]: shard_rows[0] + h.shape[0]]
+    keep = draw < 1.0 - dropout_rate
     return torch.where(keep, h / scale, torch.zeros_like(h))
 
 
@@ -147,9 +161,13 @@ class MPNetm(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
                 first_hop_agg: Optional[List] = None,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None,
+                shard_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
         """[N, C] float32 log-probabilities; ``hop_ops[m][j]`` is hop j of
-        metapath m (``build_hop_arrays``).
+        metapath m (``build_hop_arrays``). For 'halo' hops x is this rank's
+        block of the node-sharded features and ``shard_rows`` its (first
+        row, total rows), which place its rows in the dropout masks.
 
         With ``train`` and ``dropout_rate > 0`` each hop's output is kept
         with probability 1 - p and scaled by 1 / (1 - p); the masks are
@@ -179,7 +197,7 @@ class MPNetm(nn.Module):
                 else:
                     h = torch.relu(conv(hop_aggregate(h, op, num_nodes), h))
                 if train and dropout_rate > 0.0:
-                    h = _drop(h, dropout_rate, scale, generator)
+                    h = _drop(h, dropout_rate, scale, generator, shard_rows)
             embeddings.append(h)
         h = torch.relu(linear(self.fc1, torch.cat(embeddings, dim=1), dt))
         h = linear(self.fc2, h, dt)

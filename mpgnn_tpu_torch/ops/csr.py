@@ -247,6 +247,27 @@ def build_csr_blocking(
     return fwd, bwd
 
 
+def build_rect_csr_blocking(
+    rows: np.ndarray, cols: np.ndarray, weights: np.ndarray,
+    num_rows: int, num_cols: int,
+) -> Tuple[CsrBlocking, CsrBlocking]:
+    """(forward, backward) K1 blockings of a rectangular weighted sum,
+    ``out[r] = sum over edges (r, c) of w * x[c]`` with out [num_rows, F]
+    and x [num_cols, F], as CPU tensors; the backward is the transpose,
+    ``dx[c] = sum over edges (r, c) of w * g[r]``. The counterpart of
+    ``pallas_csr.py:620`` ``build_rect_csr_blocking``: K1's layout in both
+    directions, no routing to K2. ``build_csr_blocking`` is the square
+    case with w = 1/deg; the node-sharded halo aggregation
+    (``parallel/halo.py``) gives each shard two of these, rows its own
+    [S] block and columns its [S] block or the exchanged halo buffer.
+    Either side may be empty."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    weights = np.asarray(weights, dtype=np.float32)
+    return (_build_one_direction(rows, cols, weights, num_rows, num_cols),
+            _build_one_direction(cols, rows, weights, num_cols, num_rows))
+
+
 def stack_blockings(blockings) -> CsrBlocking:
     """One block-diagonal ``CsrBlocking`` of C same-shaped K1 blockings:
     block c maps rows ``c*N + r`` to columns ``c*N + col``, so K1 on the
@@ -371,6 +392,9 @@ def csr_scatter(blk: CsrBlocking, x: torch.Tensor) -> torch.Tensor:
     _check_cuda(x, blk)
     f = x.shape[1]
     bf16 = x.dtype == torch.bfloat16
+    if blk.num_rows == 0 or f == 0:
+        # nothing to write: the kernel would not launch, and is not counted
+        return x.new_zeros((blk.num_rows, f))
     out = torch.empty((blk.num_rows, f), dtype=x.dtype, device=x.device)
     e = blk.col.shape[0]
     vec = row_vec(x)

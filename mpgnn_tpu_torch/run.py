@@ -14,12 +14,27 @@ a relation, else 'segment', and the batched final evaluation routes each
 length group to 'csr' or 'segment' by the same cutover
 (``train.loops.resolve_backend``, ``train.batch_eval.resolve_eval_backend``).
 
+``--mesh SPEC`` fans the search out over the ranks that ``torchrun``
+starts, the reference's ``mpiexec -n 10`` (run.sh:32): each rank computes
+its slice of every sweep's batch (``parallel.context``) and all take the
+same decisions; only rank 0 prints the summary and writes checkpoints and
+models:
+
+    torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2 ...
+
+Each rank works on ``cuda:LOCAL_RANK`` (modulo the cards present); the
+collectives run on NCCL where each rank has a card of its own, else on
+gloo, which also serves several ranks on one card
+(``parallel.mesh.pick_backend``; the choice is logged).
+
 Differences from the JAX CLI:
 * ``--device`` (default ``cuda``) picks the device; ``--platform cpu`` is
   its alias, so the JAX command lines run unchanged;
-* refused: ``--mesh`` (ROADMAP.md A12), and ``--dropout_rng
-  threefry|rbg``: the port draws dropout masks from a ``torch.Generator``
-  only ("What the port does not inherit").
+* ``--mesh`` spans processes (torchrun's ranks), not one process's
+  devices;
+* refused: ``--dropout_rng threefry|rbg``: the port draws dropout masks
+  from a ``torch.Generator`` only ("What the port does not inherit"), and
+  ``--retries`` with ``--mesh``.
   ``--no_warm`` is accepted and does nothing: the port has no
   compile-ahead warmer (A13);
 * ``--trace_dir DIR`` writes one ``torch.profiler`` Chrome trace JSON a
@@ -39,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -116,7 +132,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="alias of --device for the JAX command lines: cpu "
                         "or gpu")
     p.add_argument("--mesh", type=str, default=None,
-                   help="not ported yet (ROADMAP.md A12)")
+                   help="fan the sweeps out over torchrun's ranks: '2', "
+                        "'rel=2' or 'data=2,model=2' (the batch axes are "
+                        "split over every rank)")
     p.add_argument("--save_model", type=str, default=None,
                    help="directory to save the final joint model's "
                         "parameters per class (params.pt)")
@@ -155,16 +173,54 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refusals(args) -> list:
-    """The flags and values this port does not have yet, each with its
-    ROADMAP.md item."""
+    """The flags and values the CLI refuses, each with its reason: a mesh
+    spec that does not fit the ranks, ``--retries`` with ``--mesh``, and
+    what the port does not inherit."""
     out = []
     if args.mesh:
-        out.append("--mesh is not ported yet (ROADMAP.md A12)")
+        import torch.distributed as dist
+
+        from mpgnn_tpu_torch.parallel.context import parse_mesh_spec
+
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        try:
+            parse_mesh_spec(args.mesh, world)
+        except ValueError as e:
+            out.append(f"--mesh: {e} (start the ranks with torchrun)")
+        if args.retries:
+            out.append("--retries does not supervise --mesh ranks")
     if args.dropout_rng != "auto":
         out.append(f"dropout_rng {args.dropout_rng!r} is not ported: dropout "
                    f"masks come from a torch.Generator (ROADMAP.md, 'What "
                    f"the port does not inherit')")
     return out
+
+
+def _join_mesh(args, device):
+    """Join torchrun's process group (unless the caller already has one),
+    install the sweep mesh of ``--mesh`` and return (this rank's device,
+    its rank, whether this call joined the group)."""
+    import torch
+    import torch.distributed as dist
+
+    from mpgnn_tpu_torch.parallel.context import mesh_from_spec, \
+        set_sweep_mesh
+    from mpgnn_tpu_torch.parallel.mesh import initialize_distributed, \
+        pick_backend
+
+    joined = not dist.is_initialized()
+    if joined:
+        backend = pick_backend(device, int(os.environ.get(
+            "LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", 1))))
+        device = initialize_distributed(backend, device=device.type)
+    elif device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_from_spec(args.mesh, device=device)
+    set_sweep_mesh(mesh)
+    logging.info("sweep mesh active: %s over %d ranks (%s, %s)", mesh.shape,
+                 mesh.size, dist.get_backend(), device)
+    return device, dist.get_rank(), joined
 
 
 def _device(args) -> str:
@@ -202,6 +258,9 @@ def main(argv=None):
     from mpgnn_tpu_torch.utils.prof import device_trace
 
     device = resolve_device(_device(args))
+    rank, joined = 0, False
+    if args.mesh:
+        device, rank, joined = _join_mesh(args, device)
     t_start = time.time()
     folder = args.folder.rstrip("/") + "/"
     node_f = folder + args.node_file
@@ -233,6 +292,8 @@ def main(argv=None):
                           dropout_rng=args.dropout_rng),
     )
     ckpt = SearchCheckpoint(args.pickle_filename) if args.pickle_filename else None
+    # under --mesh every rank keeps its own frontier and trace files
+    suffix = f".rank{rank}" if rank else ""
 
     results = {}
     for list_index, binary_lab in enumerate(binary_labels):
@@ -256,7 +317,7 @@ def main(argv=None):
             logging.info("class %d restored from checkpoint", list_index)
             continue
 
-        with device_trace(args.trace_dir):
+        with device_trace(args.trace_dir and args.trace_dir + suffix):
             res = find_metapaths(
                 graph,
                 np.asarray(binary_lab, dtype=np.float32),
@@ -268,12 +329,14 @@ def main(argv=None):
                 x_features=x,
                 seed=args.seed,
                 frontier_checkpoint=(
-                    f"{args.frontier}.class{list_index}.pkl"
+                    f"{args.frontier}.class{list_index}.pkl{suffix}"
                     if args.frontier else None
                 ),
                 device=device,
             )
         results[list_index] = res
+        if rank:
+            continue
         if ckpt:
             ckpt.save(list_index, res)
         if args.save_model and res.metapaths:
@@ -295,6 +358,16 @@ def main(argv=None):
             flush=True,
         )
 
+    if args.mesh:
+        import torch.distributed as dist
+
+        from mpgnn_tpu_torch.parallel.context import set_sweep_mesh
+
+        set_sweep_mesh(None)
+        if joined:
+            dist.destroy_process_group()
+    if rank:
+        return results
     summary = {
         "dataset": args.dataset,
         "classes": {

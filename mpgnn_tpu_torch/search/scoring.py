@@ -24,7 +24,13 @@ Every random number is drawn on the host from one ``np.random.Generator``
 in the JAX package's order, and that order follows the chunk layout: the
 pow2 bucketing of ``_chunks``/``_instance_chunks`` (a compile-signature
 device in the JAX package) is kept so that each relation gets the same
-draws.
+draws, with its padding to at least the sweep mesh's rank count.
+
+Under an active sweep mesh (``parallel.context``; ``run.py --mesh``) each
+rank computes its slice of a chunk's relation or instance axis and the
+slices are gathered back, the reference's ``np.array_split`` over MPI
+ranks (main.py:1319, 1400); every rank draws the whole chunk's numbers and
+keeps the whole result.
 """
 
 from __future__ import annotations
@@ -56,6 +62,11 @@ from mpgnn_tpu_torch.models.scorer import (
     init_scorer_params,
     init_weights,
     reinitialize_scorer_weights,
+)
+from mpgnn_tpu_torch.parallel.context import (
+    gather_sweep,
+    sweep_devices,
+    sweep_slice,
 )
 
 log = logging.getLogger("mpgnn_tpu_torch.scoring")
@@ -177,8 +188,9 @@ def _chunks(
     """Relations grouped into (mode, pad, cpad, relation-list) chunks:
     routed by ``_relation_mode``, bucketed by pow2 pad and (segment form)
     pow2 compact width ``cpad`` (ELL chunks: cpad = N), each bucket split so
-    a chunk's entries fit the budget, each chunk padded to a power of two
-    by repeating its last relation (callers keep the first result)."""
+    a chunk's entries fit the budget, each chunk padded to a power of two,
+    and to at least the sweep mesh's rank count, by repeating its last
+    relation (callers keep the first result)."""
     budget = _mem_budget_entries() if budget is None else budget
     N = graph.num_nodes
     by_bucket: Dict[Tuple[str, int, int], List[int]] = {}
@@ -193,7 +205,8 @@ def _chunks(
         max_r = max(1, 1 << (max_r.bit_length() - 1))  # pow2 floor
         for i in range(0, len(rels), max_r):
             chunk = rels[i : i + max_r]
-            pad_to = min(_pow2_bucket(len(chunk), lo=1), max_r)
+            pad_to = min(max(_pow2_bucket(len(chunk), lo=1),
+                             sweep_devices()), max_r)
             while len(chunk) < pad_to:
                 chunk = chunk + [chunk[-1]]
             out.append((mode, pad, cpad, chunk))
@@ -313,25 +326,26 @@ def score_relations_flat(
             loss_mask[i] = src_mask.astype(np.float32)
             dsts, mins = dest_min_labels(graph, r, src_mask, node_labels)
             w0[i] = init_weights(rng, N, dsts, mins, cfg.init_noise)
+        sl = sweep_slice(R)     # this rank's relations of the chunk
         if mode == "ell":
-            lmask = _t(loss_mask, device)
+            lmask = _t(loss_mask[sl], device)
             denom = lmask.sum(1).clamp_min(1.0)
-            has = _t(has_edge_rows, device)
-            nbr_f = _flat_ids(nbr, N, device)
-            mask_t = _t(mask, device)
+            has = _t(has_edge_rows[sl], device)
+            nbr_f = _flat_ids(nbr[sl], N, device)
+            mask_t = _t(mask[sl], device)
             w, loss = _flat_sweep(
-                _t(w0, device),
+                _t(w0[sl], device),
                 lambda w: flat_forward_ell(w, nbr_f, mask_t, has),
                 (1.0 / denom)[:, None] * lmask, has,
                 _t(node_labels, device), lmask, denom, None,
                 epochs=cfg.epochs_flat, lr=cfg.lr,
             )
-            w = w.cpu().numpy()
+            w = gather_sweep(w, R).cpu().numpy()
         else:
             # device state in each relation's compact endpoint space; the
             # label-informed init and the masks stay full-space on the host
             y_rows = np.broadcast_to(node_labels, (R, N))
-            lmask = _t(_gather_compact(loss_mask, nodes, cpad), device)
+            lmask = _t(_gather_compact(loss_mask, nodes, cpad)[sl], device)
             denom = np.maximum(loss_mask.sum(axis=1), 1.0).astype(np.float32)
             # sources outside the compact space but in the loss mask (fixed
             # sources without edges of the relation) add a constant
@@ -341,26 +355,26 @@ def score_relations_flat(
                       - (y2[nodes[i]] * loss_mask[i][nodes[i]]).sum())
                 for i in range(R)
             ], dtype=np.float32)
-            src_f = _flat_ids(srcs, cpad, device)
-            dst_f = _flat_ids(dsts_a, cpad, device)
-            em = _t(emask, device)
+            src_f = _flat_ids(srcs[sl], cpad, device)
+            dst_f = _flat_ids(dsts_a[sl], cpad, device)
+            em = _t(emask[sl], device)
             has = _segment_has(src_f, em, cpad)
-            denom_t = _t(denom, device)
+            denom_t = _t(denom[sl], device)
             w_c, loss = _flat_sweep(
-                _t(_gather_compact(w0, nodes, cpad), device),
+                _t(_gather_compact(w0, nodes, cpad)[sl], device),
                 lambda w: flat_forward_seg(w, src_f, dst_f, em, has),
                 (1.0 / denom_t)[:, None] * lmask, has,
-                _t(_gather_compact(y_rows, nodes, cpad), device), lmask,
-                denom_t, _t(const, device),
+                _t(_gather_compact(y_rows, nodes, cpad)[sl], device), lmask,
+                denom_t, _t(const[sl], device),
                 epochs=cfg.epochs_flat, lr=cfg.lr,
             )
             # back to full space: nodes outside the endpoint space keep
             # their init (zero gradient, zero Adam update, clamp no-op)
-            w_c = w_c.cpu().numpy()
+            w_c = gather_sweep(w_c, R).cpu().numpy()
             w = w0
             for i, nd in enumerate(nodes):
                 w[i][nd] = w_c[i][: len(nd)]
-        loss = loss.cpu().numpy()
+        loss = gather_sweep(loss, R).cpu().numpy()
         for i, r in enumerate(chunk):
             if int(r) not in results:   # chunk padding repeats relations
                 results[int(r)] = FlatScore(int(r), float(loss[i]), w[i])
@@ -406,7 +420,8 @@ def _instance_chunks(
         max_r = max(1, 1 << (max_r.bit_length() - 1))
         for i in range(0, len(insts), max_r):
             chunk = insts[i : i + max_r]
-            pad_to = min(_pow2_bucket(len(chunk), lo=1), max_r)
+            pad_to = min(max(_pow2_bucket(len(chunk), lo=1),
+                             sweep_devices()), max_r)
             while len(chunk) < pad_to:
                 chunk = chunk + [chunk[-1]]
             chunks.append((mode, pad, cpad, chunk))
@@ -485,11 +500,13 @@ class _Chunk:
     ``insts`` holds one dict per instance, with its task's padded bag table
     (``bags``, ``valid``: [B, M]), bag ``labels`` [B] and flattened
     ``members`` (``_flat_members``). ELL form reads the tables, segment form
-    the flattened members only."""
+    the flattened members only. The host bookkeeping covers every
+    instance; the device operands only this rank's ``sweep_slice``."""
 
     def __init__(self, graph, mode, pad, cpad, rels, insts, x, B, device):
         R, N = len(rels), graph.num_nodes
         self.mode, self.nodes = mode, []
+        self.rows = sl = sweep_slice(R)
         if mode == "ell":
             nbr, mask = _relation_ell_stack(graph, rels, pad)
             has_edge = mask.any(axis=-1)                  # [R, N]
@@ -512,15 +529,15 @@ class _Chunk:
                 bag_keep[i, t["members"][1][member_mask[i]]] = True
         self.has_edge = has_edge
         self.bag_keep = bag_keep.astype(np.float32)            # [R, B]
-        self.labels = _t(np.stack([t["labels"] for t in insts]), device)
-        self.keep = _t(self.bag_keep, device)
+        self.labels = _t(np.stack([t["labels"] for t in insts])[sl], device)
+        self.keep = _t(self.bag_keep[sl], device)
         self.bag_has = self.keep > 0.5
         if mode == "ell":
-            nbr_f = _flat_ids(nbr, N, device)
-            mask_t = _t(mask, device)
-            self.has = _t(has_edge, device)
-            bags_f = _flat_ids(bags_i, N, device)
-            mmask = _t(member_mask, device)
+            nbr_f = _flat_ids(nbr[sl], N, device)
+            mask_t = _t(mask[sl], device)
+            self.has = _t(has_edge[sl], device)
+            bags_f = _flat_ids(bags_i[sl], N, device)
+            mmask = _t(member_mask[sl], device)
             self.x = _t(x, device)
             self.forward = lambda w, u: bag_forward_ell(
                 w, u, self.x, nbr_f, mask_t, self.has, bags_f, mmask,
@@ -530,9 +547,9 @@ class _Chunk:
             # compact endpoint space; members remapped into it (members
             # without r-edges are masked, any in-range id works) and each
             # instance's feature rows gathered
-            src_f = _flat_ids(srcs, cpad, device)
-            dst_f = _flat_ids(dsts_a, cpad, device)
-            em = _t(emask, device)
+            src_f = _flat_ids(srcs[sl], cpad, device)
+            dst_f = _flat_ids(dsts_a[sl], cpad, device)
+            em = _t(emask[sl], device)
             self.has = _segment_has(src_f, em, cpad)
             mm_i = np.stack(member_mask)
             mn_i = np.zeros(mm_i.shape, dtype=np.int64)
@@ -543,10 +560,10 @@ class _Chunk:
                 mc = np.searchsorted(nd, mn).clip(0, cpad - 1)
                 mn_i[i] = np.where(mm_i[i], mc, 0)
                 x_c[i, : len(nd)] = x[nd]
-            mn_f = _flat_ids(mn_i, cpad, device)
-            mb_f = _flat_ids(mb_i, B, device)
-            mm = _t(mm_i, device)
-            self.x = _t(x_c, device)
+            mn_f = _flat_ids(mn_i[sl], cpad, device)
+            mb_f = _flat_ids(mb_i[sl], B, device)
+            mm = _t(mm_i[sl], device)
+            self.x = _t(x_c[sl], device)
             self.forward = lambda w, u: bag_forward_seg(
                 w, u, self.x, src_f, dst_f, em, self.has, mn_f, mb_f, mm,
                 self.bag_has)
@@ -563,15 +580,17 @@ class _Chunk:
             hw0 = _gather_compact(w0, self.nodes, cpad)
             hgm = _gather_compact(grad_mask, self.nodes, cpad)
             hfm = _gather_compact(frozen_mask, self.nodes, cpad, fill=False)
+        sl = self.rows
         w, u, loss, per_bag, winner, member_value = _bag_round(
-            self.forward, _t(hw0, device), _t(u0, device), self.x,
+            self.forward, _t(hw0[sl], device), _t(u0[sl], device), self.x,
             self.labels, self.keep, self.bag_has, self.has,
-            _t(hgm, device), _t(hfm, device), epochs=epochs, lr=lr,
+            _t(hgm[sl], device), _t(hfm[sl], device), epochs=epochs, lr=lr,
         )
-        winner = winner - (torch.arange(R, device=device) * self.width)[:, None]
+        winner = winner - (torch.arange(winner.shape[0], device=device)
+                           * self.width)[:, None]
         w, u, loss, per_bag, winner, member_value = (
-            a.cpu().numpy() for a in (w, u, loss, per_bag, winner,
-                                      member_value))
+            gather_sweep(a, R).cpu().numpy()
+            for a in (w, u, loss, per_bag, winner, member_value))
         if self.mode == "seg":
             # back to full space: outside the endpoint set the weights keep
             # their round init and member values are exactly 0

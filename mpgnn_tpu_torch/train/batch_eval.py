@@ -41,10 +41,17 @@ draws each mask once and applies it to every candidate, so the batched
 evaluation computes the per-candidate one. (The JAX package gives each
 candidate its own key instead; the port cannot reproduce JAX's draws.)
 
+Under an active sweep mesh (``parallel.context``; ``run.py --mesh``) each
+chunk is padded to a multiple of the ranks by repeating its last
+candidate and each rank trains its slice; the F1s are gathered, so every
+rank holds every result (the reference's final-evaluation fan-out,
+main.py:1444-1450). Every batched backend splits this way, so 'auto'
+routes alike with or without a mesh (the JAX package keeps 'segment'
+under one, ``batch_eval.py:207``).
+
 Not inherited from the JAX package: the TPU crash caps and v5e-calibrated
 chunk caps, the edge padding, the epoch blocks, the compile-ahead store and
-``compile_only``, the optimization-barrier chain and the sweep-mesh
-sharding (``ROADMAP.md``).
+``compile_only`` and the optimization-barrier chain (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,12 @@ from mpgnn_tpu_torch.models.mpgnn import (
 )
 from mpgnn_tpu_torch.ops.csr import CsrBlocking, stack_blockings
 from mpgnn_tpu_torch.ops.segment import stack_edge_lists
+from mpgnn_tpu_torch.parallel.context import (
+    gather_sweep,
+    pad_batch_list,
+    sweep_devices,
+    sweep_slice,
+)
 from mpgnn_tpu_torch.train import loops as _loops
 from mpgnn_tpu_torch.train.loops import (
     check_config,
@@ -150,7 +163,14 @@ def _chunk_cap(graph: HeteroGraph, group: List[List[int]], cfg: MPGNNConfig,
     the CPU ``_CPU_BUDGET_BYTES``. Dense: the bf16 operands of the group's
     relations that are not built yet, 4 N^2 bytes each, come off the
     budget once (the built ones are already off the free memory). csr also
-    keeps K1's int32 item count, C * (N + E), under 2^31."""
+    keeps K1's int32 item count, C * (N + E), under 2^31. At least the
+    sweep mesh's rank count, as the JAX package's caps."""
+    return max(_memory_cap(graph, group, cfg, backend, device),
+               sweep_devices())
+
+
+def _memory_cap(graph: HeteroGraph, group: List[List[int]],
+                cfg: MPGNNConfig, backend: str, device: torch.device) -> int:
     if _CHUNK_CAP is not None:
         return _CHUNK_CAP
     n, h = graph.num_nodes, cfg.hidden_dim
@@ -318,8 +338,12 @@ def evaluate_candidates(
                 out.update((k, float(existing[k])) for k in keys)
                 continue
             t0 = time.time()
-            f1s, _ = train_chunk(graph, chunk, x, parts, num_classes, cfg,
-                                 seed, backend)
+            padded = pad_batch_list(chunk)
+            sl = sweep_slice(len(padded))
+            f1s, _ = train_chunk(graph, padded[sl], x, parts, num_classes,
+                                 cfg, seed, backend)
+            f1s = gather_sweep(torch.tensor(f1s, device=device),
+                               len(padded)).tolist()
             done = dict(zip(keys, f1s))
             out.update(done)
             log.info("eval len-%d chunk of %d candidates (%s): %.1fs",

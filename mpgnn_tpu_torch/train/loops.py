@@ -30,14 +30,20 @@ from mpgnn_tpu_torch.ops.conv import build_dense_conv_operand
 from mpgnn_tpu_torch.ops.csr import build_csr_blocking
 from mpgnn_tpu_torch.ops.onehot import build_spmm_blocking
 from mpgnn_tpu_torch.ops.spmm import build_ell2_operand, dense_adjacency
+from mpgnn_tpu_torch.parallel.halo import (
+    EXCHANGES,
+    LOCALS,
+    HaloRows,
+    build_halo_plan,
+    shard_graph_features,
+)
 from mpgnn_tpu_torch.train.metrics import macro_f1
 
 log = logging.getLogger("mpgnn_tpu_torch.train")
 
+# the single-device backends; 'halo' (node-sharded over a mesh,
+# parallel/halo.py) also takes ``mesh=``
 BACKENDS = ("segment", "csr", "pallas", "ell", "ell2", "dense", "onehot")
-# backends of the JAX package that the port does not have yet, with the
-# ROADMAP.md queue item that brings them
-NOT_PORTED = {"halo": "A12"}
 
 # 'auto' (``resolve_backend``): the share of the card's free memory that the
 # dense (A, A^T) pairs may take; the rest stays for activations, parameters,
@@ -109,11 +115,11 @@ def resolve_backend(
     return "csr" if max_e >= CSR_EDGE_CUTOVER else "segment"
 
 
-def _check_backend(backend: str) -> None:
-    if backend in NOT_PORTED:
-        raise ValueError(f"backend {backend!r} is not ported yet "
-                         f"(ROADMAP.md {NOT_PORTED[backend]})")
-    if backend not in BACKENDS:
+def _check_backend(backend: str, mesh=None) -> None:
+    if backend == "halo":
+        if mesh is None:
+            raise ValueError("backend='halo' requires a mesh")
+    elif backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -123,6 +129,10 @@ def build_hop_arrays(
     backend: str = "segment",
     device=None,
     dtype: torch.dtype = torch.float32,
+    mesh=None,
+    mesh_axis: str = "nodes",
+    halo_exchange: str = "a2a",
+    halo_local: str = "auto",
 ) -> List[List[tuple]]:
     """Per-(metapath, hop) aggregation operands on ``device``, as tagged
     tuples for ``models.mpgnn.hop_aggregate``:
@@ -136,20 +146,56 @@ def build_hop_arrays(
       * 'dense': the float32 mean adjacency and its transpose;
       * 'onehot': the (forward, backward) blockings of ``ops.onehot``;
       * 'pallas': ('fused', operand), the bf16 mean adjacency and its
-        transpose of ``ops.conv``, whose kernels run the whole conv.
+        transpose of ``ops.conv``, whose kernels run the whole conv;
+      * 'halo': ('halo', mesh, mesh_axis, shard), this rank's part of the
+        relation's halo plan over ``mesh``'s ``mesh_axis``
+        (``parallel.halo``): ``halo_exchange`` 'a2a' or 'ppermute',
+        ``halo_local`` 'segment', 'csr' (K1 on rectangular blockings) or
+        'auto', which takes 'csr' where the relation has
+        ``CSR_EDGE_CUTOVER`` edges or more, the JAX package's rule
+        (``loops.py:248-254``: the global count, not the shard's).
 
     Every hop that aggregates a relation shares its operand
     (``relation_operand``). 'auto' is not a backend here:
     ``resolve_backend`` resolves it. ``dtype`` is the compute dtype of the
     model the operands serve: under bf16 'dense' keeps A and A^T in bf16,
     cast once (the JAX package casts A to h's dtype in every product)."""
-    _check_backend(backend)
+    _check_backend(backend, mesh)
+    if backend == "halo":
+        return [[halo_operand(graph, rel, mesh, mesh_axis, halo_exchange,
+                              halo_local, mesh.device if device is None
+                              else torch.device(device))
+                 for rel in mp] for mp in metapaths]
     device = resolve_device(device)
     hop_ops: List[List[tuple]] = []
     for mp in metapaths:
         hop_ops.append([relation_operand(graph, rel, backend, device, dtype)
                         for rel in mp])
     return hop_ops
+
+
+def halo_operand(graph: HeteroGraph, rel: int, mesh, axis: str,
+                 exchange: str, local: str, device) -> tuple:
+    """('halo', mesh, axis, shard) of one relation: the relation's halo
+    plan over the axis (kept on the graph per (relation, ranks, exchange))
+    and this rank's shard of it on ``device``. ``local`` 'auto' is 'csr'
+    where the relation has ``CSR_EDGE_CUTOVER`` edges or more (all of
+    them, as the JAX package counts), else 'segment'."""
+    cache = getattr(graph, "_operand_cache", None)
+    if cache is None:
+        cache = graph._operand_cache = {}
+    P, p = mesh.axis_size(axis), mesh.axis_rank(axis)
+    key = ("halo_plan", int(rel), P, exchange)
+    if key not in cache:
+        s, d = graph.rel_edges(int(rel))
+        cache[key] = build_halo_plan(s, d, graph.num_nodes, P, exchange)
+    if local == "auto":
+        local = ("csr" if int(graph.rel_counts[int(rel)]) >= CSR_EDGE_CUTOVER
+                 else "segment")
+    skey = key + (local, p, device_key(device))
+    if skey not in cache:
+        cache[skey] = cache[key].shard(p, device, local)
+    return ("halo", mesh, axis, cache[skey])
 
 
 def relation_operand(graph: HeteroGraph, rel: int, backend: str,
@@ -275,6 +321,31 @@ def compute_dtype(cfg: MPGNNConfig) -> torch.dtype:
     return dtypes[cfg.compute_dtype]
 
 
+def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
+               hop_ops, first, train_idx: torch.Tensor,
+               train_y: torch.Tensor, w: torch.Tensor, cfg: MPGNNConfig,
+               generator: Optional[torch.Generator], dt: torch.dtype,
+               rows=None) -> torch.Tensor:
+    """One epoch's step: the training forward, the weighted NLL, its
+    backward and Adam. With ``rows`` (``parallel.halo.HaloRows``) the model
+    runs on this rank's rows of a node-sharded run: the NLL is its share
+    and the gradients are summed across the ranks before the step. Returns
+    the loss (this rank's share with ``rows``)."""
+    opt.zero_grad(set_to_none=True)
+    logp = model(x, hop_ops, dropout_rate=cfg.dropout, generator=generator,
+                 train=True, first_hop_agg=first, compute_dtype=dt,
+                 shard_rows=None if rows is None else rows.shard_rows)
+    if rows is None:
+        loss = weighted_nll(logp, train_idx, train_y, w)
+    else:
+        loss = rows.nll(logp, train_idx, train_y, w)
+    loss.backward()
+    if rows is not None:
+        rows.sync_grads(list(model.parameters()))
+    opt.step()
+    return loss
+
+
 def fit_mpgnn(
     model: MPNetm,
     hop_ops,
@@ -285,6 +356,7 @@ def fit_mpgnn(
     generator: Optional[torch.Generator],
     num_classes: int,
     track_best: bool = False,
+    rows=None,
 ) -> Tuple[float, float, float, float]:
     """Train ``model`` in place for ``cfg.epochs`` epochs and return
     (train_f1, val_f1, test_f1, last epoch's loss).
@@ -297,21 +369,24 @@ def fit_mpgnn(
     validation macro-F1 (the earliest on ties; the initial parameters if
     none beat 0.0), as the JAX package does. The forward runs in
     ``cfg.compute_dtype``; the parameters, their gradients and Adam's state
-    stay float32."""
+    stay float32. With ``rows`` (``parallel.halo.HaloRows``) x, the split
+    and the hops are this rank's of a node-sharded run, and the loss and
+    F1s returned are every rank's together."""
     train_idx, train_y, val_idx, val_y, test_idx, test_y = split
     dt = compute_dtype(cfg)
     x = x.to(dt)          # once, not in every epoch's forward
     opt = make_optimizer(model, cfg)
     first = precompute_first_hop(x, hop_ops, dt)
     params = list(model.parameters())
+    pairs = ((train_idx, train_y), (val_idx, val_y), (test_idx, test_y))
 
     @torch.no_grad()
     def evaluate():
         preds = model(x, hop_ops, first_hop_agg=first,
                       compute_dtype=dt).argmax(dim=1)
-        return (macro_f1(preds[train_idx], train_y, num_classes),
-                macro_f1(preds[val_idx], val_y, num_classes),
-                macro_f1(preds[test_idx], test_y, num_classes))
+        if rows is not None:
+            return rows.macro_f1s(preds, pairs, num_classes)
+        return [macro_f1(preds[i], y, num_classes) for i, y in pairs]
 
     if track_best:
         best_val = torch.zeros((), device=x.device)
@@ -319,13 +394,8 @@ def fit_mpgnn(
     w = cw[train_y]
     loss = torch.zeros((), device=x.device)
     for _ in range(cfg.epochs):
-        opt.zero_grad(set_to_none=True)
-        logp = model(x, hop_ops, dropout_rate=cfg.dropout,
-                     generator=generator, train=True, first_hop_agg=first,
-                     compute_dtype=dt)
-        loss = weighted_nll(logp, train_idx, train_y, w)
-        loss.backward()
-        opt.step()
+        loss = train_step(model, opt, x, hop_ops, first, train_idx, train_y,
+                          w, cfg, generator, dt, rows)
         if track_best:
             val = evaluate()[1]
             better = val > best_val
@@ -338,6 +408,8 @@ def fit_mpgnn(
             for b, p in zip(best, params):
                 p.copy_(b)
     train_f1, val_f1, test_f1 = evaluate()
+    if rows is not None:
+        loss = rows.total(loss)
     return (float(train_f1), float(val_f1), float(test_f1),
             float(loss.detach()))
 
@@ -373,6 +445,8 @@ def train_mpgnn(
     backend: Optional[str] = None,
     class_weighted: bool = False,
     device=None,
+    mesh=None,
+    mesh_axis: str = "nodes",
 ) -> MPGNNTrainResult:
     """Train an MPNetm on the metapath set, full-graph, on ``device`` (the
     GPU unless ``device='cpu'``).
@@ -385,47 +459,69 @@ def train_mpgnn(
     generator is seeded from a draw of the same stream after them.
     ``backend`` (default ``cfg.backend``) is one of ``BACKENDS``, or
     'auto', which ``resolve_backend`` resolves for this workload and
-    ``device``."""
+    ``device``.
+
+    ``backend='halo'`` with a ``mesh`` trains node-sharded, every rank of
+    ``mesh``'s ``mesh_axis`` calling together (``parallel.halo``): each
+    holds its block of the features and of every activation, exchanges its
+    halo each hop (``cfg.halo_exchange``, ``cfg.halo_local``), takes its
+    train rows' share of the loss and sums the gradients with the others
+    before Adam, so that the parameters stay the same on every rank; each
+    rank draws the dropout masks of all rows and keeps its own. ``device``
+    defaults to the mesh's. The result's loss and F1s are the whole
+    graph's, on every rank."""
     cfg = cfg or MPGNNConfig()
-    device = resolve_device(device)
     metapaths = [list(mp) for mp in metapaths]
     backend = backend or cfg.backend
+    if backend == "halo":
+        _check_backend(backend, mesh)
+        device = mesh.device if device is None else torch.device(device)
+    else:
+        device = resolve_device(device)
     if backend == "auto":
         backend = resolve_backend(backend, graph, metapaths,
                                   auto_dense_budget_bytes(device))
         log.info("train_mpgnn: backend 'auto' -> %r (%d nodes, relations "
                  "%s)", backend, graph.num_nodes,
                  sorted({r for mp in metapaths for r in mp}))
-    _check_backend(backend)
+    _check_backend(backend, mesh)
     check_config(cfg)
-    x = torch.as_tensor(np.asarray(
-        x_override if x_override is not None else graph.x, dtype=np.float32),
-        device=device)
-    hop_ops = build_hop_arrays(graph, metapaths, backend=backend,
-                               device=device, dtype=compute_dtype(cfg))
+    x_np = np.asarray(x_override if x_override is not None else graph.x,
+                      dtype=np.float32)
+    hop_ops = build_hop_arrays(
+        graph, metapaths, backend=backend, device=device,
+        dtype=compute_dtype(cfg), mesh=mesh, mesh_axis=mesh_axis,
+        halo_exchange=cfg.halo_exchange, halo_local=cfg.halo_local)
+    cw_np = class_weights(split.train_y, num_classes, class_weighted)
+    rows = None
+    if backend == "halo":
+        x = shard_graph_features(x_np, mesh, mesh_axis, device)
+        rows = HaloRows(mesh, mesh_axis, x.shape[0], split, cw_np, device)
+        parts = rows.split
+    else:
+        x = torch.as_tensor(x_np, device=device)
+        parts = split_tensors(split, device)
     model, drop_seed = seeded_init(x.shape[1], cfg.hidden_dim, num_classes,
                                    metapaths, seed, device, cfg.num_bases,
                                    cfg.num_blocks)
     generator = torch.Generator(device=device).manual_seed(drop_seed)
-    cw = torch.as_tensor(class_weights(split.train_y, num_classes,
-                                       class_weighted), device=device)
     train_f1, val_f1, test_f1, loss = fit_mpgnn(
-        model, hop_ops, x, split_tensors(split, device), cw, cfg, generator,
-        num_classes, track_best=track_best)
+        model, hop_ops, x, parts, torch.as_tensor(cw_np, device=device), cfg,
+        generator, num_classes, track_best=track_best, rows=rows)
     return MPGNNTrainResult(params=model, val_f1=val_f1, test_f1=test_f1,
                             train_f1=train_f1, final_loss=loss)
 
 
 def check_config(cfg: MPGNNConfig) -> None:
-    """Refuse the settings of ``MPGNNConfig`` that the port does not have
-    yet (the halo ones), naming their ROADMAP.md item, and a compute dtype
-    that is not float32 or bfloat16."""
+    """Refuse a compute dtype that is not float32 or bfloat16, and halo
+    settings the port does not know."""
     compute_dtype(cfg)
-    default = MPGNNConfig()
-    if (cfg.halo_exchange, cfg.halo_local) != (default.halo_exchange,
-                                               default.halo_local):
-        raise ValueError("halo_exchange / halo_local are not ported yet "
-                         "(ROADMAP.md A12)")
+    if cfg.halo_exchange not in EXCHANGES:
+        raise ValueError(f"halo_exchange must be one of {EXCHANGES}, not "
+                         f"{cfg.halo_exchange!r}")
+    if cfg.halo_local not in LOCALS + ("auto",):
+        raise ValueError(f"halo_local must be one of {LOCALS + ('auto',)}, "
+                         f"not {cfg.halo_local!r}")
 
 
 def seeded_init(input_dim: int, hidden_dim: int, num_classes: int,

@@ -3,8 +3,11 @@ and K4 (both csrc/dense_matmul.cu) and K5 (csrc/dma_gather.cu) against
 their plain PyTorch versions on the GPU, at the edge cases of their
 layouts, and the gradients that run them; K4 on the batched 'dense'
 evaluation's grouped products, the 'ell', 'ell2', 'dense' and 'onehot'
-aggregations against 'segment', and an 'auto' run past the csr cutover.
-Marked ``cuda``: they skip where no GPU is found.
+aggregations against 'segment', an 'auto' run past the csr cutover, and K1
+on the rectangular blockings of a node-sharded rank (``parallel/halo.py``:
+empty, 0- and 1-row halos, fewer and more columns than rows) with the halo
+exchange on 2 gloo ranks of the card. Marked ``cuda``: they skip where no
+GPU is found.
 This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -849,3 +852,93 @@ def test_hold_group_kernels_on_both_layouts(dev):
         assert all(k["close"] for k in held.values())
         if fused:
             assert held["csr_dedup"]["blockings"] == 0
+
+
+# ----------------------------------------------- K1 on a shard's blockings
+def _rect_case(case):
+    """(rows, cols, num_rows, num_cols) of the rectangular blockings a
+    node-sharded rank gives K1 (``parallel/halo.py``)."""
+    rng = np.random.default_rng(7)
+    if case == "empty_local":           # a shard whose edges all read others
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), 50, 50
+    if case == "halo_of_0_rows":        # a rank that receives nothing
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), 50, 0
+    if case == "halo_of_1_row":
+        return rng.integers(0, 50, 30), np.zeros(30, np.int64), 50, 1
+    if case == "cols_below_rows":
+        return rng.integers(0, 300, 2000), rng.integers(0, 40, 2000), 300, 40
+    if case == "cols_above_rows":
+        return rng.integers(0, 40, 2000), rng.integers(0, 300, 2000), 40, 300
+    # rows_without_edges: only the even rows have edges
+    return 2 * rng.integers(0, 100, 900), rng.integers(0, 200, 900), 200, 200
+
+
+@pytest.mark.parametrize("f", [1, 4, 64])
+@pytest.mark.parametrize("case", ["empty_local", "halo_of_0_rows",
+                                  "halo_of_1_row", "cols_below_rows",
+                                  "cols_above_rows", "rows_without_edges"])
+def test_k1_on_rectangular_blockings_matches_plain(dev, case, f):
+    """K1 forward and backward on a shard's local or halo blocking against
+    its plain version; rows without edges give 0, and a blocking of no
+    rows launches nothing."""
+    rows, cols, nr, nc = _rect_case(case)
+    w = np.random.default_rng(1).random(len(rows)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for blk, width in zip(csr.build_rect_csr_blocking(rows, cols, w, nr, nc),
+                          (nc, nr)):
+        blk = blk.to(dev)
+        x = torch.randn(width, f, device=dev, generator=gen)
+        before = csr.SCATTER_LAUNCHES
+        got = csr.csr_scatter(blk, x)
+        torch.cuda.synchronize()
+        assert csr.SCATTER_LAUNCHES == before + (blk.num_rows > 0)
+        assert got.shape == (blk.num_rows, f)
+        torch.testing.assert_close(got, csr.csr_scatter_plain(blk, x), **TOL)
+        empty = blk.row_ptr.diff() == 0
+        assert bool((got[empty] == 0).all())
+
+
+def _silent_rank_body(device):
+    """Both exchanges and locals on 2 gloo ranks of the card where rank 1
+    sends nothing: every edge reads a row of block 0."""
+    from mpgnn_tpu_torch.parallel import halo
+    from mpgnn_tpu_torch.parallel.mesh import all_gather_rows, make_mesh
+
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 100, 600), rng.integers(0, 50, 600)
+    x = rng.normal(size=(100, 8)).astype(np.float32)
+    mesh = make_mesh((2,), ("nodes",), device=device)
+    group = mesh.axis_group("nodes")
+    out = {}
+    for exchange in halo.EXCHANGES:
+        plan = halo.build_halo_plan(src, dst, 100, 2, exchange)
+        for local in halo.LOCALS:
+            sh = plan.shard(mesh.axis_rank("nodes"), device, local)
+            xl = halo.shard_graph_features(x, mesh, "nodes", device)
+            xl.requires_grad_(True)
+            y = halo.halo_sharded_mean_aggregate(mesh, xl, sh)
+            (y ** 2).sum().backward()
+            out[(exchange, local)] = (
+                all_gather_rows(y.detach(), group).cpu().numpy(),
+                all_gather_rows(xl.grad, group).cpu().numpy(),
+                int(sh.send_idx.numel()))
+    return out
+
+
+def test_halo_aggregate_with_a_silent_rank_on_the_card(dev):
+    """The exchange and its backward when a rank sends nothing, K1 on both
+    ranks' blockings (csr) and index_add_ (segment), against the
+    single-process mean and its gradient."""
+    from mpgnn_tpu_torch.parallel.mesh import spawn_ranks
+
+    res = spawn_ranks(_silent_rank_body, 2, device="cuda", timeout_s=300)
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 100, 600), rng.integers(0, 50, 600)
+    x = torch.tensor(rng.normal(size=(100, 8)).astype(np.float32),
+                     requires_grad=True)
+    want = csr.ref_mean(x, src, dst, 100)
+    (want ** 2).sum().backward()
+    for key, (out, grad, _) in res[0].items():
+        assert res[1][key][2] == 0, key          # rank 1 sends no row
+        np.testing.assert_allclose(out, want.detach().numpy(), **TOL)
+        np.testing.assert_allclose(grad, x.grad.numpy(), **TOL)

@@ -34,7 +34,10 @@ need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
         "mpgnn_tpu_torch.benchmarks.bench_ooc", "mpgnn_tpu_torch.generate",
         "mpgnn_tpu_torch.graph.fb15k", "mpgnn_tpu_torch.graph.continents",
         "mpgnn_tpu_torch.graph.gtn", "mpgnn_tpu_torch.utils.misc",
-        "mpgnn_tpu_torch.utils.prof"}}
+        "mpgnn_tpu_torch.utils.prof", "mpgnn_tpu_torch.parallel.mesh",
+        "mpgnn_tpu_torch.parallel.halo", "mpgnn_tpu_torch.parallel.shard",
+        "mpgnn_tpu_torch.parallel.elastic", "mpgnn_tpu_torch.parallel.context",
+        "mpgnn_tpu_torch.benchmarks.bench_parallel"}}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """
@@ -44,6 +47,30 @@ def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the modules whose functions ranks of ``parallel.mesh.spawn_ranks`` run:
+# a spawned rank imports them (and only them) afresh, so they must not
+# import JAX at import time
+_RANK_BODIES = """
+import sys
+sys.path.insert(0, "tests")
+import test_torch_parallel, test_torch_elastic
+import mpgnn_tpu_torch.benchmarks.bench_parallel
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {forbidden!r})
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_rank_bodies_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _RANK_BODIES.format(forbidden=set(FORBIDDEN))],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr

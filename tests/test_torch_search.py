@@ -269,7 +269,7 @@ def test_cli_runs_and_resumes_from_a_jax_checkpoint(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "8"], "A12"),
+    (["--mesh", "8"], "does not multiply to the 1 ranks"),
     (["--dropout_rng", "rbg"], "does not inherit"),
     (["--dropout_rng", "threefry"], "does not inherit"),
 ])

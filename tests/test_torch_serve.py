@@ -128,7 +128,7 @@ def test_predictor_log_probs_match_jax(synthetic_model, backend):
 
 
 @pytest.mark.parametrize("backend,err", [("auto", "unknown backend"),
-                                         ("halo", "A12")])
+                                         ("halo", "requires a mesh")])
 def test_predictor_refuses_what_the_jax_predictor_does_not_resolve(
         synthetic_model, backend, err):
     tg, _, _ = t_load(DATA + "node.dat", DATA + "link.dat", DATA + "label.dat")
