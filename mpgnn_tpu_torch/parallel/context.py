@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.parallel.mesh import all_gather_rows, make_mesh
 
 _state = threading.local()
@@ -130,9 +131,11 @@ def parse_mesh_spec(spec: str, n: int) -> Tuple[List[str], List[int]]:
 def mesh_from_spec(spec: str, device=None, ranks: Optional[Sequence[int]] =
                    None):
     """The mesh of a CLI spec over ``ranks`` (default every rank of the
-    default group); every rank calls it."""
+    default group) on ``device`` (default the card, as ``make_mesh``);
+    every rank calls it."""
     import torch.distributed as dist
 
+    device = resolve_device(device)
     ranks = list(range(dist.get_world_size())) if ranks is None else ranks
     names, sizes = parse_mesh_spec(spec, len(ranks))
     return make_mesh(sizes, names, ranks, device)

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from mpgnn_tpu_torch.config import MPGNNConfig
+from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh
 from mpgnn_tpu_torch.parallel.shard import (
     ShardedTrainStep,
@@ -108,7 +109,8 @@ def train_elastic(
     device=None,
 ) -> ElasticResult:
     """Supervised elastic training over ``ranks`` (default: every rank of
-    the default group), each calling it.
+    the default group), each calling it, on ``device`` (default the card;
+    the CPU only with ``device='cpu'``).
 
     Runs ``num_steps`` sharded steps on a (data, model) mesh of
     ``axis_shapes`` (default all ranks on data), checkpointing to
@@ -118,6 +120,7 @@ def train_elastic(
     the last checkpoint on a new (n, 1) mesh of the first n; fewer than
     ``min_devices`` re-raises. ``losses`` holds every step's loss, repeated
     steps after a resume included, as the JAX package's."""
+    device = resolve_device(device)
     cfg = cfg or MPGNNConfig()
     world = dist.get_world_size()
     ranks = list(range(world)) if ranks is None else list(ranks)

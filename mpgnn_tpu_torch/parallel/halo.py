@@ -52,9 +52,14 @@ EXCHANGES = ("a2a", "ppermute")
 LOCALS = ("segment", "csr")
 
 # exchanges started (forward and backward) and the host seconds from each
-# start to its received rows on the device; chip_smoke.py reads them
+# start to its received rows on the device; chip_smoke.py reads them. An
+# NCCL exchange returns to the host before its rows land: with
+# EXCHANGE_SYNC set, each wait synchronizes the device before the clock
+# stops, so that the seconds cover the exchange (and the local K1 launched
+# while it was in flight) on either backend
 EXCHANGE_CALLS = 0
 EXCHANGE_SECONDS = 0.0
+EXCHANGE_SYNC = False
 
 
 # --------------------------------------------------------------------- plan
@@ -317,6 +322,8 @@ def _wait(started: Tuple[Exchange, float]) -> torch.Tensor:
     global EXCHANGE_SECONDS
     ex, t0 = started
     out = ex.wait()
+    if EXCHANGE_SYNC and out.is_cuda:
+        torch.cuda.synchronize(out.device)
     EXCHANGE_SECONDS += time.perf_counter() - t0
     return out
 

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mpgnn_tpu_torch.device import resolve_device
+
 log = logging.getLogger("mpgnn_tpu_torch.parallel")
 
 # seconds a collective may wait before its process group raises
@@ -156,16 +158,16 @@ def make_mesh(
     device=None,
 ) -> Mesh:
     """A mesh over ``ranks`` (default: every rank of the default group) on
-    this rank's ``device`` (default: the current card, else the CPU).
-    Default shape: every rank on the first axis, 1 on the others. Must be
-    called by every rank of the default group."""
+    this rank's ``device`` (default: the current card; the CPU only with
+    ``device='cpu'``). Default shape: every rank on the first axis, 1 on
+    the others. Must be called by every rank of the default group."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     ranks = (list(range(dist.get_world_size())) if ranks is None
              else list(ranks))
     if axis_shapes is None:
         axis_shapes = (len(ranks),) + (1,) * (len(axis_names) - 1)
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if torch.cuda.is_available() else torch.device("cpu"))
     return Mesh(axis_shapes, axis_names, ranks, device)
 
 
@@ -296,12 +298,13 @@ def spawn_ranks(
     args: tuple = (),
     *,
     backend: str = "gloo",
-    device: str = "cpu",
+    device=None,
     timeout_s: float = 300.0,
     pg_timeout_s: float = 120.0,
 ) -> List:
     """Run ``fn(device, *args)`` in ``world`` new processes, one rank each
-    of a fresh default process group, and return their results in rank
+    of a fresh default process group on ``device`` (default the card; the
+    CPU only with ``device='cpu'``), and return their results in rank
     order (a rank may return None, as a rank that left a shrunk group
     does).
 
@@ -313,7 +316,8 @@ def spawn_ranks(
     They are joined with a hard ``timeout_s``: on expiry, or a few seconds
     after one rank failed, every rank still running is killed, and the
     call raises with each failed rank's traceback."""
-    if torch.device(device).type == "cuda":
+    device = resolve_device(device).type
+    if device == "cuda":
         from mpgnn_tpu_torch.ops import _kernels
 
         _kernels.build_all()

@@ -17,8 +17,9 @@ length group to 'csr' or 'segment' by the same cutover
 ``--mesh SPEC`` fans the search out over the ranks that ``torchrun``
 starts, the reference's ``mpiexec -n 10`` (run.sh:32): each rank computes
 its slice of every sweep's batch (``parallel.context``) and all take the
-same decisions; only rank 0 prints the summary and writes checkpoints and
-models:
+same decisions; only rank 0 prints the summary and writes checkpoints,
+models and the ``--trace_dir`` trace, and rank r > 0 keeps its frontier
+in ``<--frontier>.class<i>.pkl.rank<r>``:
 
     torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2 ...
 
@@ -292,8 +293,11 @@ def main(argv=None):
                           dropout_rng=args.dropout_rng),
     )
     ckpt = SearchCheckpoint(args.pickle_filename) if args.pickle_filename else None
-    # under --mesh every rank keeps its own frontier and trace files
+    # under --mesh every rank resumes from a frontier file of its own: with
+    # one file, rank 0 could replace it before another rank had read the
+    # state they both resume from. Rank 0 alone writes the trace.
     suffix = f".rank{rank}" if rank else ""
+    trace_dir = None if rank else args.trace_dir
 
     results = {}
     for list_index, binary_lab in enumerate(binary_labels):
@@ -317,7 +321,7 @@ def main(argv=None):
             logging.info("class %d restored from checkpoint", list_index)
             continue
 
-        with device_trace(args.trace_dir and args.trace_dir + suffix):
+        with device_trace(trace_dir):
             res = find_metapaths(
                 graph,
                 np.asarray(binary_lab, dtype=np.float32),

@@ -121,7 +121,7 @@ def ranks(tmp_path_factory):
                                     2, mp), device="cpu").state_dict()
     return spawn_ranks(_elastic_checks, WORLD,
                        (params, str(tmp_path_factory.mktemp("elastic"))),
-                       timeout_s=300)
+                       device="cpu", timeout_s=300)
 
 
 def _jax_cfg():

@@ -149,3 +149,21 @@ def test_out_of_core_entry_points_refuse_without_a_device():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mpgnn_clustered(pg, [[0]], split_nodes(labels), 2)
     assert bench_ooc.main(["--epochs", "1"]) == 2
+
+
+def test_parallel_entry_points_refuse_without_a_device():
+    """The meshes, the launcher and elastic training run on the card
+    unless asked for the CPU, and so does halo training on such a mesh;
+    the parallel bench refuses without one."""
+    _no_cuda()
+    from mpgnn_tpu_torch.benchmarks import bench_parallel
+    from mpgnn_tpu_torch.parallel import context, elastic, mesh
+
+    for call in (lambda: mesh.make_mesh((1,), ("nodes",)),
+                 lambda: context.mesh_from_spec("1"),
+                 lambda: mesh.spawn_ranks(bench_parallel.world1_rank, 1),
+                 lambda: elastic.train_elastic(None, [[0]], None, 2, 1,
+                                               "unused.pt")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert bench_parallel.main(["--epochs", "1"]) == 2

@@ -404,7 +404,7 @@ def ranks():
     of 4 gloo CPU ranks."""
     models = {case: _jax_train_init(case) for case in TRAIN_CASES}
     res = spawn_ranks(_rank_checks, WORLD, (models, _jax_sharded_init()),
-                      timeout_s=400)
+                      device="cpu", timeout_s=400)
     return res
 
 
@@ -822,7 +822,7 @@ def test_mesh_search_matches_single_process():
     """test_mesh_search.py:74: the whole search with its sweeps split over
     2 ranks gives the single-process search's SearchResult; on a factored
     2 x 2 mesh (:101) it finds the planted path."""
-    res = spawn_ranks(_search_ranks, WORLD, timeout_s=1800,
+    res = spawn_ranks(_search_ranks, WORLD, device="cpu", timeout_s=1800,
                       pg_timeout_s=1500)
     want = _search(11, "cpu")
     for r in res[:2]:
