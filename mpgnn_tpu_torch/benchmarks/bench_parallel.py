@@ -57,10 +57,10 @@ METAPATHS = [[0, 1]]
 # order, and 20 epochs of Adam on labels the model learns carry such
 # rounding into the parameters (the first epoch's loss is bitwise equal).
 # Read on H100 80GB HBM3 cards at 700 W (chip_smoke.py phase 10 on 2 gloo
-# ranks of one card, twice; bench_parallel --ranks 4 over NCCL once):
+# ranks of one card, three times; bench_parallel --ranks 4 over NCCL once):
 # final loss up to 7.9e-4 relative apart, parameters 3.7e-3, F1s 1.4e-4;
 # the single-process segment run, another order of the same sums, is
-# 7.0e-5 to 6.9e-4 and 1.5e-3 to 2.4e-3 from csr (its index_add_ sums in
+# 7.0e-5 to 6.9e-4 and 1.5e-3 to 3.5e-3 from csr (its index_add_ sums in
 # no fixed order). The control with one rank's halo zeroed is 0.64-0.98,
 # 0.17-0.20 and 0.077-0.082 apart. The bounds leave 5-7x over the
 # readings and stay 8x or more under the control. The bf16
