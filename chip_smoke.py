@@ -14,6 +14,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    first-call costs the JAX package's warmer hides (``warm_costs``): the
    card's context, the first K1 launch after the build against the
    second, and a ``train_mpgnn`` run's first epoch against its second;
+   then the main thread's first calls (the context, K1, a product, a
+   backward, an Adam step, a flat sweep, a bag round and an epoch of the
+   batched evaluation) in two fresh child processes, without the warmer
+   and with it (``utils/warm.py``: ``poke_device`` and the stage warms
+   started before the graph's load, as the CLI starts them, then waited
+   for): no warm may fail, and K1 must launch from a warm thread; then
+   the rest of the ops API (``ops.segment``'s masked mean, max, argmax and
+   counts, ``ops.spmm.ell_max_gather`` and its gradient) on the card
+   against the same ops on the CPU (exact; the mean within 1e-6);
 2. kernels: on the uniform graph (200k nodes / 10M edges / 4 relations,
    the 200k-node north-star shape of ``bench.py``) and the power-law KG
    (200k nodes / 2M edges / 237 relations / planted path of 3 / seed 5),
@@ -107,10 +116,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    of candidates at once (``train/batch_eval.py``): (a) ``python -m
    mpgnn_tpu_torch.run`` on ``data/synthetic_multiclass`` as users run it
    (hidden 64, the reference's 3 extension hops, ``--backend csr``, 3
-   one-vs-rest classes, MPNetm cut from 1000 to 150 epochs, see
+   one-vs-rest classes, MPNetm cut from 1000 to 100 epochs, see
    ``SEARCH_EPOCHS``), in a child process: each class's metapaths, test
    F1, candidates and stage times (hop-0 sweep, each bag hop, final
-   evaluation, greedy accumulation) from the engine's log lines; (b) class
+   evaluation, greedy accumulation) from the engine's log lines, then the
+   same line with ``--no_warm``, whose selections, test F1s, candidates
+   and validation F1s must equal the warmed run's, both runs' stage times
+   side by side; (b) class
    0 again in this process through ``find_metapaths``, csr batched and csr
    with ``batched_eval=False`` (one ``train_mpgnn`` a candidate), then
    ``backend='segment'``: each against (a), the same candidates in the same
@@ -204,7 +216,8 @@ sets them to 0 before each clustered run and reads them after it; their
 sum is the kernels line's ``launches_ooc``. Phase 10 (b)'s ranks set
 theirs to 0 before each halo run and read them after it; their sum is
 ``launches_halo``. K5's probe
-counts its own in its child process, which starts at 0.
+counts its own in its child process, which starts at 0, and phase 1's
+warmed child the K1 launches of its warm threads (``launches_warm``).
 The last lines are the card's name and power limit, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -1061,8 +1074,11 @@ def cli_search(argv) -> dict:
                        (_EVAL_CHUNK_RE, "final_eval")):
         for b in pat.findall(out.stderr):
             resolved[f"{where}:{b}"] = resolved.get(f"{where}:{b}", 0) + 1
+    warms = [line.split("mpgnn_tpu_torch.warm ", 1)[1]
+             for line in out.stderr.splitlines()
+             if "mpgnn_tpu_torch.warm " in line]
     return dict(per_class=per_class, launches=launches, summary=summary,
-                stages=stages, resolved=resolved, wall=wall)
+                stages=stages, resolved=resolved, wall=wall, warms=warms)
 
 
 _TRAIN_AUTO_RE = re.compile(r"train_mpgnn: backend 'auto' -> '(\w+)'")
@@ -1080,6 +1096,22 @@ def search_cli_run() -> tuple:
     per_class, launches, summary = (run["per_class"], run["launches"],
                                     run["summary"])
     stages = run["stages"]
+    # the same line without the warmer: the same decisions, bit for bit
+    cold = cli_search(SEARCH_CLI + ["--no_warm"])
+    same = (cold["per_class"] == per_class
+            and cold["summary"]["classes"] == summary["classes"])
+    log(phase="search_cli_no_warm", same_json=same,
+        warms=run["warms"], process_wall_s=run["wall"],
+        no_warm_process_wall_s=cold["wall"], stage_s=stages,
+        no_warm_stage_s=cold["stages"],
+        stages_total_s=[sum(c.values()) for c in stages],
+        no_warm_stages_total_s=[sum(c.values()) for c in cold["stages"]],
+        launches=launches, no_warm_launches=cold["launches"])
+    check(same, "the warmed CLI's selections or F1s differ from --no_warm's:"
+                f" {summary['classes']} against {cold['summary']['classes']}")
+    check(run["warms"] and not any("failed" in w for w in run["warms"])
+          and not cold["warms"],
+          f"warm log lines: {run['warms']}; with --no_warm {cold['warms']}")
     log(phase="search_cli", dataset="data/synthetic_multiclass",
         epochs=SEARCH_EPOCHS,
         reduced=[f"MPNetm epochs 1000 -> {SEARCH_EPOCHS}"], max_hops=3,
@@ -2571,6 +2603,162 @@ def warm_costs(torch, csr, load_dat_files, split_nodes) -> dict:
     return rec
 
 
+# Phase 1's fresh child: with the warmer (argv[1] == "1") it starts
+# ``poke_device`` and the stage warms before the graph's load, as the CLI
+# does, loads ``data/synthetic_multiclass`` and waits for the warms; then,
+# with or without, the main thread's first calls one at a time (host
+# clock, synchronised): the context, K1, a product, a backward, an Adam
+# step, and the warms' own tiny flat sweep, bag round and batched
+# evaluation epoch. Its last line is one JSON object.
+_WARM_CHILD = """\
+import json, os, sys, time
+import torch
+warmed = sys.argv[1] == "1"
+t0 = time.perf_counter()
+from mpgnn_tpu_torch.utils import warm
+from mpgnn_tpu_torch.config import MPGNNConfig
+warmer = warm.get_warmer(enabled=warmed)
+dev = torch.device("cuda", 0)
+cfg = MPGNNConfig(hidden_dim=64, backend="csr")
+if warmer is not None:
+    warmer.poke_device(dev)
+    for mode in ("ell", "seg"):
+        warmer.warm_flat_signature(1, 8, 2, 100, 0.1, mode=mode, C=8,
+                                   device=dev)
+        warmer.warm_bag_signature(1, 8, 2, 2, 2, 2, 50, 0.1, mode=mode,
+                                  C=8, P=4, device=dev)
+from mpgnn_tpu_torch.graph.io import load_dat_files
+from mpgnn_tpu_torch.ops import csr
+folder = sys.argv[2]
+graph, labels, _ = load_dat_files(*(os.path.join(folder, f) for f in (
+    "node.dat", "link.dat", "label.dat")))
+if warmer is not None:
+    warmer.warm_eval(graph, [[1, 0]], None, 3, cfg, 0, None, device=dev)
+rec = dict(warmed=warmed, load_s=time.perf_counter() - t0)
+t1 = time.perf_counter()
+if warmer is not None:
+    warmer.wait(600)
+rec["wait_s"] = time.perf_counter() - t1
+rec["warm_k1_launches"] = csr.SCATTER_LAUNCHES
+rec["failures"] = [] if warmer is None else [
+    [str(k), m] for k, m in warmer.failures]
+def first(name, fn):
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    rec[name] = time.perf_counter() - t
+first("context_s", lambda: torch.zeros(1, device=dev))
+s, d = graph.rel_edges(1)
+blk = csr.build_csr_blocking(s, d, graph.num_nodes)[0].to(dev)
+x = torch.ones(graph.num_nodes, 64, device=dev)
+first("k1_s", lambda: csr.csr_scatter(blk, x))
+a = torch.ones(64, 64, device=dev, requires_grad=True)
+first("matmul_s", lambda: a @ a)
+first("backward_s", lambda: (a @ a).sum().backward())
+first("adam_s", lambda: torch.optim.Adam([a], lr=0.01).step())
+first("flat_sweep_s", lambda: warm._flat(dev, "ell", 0.1, {}))
+first("bag_round_s", lambda: warm._bag(dev, "ell", 0.1, dict(F=2)))
+first("eval_epoch_s", lambda: warm._eval(dev, "csr", 2, graph.feat_dim, 3,
+                                         cfg, 0))
+rec["total_s"] = time.perf_counter() - t0
+print(json.dumps(rec), flush=True)
+"""
+
+
+def warm_child_costs(card: str) -> dict:
+    """Phase 1, in two fresh processes: the main thread's first calls
+    without the warmer and with it (``_WARM_CHILD``). With it, no warm may
+    fail and K1 must have launched from a warm thread. Returns {'cold':
+    ..., 'warm': ...}."""
+    out = {}
+    for tag, flag in (("cold", "0"), ("warm", "1")):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", _WARM_CHILD, flag, SYNTH],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        check(run.returncode == 0,
+              f"warm child ({tag}) failed:\n{run.stderr[-3000:]}")
+        out[tag] = json.loads(run.stdout.strip().splitlines()[-1])
+        out[tag]["process_wall_s"] = time.perf_counter() - t0
+    w = out["warm"]
+    check(not w["failures"], f"a warm failed: {w['failures']}")
+    check(w["warm_k1_launches"] > 0, "K1 did not launch from a warm thread")
+    log(phase="warm_child", card=card, **out)
+    return out
+
+
+# The rest of the ops API (``ops.segment``, ``ops.spmm.ell_max_gather``;
+# PyTorch ops, no kernel of their own) on the card against the same ops on
+# the CPU: one uniform relation's 2.5M edges into 200,000 segments, F = 16
+# for the means and row maxima; the scorer's [200,000, 16] neighbour table
+# with weights on 5 levels, so that most rows hold ties.
+OPS_ROWS, OPS_ENTRIES, OPS_F, OPS_D = 200_000, 2_500_000, 16, 16
+OPS_MEAN_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def ops_api_check(torch) -> dict:
+    """max, argmax, counts and ``ell_max_gather`` (values, winners, the
+    gradient of sum(value * c) with whole-number c) exactly; the masked
+    mean within ``OPS_MEAN_TOL``."""
+    from mpgnn_tpu_torch.ops import segment as seg
+    from mpgnn_tpu_torch.ops.spmm import ell_max_gather
+
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, OPS_ROWS - 1000, OPS_ENTRIES)  # 1,000 empty rows
+    data = rng.normal(size=(OPS_ENTRIES, OPS_F)).astype(np.float32)
+    ties = (rng.integers(0, 5, OPS_ENTRIES) / 4).astype(np.float32)
+    mask = rng.random(OPS_ENTRIES) > 0.3
+    nbr = rng.integers(0, OPS_ROWS, (OPS_ROWS, OPS_D))
+    nmask = rng.random((OPS_ROWS, OPS_D)) > 0.3
+    nmask[:100] = False                                  # rows without one
+    w = (rng.integers(0, 5, OPS_ROWS) / 4).astype(np.float32)
+    c = rng.integers(-4, 5, OPS_ROWS).astype(np.float32)
+
+    def run(dev):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+            ids=ids, data=data, ties=ties, mask=mask, nbr=nbr, nmask=nmask,
+            w=w, c=c).items()}
+        wg = t["w"].clone().requires_grad_()
+        v, win = ell_max_gather(wg, t["nbr"], t["nmask"])
+        (v * t["c"]).sum().backward()
+        t0 = time.perf_counter()
+        out = dict(
+            mean=seg.masked_segment_mean(t["data"], t["ids"], t["mask"],
+                                         OPS_ROWS),
+            max=seg.segment_max(t["data"], t["ids"], OPS_ROWS),
+            max_masked=seg.segment_max(t["ties"], t["ids"], OPS_ROWS,
+                                       t["mask"], fill=-1.0),
+            argmax=seg.segment_argmax(t["ties"], t["ids"], OPS_ROWS,
+                                      t["mask"]),
+            count=seg.segment_count(t["ids"], OPS_ROWS),
+            ell=(v.detach(), win, wg.grad))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        flat = {}
+        for k, val in out.items():
+            vals = val if isinstance(val, tuple) else (val,)
+            for i, a in enumerate(vals):
+                flat[f"{k}{i}"] = a.cpu().numpy()
+        return flat, time.perf_counter() - t0
+
+    got, card_s = run("cuda")
+    want, cpu_s = run("cpu")
+    rec = dict(rows=OPS_ROWS, entries=OPS_ENTRIES, F=OPS_F, D=OPS_D,
+               card_host_s=card_s, cpu_s=cpu_s)
+    for k in want:
+        if k.startswith("mean"):
+            np.testing.assert_allclose(got[k], want[k], **OPS_MEAN_TOL)
+        else:
+            check(np.array_equal(got[k], want[k]),
+                  f"{k}: the card's result differs from the CPU's")
+        d = np.abs(got[k].astype(np.float64) - want[k].astype(np.float64))
+        rec[f"{k}_max_abs_err"] = float(np.nanmax(np.where(
+            np.isinf(want[k]), 0.0, d)))
+    check(np.isneginf(want["ell0"][:100]).all(), "masked rows not -inf")
+    log(phase="ops_api", **rec)
+    return rec
+
+
 def halo_kernels(torch, csr, HeteroGraph) -> list:
     """10 (a): K1 on the rectangular blockings of every shard of the
     uniform graph's relations 0 and 1 at P = 2 and 4 ('a2a' plans), the
@@ -2878,6 +3066,10 @@ def main() -> int:
                                            "label.dat")))
     split_s = split_nodes(labels_s)
     warm_costs(torch, csr, load_dat_files, split_nodes)
+    warm_child = None
+    if os.path.abspath(args.package_root) == ROOT:
+        warm_child = warm_child_costs(smi)
+        ops_api_check(torch)
     if args.parallel_only:
         parallel_phase(torch, csr, HeteroGraph)
         log(phase="done", seconds=time.perf_counter() - t_start)
@@ -3029,6 +3221,11 @@ def main() -> int:
                          probe_k1_gather=probe["k1_gather"])
         ooc = ooc_launches.get(name, 0)
         halo_k1 = par["launches_halo"] if name == "csr_scatter" else 0
+        # phase 1's fresh child: K1 from the warm threads
+        warm_k1 = (warm_child["warm"]["warm_k1_launches"]
+                   if name == "csr_scatter" else 0)
+        if warm_k1:
+            extra["launches_warm"] = warm_k1
         if name == "csr_scatter":        # 10 (a): a shard's four launches
             at = [r for r in par["kernels"] if "local_fwd_ms" in r]
             extra.update(launches_halo=halo_k1, halo_shards={
@@ -3040,7 +3237,7 @@ def main() -> int:
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1],
             launches=(serve_launches[name] + train_launches[name]
-                      + search_launches[name] + ooc + halo_k1),
+                      + search_launches[name] + ooc + halo_k1 + warm_k1),
             launches_serve=serve_launches[name],
             launches_train=train_launches[name],
             launches_search=search_launches[name],
@@ -3088,7 +3285,7 @@ def main() -> int:
     kernels.append(dict(
         name="dma_gather", route="cuda",
         source="mpgnn_tpu_torch/csrc/dma_gather.cu",
-        replaces="benchmarks/bench_dma_gather.py:57",
+        replaces="benchmarks/bench_dma_gather.py:53",
         launches=probe["launches"], launches_probe=probe["launches"],
         F=128, rows_per_run=1,
         max_abs_err=max(p["max_abs_err"] for p in probe["shapes"]),

@@ -78,6 +78,19 @@ def ell_mean_aggregate(x: torch.Tensor, nbr: torch.Tensor,
     return total * (1.0 / count.clamp_min(1.0)).to(x.dtype)
 
 
+def ell_max_gather(w: torch.Tensor, nbr: torch.Tensor,
+                   nbr_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scorer's primitive (model.py:74-89): for each source i, (value,
+    winner) = (max over the valid d of w[nbr[i, d]], the nbr[i, d] that
+    holds it first), ``w`` [N], ``nbr`` / ``nbr_mask`` [N, D]. A row
+    without a valid neighbour gives (-inf, nbr[i, 0]). The gradient
+    reaches only the selected element of ``w``; a row without a valid
+    neighbour gives it none (the reference's index assignment)."""
+    vals = torch.where(nbr_mask, w[nbr], float("-inf"))
+    j = vals.argmax(dim=-1, keepdim=True)     # the first maximum on ties
+    return vals.gather(-1, j)[..., 0], nbr.gather(-1, j)[..., 0]
+
+
 # ------------------------------------------------------------------ ell2
 class Ell2Operand(NamedTuple):
     """Paired out/in ELL tables with the mean's 1/deg(src) folded into the

@@ -42,7 +42,9 @@ log = logging.getLogger("mpgnn_tpu_torch.rgcn_baseline")
 
 def balanced_class_weights(y: np.ndarray, num_classes: int) -> np.ndarray:
     """sklearn's 'balanced' weights n / (C * bincount), an empty class
-    counted once (main_rgcn.py:376)."""
+    counted once (main_rgcn.py:376). A label id without nodes (a gap) is
+    such a class: every weight then scales by the same factor, which the
+    weighted mean of ``weighted_nll`` cancels."""
     counts = np.bincount(y, minlength=num_classes).astype(np.float64)
     counts[counts == 0] = 1.0
     return (len(y) / (num_classes * counts)).astype(np.float32)
@@ -156,7 +158,10 @@ def main(argv=None):
     x = graph.x
     if args.dataset == "fb15k-237":
         x = mask_label_leak(graph.x, split)   # main_rgcn.py:41-48, :503
-    num_classes = int(len(np.unique(labels)))
+    # one output a label id, as the search CLI's: the JAX baseline takes
+    # the count of distinct labels, which on ids with gaps
+    # (fb15k-237-continent's 0, 1, 3, 6) leaves labels past the last output
+    num_classes = int(np.max(labels)) + 1
     res = train_rgcn_baseline(
         graph, labels, split, num_classes, args.metapath_length,
         MPGNNConfig(epochs=args.epochs, hidden_dim=args.hidden_dim,

@@ -35,9 +35,13 @@ Differences from the JAX CLI:
   devices;
 * refused: ``--dropout_rng threefry|rbg``: the port draws dropout masks
   from a ``torch.Generator`` only ("What the port does not inherit"), and
-  ``--retries`` with ``--mesh``.
-  ``--no_warm`` is accepted and does nothing: the port has no
-  compile-ahead warmer (A13);
+  ``--retries`` with ``--mesh``;
+* the warmer (``utils.warm``, off with ``--no_warm``) compiles nothing
+  ahead: before the graph loads, it starts the device's first calls on a
+  thread of its own (the context, the kernel libraries' load and build,
+  a K1 launch, cuBLAS, autograd, the first ``torch.optim`` step's
+  ``torch._dynamo`` import), and the search warms each sweep form and a
+  length group's batched evaluation once, where the JAX engine warms;
 * ``--trace_dir DIR`` writes one ``torch.profiler`` Chrome trace JSON a
   class into DIR (``utils.prof.device_trace``), where the JAX CLI writes a
   ``jax.profiler`` trace.
@@ -143,8 +147,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace (Chrome JSON) of each "
                         "class's search into this directory")
     p.add_argument("--no_warm", action="store_true",
-                   help="accepted for the JAX command lines; the port has "
-                        "no compile-ahead warmer")
+                   help="disable the background first-call warmer "
+                        "(utils/warm.py)")
     p.add_argument("--bag_gap_inclusive", action="store_true",
                    help="use the hop-0-style <= gap cut at bag hops too")
     p.add_argument("--retries", type=int, default=0,
@@ -245,8 +249,29 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(message)s",
         stream=sys.stderr,
     )
-    from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
     from mpgnn_tpu_torch.device import resolve_device
+    from mpgnn_tpu_torch.utils.warm import get_warmer
+
+    device = resolve_device(_device(args))
+    rank, joined = 0, False
+    if args.mesh:
+        device, rank, joined = _join_mesh(args, device)
+    # the device's first calls on a thread of their own, so that they
+    # overlap the graph's load and the first sweeps
+    warmer = get_warmer(enabled=not args.no_warm)
+    if warmer is not None:
+        warmer.poke_device(device)
+    try:
+        return _search(args, device, rank, joined, warmer)
+    finally:
+        if warmer is not None:
+            warmer.shutdown()
+
+
+def _search(args, device, rank: int, joined: bool, warmer):
+    """Load the dataset, search every class and print the summary (rank
+    0), as ``main`` set it up."""
+    from mpgnn_tpu_torch.config import MPGNNConfig, SearchConfig
     from mpgnn_tpu_torch.graph.io import (
         load_acm_style,
         load_dat_files,
@@ -258,10 +283,6 @@ def main(argv=None):
     from mpgnn_tpu_torch.utils.checkpoint import SearchCheckpoint
     from mpgnn_tpu_torch.utils.prof import device_trace
 
-    device = resolve_device(_device(args))
-    rank, joined = 0, False
-    if args.mesh:
-        device, rank, joined = _join_mesh(args, device)
     t_start = time.time()
     folder = args.folder.rstrip("/") + "/"
     node_f = folder + args.node_file
@@ -337,6 +358,7 @@ def main(argv=None):
                     if args.frontier else None
                 ),
                 device=device,
+                warmer=warmer,
             )
         results[list_index] = res
         if rank:

@@ -101,6 +101,7 @@ def find_metapaths(
     frontier_checkpoint: Optional[str] = None,
     backend: Optional[str] = None,
     device=None,
+    warmer=None,
 ) -> SearchResult:
     """Run the full metapath search for one binary label vector on
     ``device`` (the GPU unless ``device='cpu'``).
@@ -123,7 +124,12 @@ def find_metapaths(
     states and discovered paths) is saved after hop 0, after every
     extension hop and after every evaluated candidate, and a search that
     finds the file resumes from the last finished step (after every
-    evaluated chunk of candidates, or every candidate)."""
+    evaluated chunk of candidates, or every candidate).
+
+    ``warmer`` (``utils.warm.ProgramWarmer``) pays first calls on its own
+    threads where the JAX engine warms: each sweep's form before its
+    chunks (which covers the retrain rounds' forms too) and one epoch of
+    a length group's batched evaluation once the group is final."""
     cfg = config or SearchConfig()
     device = resolve_device(device)
     backend = backend or cfg.mpgnn.backend
@@ -168,6 +174,11 @@ def find_metapaths(
             )
         os.replace(tmp, frontier_checkpoint)
 
+    def warm_eval(group, existing=None):
+        warmer.warm_eval(graph, group, split, num_classes, cfg.mpgnn, seed,
+                         x, existing=existing, backend=backend,
+                         device=device)
+
     # ---------------------------------------------------------------- hop 0
     if resume is None:
         t0 = time.time()
@@ -182,7 +193,7 @@ def find_metapaths(
         log.info("hop-0 candidates: %s", candidates)
         flat = score_relations_flat(
             graph, candidates, node_labels, src_list, cfg.scorer, rng,
-            device=device,
+            device=device, warmer=warmer,
         )
         items = [(r, flat[r].loss) for r in candidates]
         survivors = bagmod.flat_gap_selection(items)
@@ -218,10 +229,20 @@ def find_metapaths(
         final_paths: List[List[int]] = [list(s.path) for s in current]
         start_hop = 0
         save_frontier(0, current, final_paths)
+        # the length-1 group is final: warm its evaluation while the
+        # extension hops run
+        if warmer is not None and batched_eval and cfg.max_extension_hops:
+            warm_eval([p for p in final_paths if len(p) == 1])
     else:
         current = resume["current"]
         final_paths = resume["final_paths"]
         start_hop = resume["hop"]
+        # the groups final before the interruption, but those whose every
+        # candidate has a saved result
+        if warmer is not None and batched_eval:
+            for length in range(1, start_hop + 2):
+                warm_eval([p for p in final_paths if len(p) == length],
+                          existing=eval_partial)
 
     # ------------------------------------------------------- hops 1..max
     for k in range(start_hop, cfg.max_extension_hops):
@@ -249,7 +270,8 @@ def find_metapaths(
             save_frontier(k + 1, current, final_paths)
             break
         all_scores = score_bag_tasks(
-            graph, hop_tasks, cfg.scorer, rng, x=x, device=device
+            graph, hop_tasks, cfg.scorer, rng, x=x, device=device,
+            warmer=warmer,
         )
         stage_s[f"hop{k + 1}"] = time.time() - t0
         log.info(
@@ -320,6 +342,9 @@ def find_metapaths(
                 )
         current = next_states
         save_frontier(k + 1, current, final_paths)
+        # this hop's new length (k + 2) is final: warm its evaluation
+        if warmer is not None and batched_eval and current:
+            warm_eval([p for p in final_paths if len(p) == k + 2])
         if not current:
             break
 

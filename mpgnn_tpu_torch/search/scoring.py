@@ -284,13 +284,16 @@ def score_relations_flat(
     cfg: ScorerConfig = ScorerConfig(),
     rng: Optional[np.random.Generator] = None,
     device=None,
+    warmer=None,
 ) -> Dict[int, FlatScore]:
     """Hop-0 sweep (score_relation_parallel, main.py:727-760) on ``device``
     (the GPU unless ``device='cpu'``).
 
     ``source_nodes=None``: each relation's source set is the sources of its
     own edges (main.py:728-735); otherwise the fixed labeled-source list
-    serves every relation (FB15K mode)."""
+    serves every relation (FB15K mode). ``warmer``
+    (``utils.warm.ProgramWarmer``) warms each chunk's sweep form before
+    the chunk loop reaches it."""
     device = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     node_labels = np.asarray(node_labels, dtype=np.float32).reshape(-1)
@@ -303,6 +306,11 @@ def score_relations_flat(
         fixed_mask[np.asarray(list(source_nodes), dtype=np.int64)] = True
 
     chunks = _chunks(relations, graph, _mem_budget_entries(device))
+    if warmer is not None:
+        for mode, pad, cpad, chunk in chunks:
+            warmer.warm_flat_signature(len(chunk), N, pad, cfg.epochs_flat,
+                                       cfg.lr, mode=mode, C=cpad,
+                                       device=device)
     for ci, (mode, pad, cpad, chunk) in enumerate(chunks):
         R = len(chunk)
         log.info(
@@ -687,6 +695,7 @@ def score_bag_tasks(
     x: Optional[np.ndarray] = None,
     stats: Optional[list] = None,
     device=None,
+    warmer=None,
 ) -> Dict:
     """Bag sweeps for many search states at once on ``device``.
 
@@ -696,13 +705,19 @@ def score_bag_tasks(
     main.py:1381-1408) runs as one batch per chunk and restart round.
     Returns ``{task_id: {relation: BagScore}}``. The restart control flow
     stays on the host, per instance. ``stats``, if given, receives one dict
-    of shapes per chunk."""
+    of shapes per chunk. ``warmer`` warms each chunk's restart-round form
+    before the host's bag bookkeeping below."""
     device = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     x = np.asarray(graph.x if x is None else x, dtype=np.float32)
     N, F = x.shape
     B, M, P = _bag_buckets(tasks)
     chunks = _instance_chunks(graph, tasks, N, _mem_budget_entries(device))
+    if warmer is not None:
+        for mode, pad, cpad, chunk in chunks:
+            warmer.warm_bag_signature(len(chunk), N, pad, B, M, F,
+                                      cfg.epochs_bags, cfg.lr, mode=mode,
+                                      C=cpad, P=P, device=device)
 
     per_task = []
     for tid, rels, bag_list, labels in tasks:

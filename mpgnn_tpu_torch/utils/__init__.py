@@ -1,1 +1,1 @@
-"""Parameter checkpoints."""
+"""Checkpoints, profiling, small helpers and the first-call warmer."""

@@ -37,7 +37,8 @@ need = {{"mpgnn_tpu_torch.search.scoring", "mpgnn_tpu_torch.search.bags",
         "mpgnn_tpu_torch.utils.prof", "mpgnn_tpu_torch.parallel.mesh",
         "mpgnn_tpu_torch.parallel.halo", "mpgnn_tpu_torch.parallel.shard",
         "mpgnn_tpu_torch.parallel.elastic", "mpgnn_tpu_torch.parallel.context",
-        "mpgnn_tpu_torch.benchmarks.bench_parallel"}}
+        "mpgnn_tpu_torch.benchmarks.bench_parallel",
+        "mpgnn_tpu_torch.utils.warm", "mpgnn_tpu_torch.benchmarks.bench_warm"}}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
 """

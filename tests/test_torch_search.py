@@ -384,3 +384,79 @@ def test_cli_trains_labels_with_gaps(tmp_path, capsys):
     assert summary["dataset"] == "IMDB" and len(summary["classes"]) == 3
     for cls in summary["classes"].values():
         assert 0.0 < cls["test_f1"] <= 1.0 and cls["metapaths"]
+
+
+def _gapped_labels(folder, factor):
+    """data/synthetic_multiclass with each label id times ``factor`` (1:
+    the folder as it is)."""
+    import shutil
+
+    shutil.copytree(os.path.join(REPO, "data", "synthetic_multiclass"),
+                    folder)
+    path = os.path.join(folder, "label.dat")
+    rows = [line.split() for line in open(path)]
+    with open(path, "w") as f:
+        for node, label in rows:
+            f.write(f"{node}\t{factor * int(label)}\n")
+    return folder
+
+
+def test_baseline_cli_trains_labels_with_gaps(tmp_path, capsys):
+    """The RGCN baseline CLI on label ids with gaps (0, 3, 6): one output a
+    label id, so every label has its output, and the run ends with finite
+    F1s. (With the count of distinct labels, 3 outputs, label 6 would
+    index past the last output of the class-weighted NLL.) One intra-op
+    thread: the tier-1 run's workers share the cores, where PyTorch's
+    thread pool waits on descheduled threads at every parallel op."""
+    import torch
+
+    from mpgnn_tpu_torch import rgcn_baseline
+
+    folder = _gapped_labels(str(tmp_path / "gaps"), 3)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = rgcn_baseline.main(["--folder", folder, "--metapath_length",
+                                  "2", "--hidden_dim", "8", "--epochs", "5",
+                                  "--platform", "cpu"])
+    finally:
+        torch.set_num_threads(n)
+    assert res["params"].linear.weight.shape[0] == 7
+    assert np.isfinite(res["final_loss"])
+    for k in ("train_f1", "val_f1", "test_f1"):
+        assert 0.0 < res[k] <= 1.0, (k, res[k])
+    assert "test F1" in capsys.readouterr().out
+
+
+def test_baseline_class_count_and_weights_match_jax_without_gaps():
+    """On gap-free labels the baseline sizes the model as the JAX baseline
+    does (max id + 1 is the count of distinct labels), with the JAX
+    weights. With gaps, an empty class is counted once and every weight
+    scales by the same factor (the class counts' ratio), which the weighted
+    mean of the NLL cancels; and macro-F1 leaves the empty classes out, so
+    the gapped ids give the JAX F1s of the gap-free ones."""
+    import jax.numpy as jnp
+    import torch
+
+    from mpgnn_tpu.rgcn_baseline import balanced_class_weights as j_bcw
+    from mpgnn_tpu.train.metrics import macro_f1 as j_macro_f1
+    from mpgnn_tpu_torch.graph.io import load_dat_files
+    from mpgnn_tpu_torch.rgcn_baseline import balanced_class_weights
+    from mpgnn_tpu_torch.train.metrics import macro_f1
+
+    folder = os.path.join(REPO, "data", "synthetic_multiclass")
+    _, labels, _ = load_dat_files(*(os.path.join(folder, f) for f in (
+        "node.dat", "link.dat", "label.dat")))
+    c = len(np.unique(labels))
+    assert int(np.max(labels)) + 1 == c
+    y = np.asarray(split_nodes(labels).train_y)
+    np.testing.assert_array_equal(balanced_class_weights(y, c), j_bcw(y, c))
+    gapped = balanced_class_weights(3 * y, 3 * (c - 1) + 1)
+    np.testing.assert_allclose(gapped[3 * np.arange(c)] * (3 * (c - 1) + 1),
+                               j_bcw(y, c) * c, rtol=1e-6)
+    rng = np.random.default_rng(0)
+    preds = rng.integers(0, c, len(y))
+    want = float(j_macro_f1(jnp.asarray(preds), jnp.asarray(y), c))
+    got = float(macro_f1(torch.as_tensor(3 * preds), torch.as_tensor(3 * y),
+                         3 * (c - 1) + 1))
+    assert abs(got - want) <= 1e-7
