@@ -65,7 +65,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    flushed before each launch, as training finds A, and by kernel with the
    profiler) beside its bound, its plain version and one cuBLAS call
    (``torch.mm`` over the same bf16 operands, plus the epilogue in torch for
-   K3), which the port never calls;
+   K3), which the port never calls; then K3 and its bf16-h form at the
+   widths past one main loop and past a whole-W epilogue
+   (``wide_conv_phase``): (N, F, H) = (5,000, 334, 64), two main-loop
+   slices, and (5,000, 256, 256), the same way, with the profiler's
+   kernels of the forward K3's own;
 7. hold the first training step's gradient of every parameter, on the
    three graphs below, against a reference (csr against segment on the
    card; pallas against the same autograd Function on the CPU, with the
@@ -75,7 +79,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (a) ``data/synthetic_multiclass``, metapaths [[1, 0], [2, 3]], 1000
    epochs, backends 'pallas', 'csr' and 'segment' (csr against segment and
    pallas against segment at the tolerances below; epoch time between CUDA
-   events recorded after each optimizer step); (b) the uniform graph
+   events recorded after each optimizer step), then 'pallas' against
+   'segment' at 334 seeded input columns and at hidden 256
+   (``wide_train``, ``WIDE_EPOCHS``), K3 launched at every hop; (b) the
+   uniform graph
    with ``bench.py``'s bench_train_at_scale labels and metapath [0, 1], 100
    epochs, 'csr' against 'segment'; (c) the power-law KG with the serving
    metapaths, 20 epochs, 'csr'. Then one torch.profiler window of 5 epochs
@@ -195,10 +202,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    run equal to csr; (c) ``build_sharded_train_step`` on 4
    ranks as (data, model) = (2, 2), ``SHARDED_STEPS`` steps on
    ``data/synthetic_multiclass`` against the replicated step; (d)
-   ``train_elastic`` 4 -> 2 ranks with a fault at step ``ELASTIC_FAULT``
-   against the run without; (e) ``torchrun --nproc_per_node 2 -m
-   mpgnn_tpu_torch.run --mesh 2`` at ``MESH_CLI``'s cut settings against
-   the single-process CLI: the same selections and F1s.
+   ``train_elastic`` 4 -> 2 ranks with a fault at step 5, and 4 -> 2 -> 1
+   with another at step 9 (``bench_parallel.ELASTIC_*``), against the run
+   without; (e) ``torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run
+   --mesh 2`` at ``MESH_CLI``'s cut settings against the single-process
+   CLI: the same selections and F1s; (f) the same line started without
+   torchrun, ``--mesh 2 --retries 1``, rank 1 failing on its first attempt
+   (``FAIL_ONCE_SITE``): rc 0, one attempt logged, the same summary.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -225,7 +235,11 @@ record per kernel, and ``{"ok": true, "device": {...}}``.
 per kernel shape; ``--package-root DIR`` takes ``mpgnn_tpu_torch`` from the
 checkout DIR (the parent of a change, say), so that two versions of the
 kernels are timed by the same script on one card, in turns (K5's probe
-runs where that checkout has it).
+runs where that checkout has it, the wide K3 shapes where its K3 takes
+them); ``--bits-file FILE`` writes phase 6's output digests to FILE, or
+holds them to the ones an earlier run wrote there: the parent's package
+first, then this one's, in one call, and the kernels must give the
+parent's bits.
 ``--search-only`` runs phases 1 and 8 alone, ``--ooc-only`` phases 1
 and 9, ``--parallel-only`` phases 1 and 10.
 """
@@ -234,6 +248,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -718,6 +733,10 @@ def dense_phase(torch, conv, graph_s):
         again_dh = conv.dense_matmul(op.a_t, dz)
         want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
         want_dh = conv.dense_matmul_plain(op.a_t, dz)
+        digests = {"dense_conv": digest(out, agg),
+                   "dense_conv_bf16h": digest(*conv.dense_conv_fwd(
+                       op.a, h.bfloat16(), w, root, b)),
+                   "dense_matmul": digest(dh)}
         torch.cuda.synchronize()
         check(torch.equal(out, again_out) and torch.equal(agg, again_agg),
               f"dense_conv {tag} F={f}: a second launch differs")
@@ -774,12 +793,130 @@ def dense_phase(torch, conv, graph_s):
             rec["splits"] = conv.matmul_splits(
                 n, torch.cuda.get_device_properties(dev).multi_processor_count)
             rec["kernel_us"] = kernel_us(torch, kernel)
+            rec["bits"] = {k: v for k, v in digests.items()
+                           if k.startswith(name)}
             log(phase="kernels", kernel=name, **rec)
             records[name].append(rec)
         del op
     del flush
     torch.cuda.empty_cache()
     return records
+
+
+def digest(*ts) -> str:
+    """sha1 of the tensors' bytes: a kernel's output bits, to hold one
+    version of a kernel against another run on the same inputs."""
+    import torch
+
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def hold_bits(records: dict, path: str) -> None:
+    """``--bits-file``: write phase 6's output digests (K3, K3 with a bf16
+    h and K4 at each of its shapes) to ``path`` if it does not exist, else
+    hold them to the ones written there, shape by shape: a run of the
+    parent's package first, then this one's, in one call, shows that the
+    kernels give the parent's bits at every shape both run."""
+    bits = {f"{k} {r['graph']} F={r['F']}": v
+            for recs in records.values() for r in recs
+            for k, v in r["bits"].items()}
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            json.dump(bits, f)
+        log(phase="bits_written", path=path, shapes=len(bits))
+        return
+    with open(path) as f:
+        before = json.load(f)
+    shared = sorted(set(bits) & set(before))
+    differ = [k for k in shared if bits[k] != before[k]]
+    log(phase="bits_held", path=path, shapes=shared, differ=differ)
+    check(shared and not differ, f"bits differ from {path}: {differ}")
+
+
+# Phase 6, K3 at widths the JAX kernel takes that need the slices and the
+# chunked epilogue: F wider than one main loop (GTN's DBLP features, 334
+# columns, at hidden 64) and F = H = 256 (hidden 256 after the first hop)
+WIDE_CONV_SHAPES = ((334, 64), (256, 256))
+K3_KERNELS = ("round_bf16_t_kernel", "dense_matmul_kernel",
+              "conv_epilogue_kernel")
+
+
+def wide_conv_phase(torch, conv, graph_s) -> list:
+    """K3 and its bf16-h form at ``WIDE_CONV_SHAPES`` on relation 1 of
+    ``data/synthetic_multiclass`` (N = 5,000): each against its plain
+    version (``KERNEL_TOL``) and a second launch (bitwise), its device
+    kernels read from the profiler (K3's own only: no GEMM of a library in
+    the forward), timed as phase 6 times K3 (L2 flushed) beside its bound,
+    its plain version and cuBLAS on the same bf16 operands plus the
+    epilogue in torch (which the port never calls)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    s, d = graph_s.rel_edges(1)
+    op = conv.build_dense_conv_operand(s, d, graph_s.num_nodes, dev)
+    n = op.num_rows
+    recs = []
+    for f, hd in WIDE_CONV_SHAPES:
+        h32 = torch.randn(n, f, generator=gen, device=dev)
+        w = torch.randn(f, hd, generator=gen, device=dev) / f ** 0.5
+        root = torch.randn(f, hd, generator=gen, device=dev) / f ** 0.5
+        b = 0.1 * torch.randn(hd, generator=gen, device=dev)
+        for name, h in (("dense_conv", h32),
+                        ("dense_conv_bf16h", h32.bfloat16())):
+            label = f"{name} N={n} F={f} H={hd}"
+
+            def kernel(h=h):
+                return conv.dense_conv_fwd(op.a, h, w, root, b)
+
+            def lib(h=h):
+                a_h = torch.mm(op.a, h.bfloat16()).float()
+                return torch.relu(a_h @ w + h.float() @ root + b)
+
+            out, agg = kernel()
+            again = kernel()
+            want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again[0]) and torch.equal(agg, again[1]),
+                  f"{label}: a second launch differs")
+            err = max(float((out - want_out).abs().max()),
+                      float((agg - want_agg).abs().max()))
+            check(bool(torch.isfinite(out).all())
+                  and torch.allclose(out, want_out, **KERNEL_TOL)
+                  and torch.allclose(agg, want_agg, **KERNEL_TOL),
+                  f"{label}: max abs err {err} vs plain version")
+            lib_err = float((lib() - want_out).abs().max())
+            check(lib_err < 5e-2, f"{label}: cuBLAS yardstick off by "
+                                  f"{lib_err}")
+            by_kernel = kernel_us(torch, kernel)
+            check(any("conv_epilogue_kernel" in k for k in by_kernel)
+                  and all(any(x in k for x in K3_KERNELS)
+                          for k in by_kernel),
+                  f"{label}: the forward ran {sorted(by_kernel)}")
+            h_bytes = h.element_size()
+            b_ms, b_by = bound(2.0 * n * n + h_bytes * n * f
+                               + 4.0 * (n * f + n * hd + 2 * f * hd + hd),
+                               4.0 * n * f * hd, 2.0 * n * n * f)
+            rec = dict(
+                kernel=name, graph="synthetic_multiclass rel 1", N=n, F=f,
+                H=hd, max_abs_err=err, bitwise_repeat=True,
+                library_max_abs_err=lib_err,
+                ms=cuda_ms_cold(torch, kernel, 20, flush),
+                warm_ms=cuda_ms(torch, kernel, 20),
+                plain_ms=cuda_ms(torch, lambda h=h: conv.dense_conv_plain(
+                    op.a, h, w, root, b), 3),
+                library_ms=cuda_ms_cold(torch, lib, 20, flush),
+                library_call="torch.mm bf16 + epilogue", bound_ms=b_ms,
+                bound_by=b_by, slices=len(conv.dense_conv_plan(
+                    n, f, hd, 1).slices), kernel_us=by_kernel)
+            log(phase="wide_conv", **rec)
+            recs.append(rec)
+    del op, flush
+    torch.cuda.empty_cache()
+    return recs
 
 
 def first_step_grads(torch, graph, metapaths, split, num_classes, backend,
@@ -860,7 +997,7 @@ def grad_phase(torch, cases):
 
 
 def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
-              backend, phase="train", **cfg_kw):
+              backend, phase="train", hidden=HIDDEN, **cfg_kw):
     """One ``train_mpgnn`` run on the card. A CUDA event is recorded after
     every optimizer step (a global step hook, no synchronisation), so the
     epoch time is device-timeline time between the first and the last step,
@@ -876,7 +1013,7 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
 
-    cfg = MPGNNConfig(epochs=epochs, hidden_dim=HIDDEN, **cfg_kw)
+    cfg = MPGNNConfig(epochs=epochs, hidden_dim=hidden, **cfg_kw)
     torch.cuda.synchronize()
     hook = register_optimizer_step_post_hook(after_step)
     try:
@@ -891,7 +1028,7 @@ def train_run(torch, tag, graph, metapaths, split, num_classes, epochs,
     edges = int(sum(graph.rel_counts[r] for mp in metapaths for r in mp))
     rec = dict(
         phase=phase, graph=tag, backend=backend, metapaths=metapaths,
-        epochs=epochs, hidden=HIDDEN, nodes=graph.num_nodes, **cfg_kw,
+        epochs=epochs, hidden=hidden, nodes=graph.num_nodes, **cfg_kw,
         final_loss=res.final_loss, train_f1=res.train_f1,
         val_f1=res.val_f1, test_f1=res.test_f1, wall_s=wall,
         setup_s=wall - epochs * epoch_ms / 1e3, epoch_ms=epoch_ms,
@@ -923,6 +1060,8 @@ def train_phase(torch, graph_s, split_s, graph_u, split_u, graph_k, split_k,
     check(d_f1 <= PALLAS_F1_ATOL, f"pallas vs segment test F1 {d_f1}")
     check(seg["test_f1"] > 0.9, f"segment test F1 {seg['test_f1']}")
 
+    wide = wide_train(torch, graph_s, split_s)
+
     uni = {b: train_run(torch, "uniform", graph_u, [[0, 1]], split_u, 2, 100,
                         b)
            for b in ("csr", "segment")}
@@ -932,7 +1071,65 @@ def train_phase(torch, graph_s, split_s, graph_u, split_u, graph_k, split_k,
 
     train_run(torch, "powerlaw_kg", graph_k, [planted, largest], split_k, 2,
               20, "csr")
-    return runs["pallas"]["epoch_ms"], uni["csr"]["epoch_ms"]
+    return runs["pallas"]["epoch_ms"], uni["csr"]["epoch_ms"], wide
+
+
+# Phase 7 (a) at phase 6's wide K3 shapes: 'pallas' against 'segment' on
+# data/synthetic_multiclass with WIDE_FEATURES seeded bag-of-words columns
+# (the width of GTN's DBLP features, 5% of them 1; K3 at F = 334, H = 64 on
+# hop 0) and at hidden 256 (K3 at F = H = 256 on hop 1, K4 at F = 256 in
+# its backward), each held as 7 (a) holds its runs; cut from 7 (a)'s 1000
+# epochs to WIDE_EPOCHS, as 7 (f) (c) is
+WIDE_FEATURES = 334
+WIDE_HIDDEN = 256
+WIDE_EPOCHS = 300
+
+
+def wide_train(torch, graph_s, split_s) -> dict:
+    """7 (a) at the wide shapes: each 'pallas' run's K3 and K4 launches
+    (at least one K3 a hop an epoch, one K4 a hop after the first), its
+    final loss and test F1 against 'segment''s within ``PALLAS_LOSS_ATOL``
+    and ``PALLAS_F1_ATOL``."""
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+    from mpgnn_tpu_torch.ops import conv
+
+    rng = np.random.default_rng(0)
+    x = (rng.random((graph_s.num_nodes, WIDE_FEATURES)) < 0.05).astype(
+        np.float32)
+    graph_w = HeteroGraph(x, graph_s.edge_src, graph_s.edge_dst,
+                          graph_s.edge_type,
+                          num_relations=graph_s.num_relations)
+    hops = sum(len(mp) for mp in SYNTH_PATHS)
+    out = {}
+    for tag, graph, hidden in ((f"features={WIDE_FEATURES}", graph_w, HIDDEN),
+                               (f"hidden={WIDE_HIDDEN}", graph_s,
+                                WIDE_HIDDEN)):
+        runs = {}
+        for backend in ("pallas", "segment"):
+            before = (conv.CONV_LAUNCHES, conv.MATMUL_LAUNCHES)
+            runs[backend] = train_run(
+                torch, f"synthetic_multiclass {tag}", graph, SYNTH_PATHS,
+                split_s, 3, WIDE_EPOCHS, backend, phase="wide_train",
+                hidden=hidden)
+            runs[backend].update(k3_launches=conv.CONV_LAUNCHES - before[0],
+                                 k4_launches=conv.MATMUL_LAUNCHES - before[1])
+        pal, seg = runs["pallas"], runs["segment"]
+        d_loss = abs(pal["final_loss"] - seg["final_loss"])
+        d_f1 = abs(pal["test_f1"] - seg["test_f1"])
+        log(phase="wide_train_check", graph=tag,
+            pallas_vs_segment_loss=d_loss, pallas_vs_segment_test_f1=d_f1,
+            k3_launches=pal["k3_launches"], k4_launches=pal["k4_launches"],
+            reduced=[f"epochs 1000 -> {WIDE_EPOCHS}"])
+        check(pal["k3_launches"] >= WIDE_EPOCHS * hops
+              and pal["k4_launches"] >= WIDE_EPOCHS * (hops - len(SYNTH_PATHS))
+              and seg["k3_launches"] == 0,
+              f"{tag}: K3/K4 launches {runs}")
+        check(d_loss <= PALLAS_LOSS_ATOL,
+              f"{tag}: pallas vs segment final loss {d_loss}")
+        check(d_f1 <= PALLAS_F1_ATOL,
+              f"{tag}: pallas vs segment test F1 {d_f1}")
+        out[tag] = runs
+    return out
 
 
 def train_profile(torch, tag, graph, metapaths, split, num_classes, backend,
@@ -2509,7 +2706,6 @@ def ooc_phase(torch, csr, conv, kg, planted) -> dict:
 HALO_EPOCHS = 20
 HALO_BF16_EPOCHS = 5
 SHARDED_STEPS = 10
-ELASTIC_STEPS, ELASTIC_FAULT, ELASTIC_EVERY = 12, 5, 4
 # the node-sharded runs hold to the single-process csr run from the same
 # seed within bench_parallel's HALO_* bounds (dropout 0; the readings and
 # margins are written there), and the zeroed-halo control must not;
@@ -2517,12 +2713,11 @@ ELASTIC_STEPS, ELASTIC_FAULT, ELASTIC_EVERY = 12, 5, 4
 # single-process run's do, in the same order, plus an empty halo blocking:
 # loss and parameters bitwise equal in every reading, and held so
 HALO_WORLD1_ATOL = 0.0
-# the (2, 2) sharded step against the replicated single-process step, and
-# the faulted elastic run against the one without a fault: float32 sums
-# split over other ranks. Read (the same run): 1.6e-7 relative at most in
-# each; the bounds leave 60x
+# the (2, 2) sharded step against the replicated single-process step:
+# float32 sums split over other ranks. Read (the same run): 1.6e-7
+# relative at most; the bound leaves 60x (the elastic runs are held by
+# bench_parallel.judge_elastic)
 SHARDED_LOSS_RTOL = 1e-5
-ELASTIC_LOSS_RTOL = 1e-5
 # 10 (e): the search CLI on 2 ranks against one process, cut from 1000
 # epochs and 3 extension hops so that each takes seconds; 'auto' resolves
 # to dense (K4) on this 5,000-node graph, whose products of one candidate
@@ -2870,8 +3065,8 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     bf16 ``num_bases=2`` run and the zeroed-halo control
     (``bench_parallel.judge``);
     (c) the (data, model) = (2, 2) sharded step against the replicated
-    step; (d) ``train_elastic`` 4 -> 2 ranks with a fault at step
-    ``ELASTIC_FAULT`` against the run without; (e) the search CLI under
+    step; (d) ``train_elastic`` 4 -> 2 and 4 -> 2 -> 1 ranks against the
+    run without (``bench_parallel.judge_elastic``); (e) the search CLI under
     ``torchrun --nproc_per_node 2 ... --mesh 2`` against one process."""
     from mpgnn_tpu_torch.benchmarks import bench_parallel
     from mpgnn_tpu_torch.config import MPGNNConfig
@@ -2921,9 +3116,10 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     with tempfile.TemporaryDirectory() as ckpt:
         se = spawn_ranks(
             bench_parallel.sharded_elastic_rank, 4,
-            (files, SYNTH_PATHS, SHARDED_STEPS, ELASTIC_FAULT, ELASTIC_STEPS,
-             ELASTIC_EVERY, ckpt), backend="gloo", device="cuda",
-            timeout_s=600)
+            (files, SYNTH_PATHS, SHARDED_STEPS,
+             bench_parallel.ELASTIC_FAULTS, bench_parallel.ELASTIC_STEPS,
+             bench_parallel.ELASTIC_EVERY, ckpt), backend="gloo",
+            device="cuda", timeout_s=600)
     graph_s, labels_s, _ = load_dat_files(*files)
     split_s = split_nodes(labels_s)
     cfg = MPGNNConfig(hidden_dim=HIDDEN, dropout=0.0)
@@ -2944,21 +3140,14 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     check(all(r["sharded"] == sharded for r in se) and
           rel <= SHARDED_LOSS_RTOL,
           f"sharded step off the replicated one by {rel}")
-    base = se[0]["no_fault"]["losses"]
-    fault = se[0]["fault"]
-    want = base[:ELASTIC_FAULT] + base[(ELASTIC_FAULT // ELASTIC_EVERY)
-                                       * ELASTIC_EVERY:]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(fault["losses"], want)) \
-        if len(fault["losses"]) == len(want) else float("inf")
-    log(phase="elastic", no_fault=se[0]["no_fault"], fault=fault,
-        max_rel_diff=rel, left=[r["fault"]["left"] for r in se],
-        seconds=time.perf_counter() - t0)
-    check(fault["recoveries"] == 1 and fault["final_device_count"] == 2
-          and fault["steps_run"] == ELASTIC_STEPS
-          and [r["fault"]["left"] for r in se] == [False, False, True, True]
-          and rel <= ELASTIC_LOSS_RTOL,
-          f"elastic run {fault} against {want}")
-    out.update(sharded=sharded, replicated=replicated, elastic=fault)
+    failed, records = bench_parallel.judge_elastic(se)
+    for rec in records:
+        log(phase="elastic", **rec, no_fault=se[0]["no_fault"],
+            seconds=time.perf_counter() - t0)
+    for f in failed:
+        check(False, f)
+    out.update(sharded=sharded, replicated=replicated, elastic=se[0]["fault"],
+               elastic_twice=se[0]["twice"])
 
     # (e) the search fan-out under torchrun
     t0 = time.perf_counter()
@@ -2983,8 +3172,98 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     check(summary["classes"] == single["summary"]["classes"],
           f"--mesh 2 {summary['classes']} against one process "
           f"{single['summary']['classes']}")
+
+    # (f) the same line from one command, without torchrun: the CLI starts
+    # its 2 ranks itself and, with --retries 1, starts them again after
+    # rank 1 fails on its first attempt
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "sitecustomize.py"), "w") as f:
+            f.write(FAIL_ONCE_SITE)
+        marker = os.path.join(tmp, "failed_once")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        env.update(PYTHONPATH=os.pathsep.join(
+            [tmp] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+            MPGNN_FAIL_ONCE=marker)
+        rc, stdout, stderr = run_session(
+            [sys.executable, "-m", "mpgnn_tpu_torch.run", *MESH_CLI,
+             "--mesh", "2", "--retries", "1"], env, 600)
+        failed_once = os.path.exists(marker)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    attempts = re.findall(r"\[supervisor\] attempt \d+ exited rc=-?\d+.*",
+                          stderr)
+    log(phase="mesh_cli_retries", rc=rc, failed_once=failed_once,
+        attempts=attempts, summaries=len(lines),
+        seconds=time.perf_counter() - t0)
+    check(rc == 0 and failed_once and len(attempts) == 1
+          and len(lines) == 1, f"--mesh 2 --retries 1: rc {rc}, "
+          f"{attempts}, {len(lines)} summaries:\n{stderr[-3000:]}")
+    check(json.loads(lines[0])["classes"] == single["summary"]["classes"],
+          f"--mesh 2 --retries 1 {lines[0]} against one process "
+          f"{single['summary']['classes']}")
     log(phase="parallel_done", seconds=time.perf_counter() - t_phase)
     return out
+
+
+# 10 (f): a sitecustomize on the launched ranks' PYTHONPATH: rank 1 exits
+# at its first import of the search engine (its process group is up by
+# then), once (the marker file says it has); then it hands over to the
+# sitecustomize it shadows, if the interpreter has one
+FAIL_ONCE_SITE = """\
+import importlib, os, sys
+
+_marker = os.environ.get("MPGNN_FAIL_ONCE")
+if _marker and os.environ.get("RANK") == "1" and not os.path.exists(_marker):
+    class _FailOnce:
+        def find_spec(self, name, path=None, target=None):
+            if name == "mpgnn_tpu_torch.search.engine":
+                open(_marker, "w").close()
+                os._exit(3)
+            return None
+
+    sys.meta_path.insert(0, _FailOnce())
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_path = sys.path[:]
+sys.path[:] = [p for p in _path if os.path.abspath(p or os.curdir) != _here]
+_me = sys.modules.pop("sitecustomize", None)
+try:
+    importlib.import_module("sitecustomize")
+except ImportError:
+    pass
+finally:
+    sys.path[:] = _path
+    sys.modules["sitecustomize"] = _me
+"""
+
+
+def run_session(cmd, env, timeout):
+    """(exit code, stdout, stderr) of ``cmd`` run from the repo's root in a
+    session of its own, whose every process (a launcher's ranks too) is
+    killed if it outlives ``timeout`` seconds."""
+    import signal
+
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise RuntimeError(f"{cmd} outlived {timeout} s:\n{err[-3000:]}")
+    return p.returncode, out, err
+
+
+def wide_shapes(recs: list, name: str) -> dict:
+    """The kernels line's record of phase 6's wide K3 shapes of kernel
+    ``name``: each shape's time, bound, plain and library times and
+    error."""
+    return {"wide": {f"N={r['N']} F={r['F']} H={r['H']}": {
+        k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err", "slices")}
+        for r in recs if r["kernel"] == name}}
 
 
 def reset_counts(csr, conv) -> None:
@@ -3027,10 +3306,15 @@ def main() -> int:
                     help="run phases 1 and 10 alone")
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose mpgnn_tpu_torch is driven")
+    ap.add_argument("--bits-file", default=None,
+                    help="with --kernels-only: write phase 6's output "
+                         "digests here, or hold them to the ones written "
+                         "there by an earlier run (the parent's package)")
     args = ap.parse_args()
-    if os.path.abspath(args.package_root) != ROOT and not args.kernels_only:
-        ap.error("--package-root drives the kernel phases only: add "
-                 "--kernels-only")
+    if (os.path.abspath(args.package_root) != ROOT
+            or args.bits_file) and not args.kernels_only:
+        ap.error("--package-root and --bits-file drive the kernel phases "
+                 "only: add --kernels-only")
     import torch
 
     if not torch.cuda.is_available():
@@ -3099,7 +3383,11 @@ def main() -> int:
     probe = gather_probe(records["csr_scatter"],
                          os.path.abspath(args.package_root))
     if args.kernels_only:
-        dense_phase(torch, conv, graph_s)
+        dense = dense_phase(torch, conv, graph_s)
+        if hasattr(conv, "dense_conv_plan"):    # K3 at every width
+            wide_conv_phase(torch, conv, graph_s)
+        if args.bits_file:
+            hold_bits(dense, args.bits_file)
         log(phase="done", seconds=time.perf_counter() - t_start,
             package_root=os.path.abspath(args.package_root))
         return 0
@@ -3123,8 +3411,9 @@ def main() -> int:
         profile_phase(torch, pred, tag)
     del preds
 
-    # 6. K3 and K4
+    # 6. K3 and K4, then K3 at the wide shapes
     records.update(dense_phase(torch, conv, graph_s))
+    wide_recs = wide_conv_phase(torch, conv, graph_s)
 
     # 7. the training path: first-step gradients, then train_mpgnn
     split_u = split_nodes(labels_u)
@@ -3140,8 +3429,9 @@ def main() -> int:
          "segment", "cuda"),
     ])
     reset_counts(csr, conv)
-    pallas_ms, csr_ms = train_phase(torch, graph_s, split_s, graph_u, split_u,
-                                    graph_k, split_k, planted, largest)
+    pallas_ms, csr_ms, wide_runs = train_phase(
+        torch, graph_s, split_s, graph_u, split_u, graph_k, split_k, planted,
+        largest)
     train_launches = read_counts(csr, conv)
     log(phase="train_launches", **train_launches)
     check(all(train_launches[k] > 0 for k in F32_FORMS),
@@ -3200,6 +3490,10 @@ def main() -> int:
             extra["gather_bound_ms"] = wide["gather_bound_ms"]
         if "splits" in wide:
             extra["splits"] = wide["splits"]
+        if name == "dense_conv":         # the wide shapes and runs
+            extra.update(wide_shapes(wide_recs, name), wide_train_launches={
+                tag: runs["pallas"]["k3_launches"]
+                for tag, runs in wide_runs.items()})
         if name == "dense_matmul":       # the batched dense evaluation's
             extra.update({f"grouped_{k}": grouped[k] for k in (
                 "width", "launches_per_product", "ms", "plain_ms",
@@ -3242,7 +3536,8 @@ def main() -> int:
             launches_train=train_launches[name],
             launches_search=search_launches[name],
             **({"launches_ooc": ooc} if name in ooc_launches else {}),
-            max_abs_err=max(r["max_abs_err"] for r in recs),
+            max_abs_err=max(r["max_abs_err"] for r in recs + [
+                w for w in wide_recs if w["kernel"] == name]),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
             library_ms=wide["library_ms"], dispatch_ms=wide["dispatch_ms"],
@@ -3262,7 +3557,9 @@ def main() -> int:
         wide = next(r for r in recs if r["F"] == 64
                     and r.get("direction", "fwd") == "fwd")
         extra = {}
-        if name != "dense_conv_bf16h":
+        if name == "dense_conv_bf16h":
+            extra.update(wide_shapes(wide_recs, name))
+        else:
             bwd = next(r for r in recs if r["direction"] == "bwd")
             extra = dict(bwd_ms=bwd["ms"], bwd_cast_route_ms=bwd[
                 "cast_route_ms"], bwd_bound_ms=bwd["bound_ms"],
@@ -3273,7 +3570,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=mp_launches[name], launches_train=mp_launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in recs),
+            max_abs_err=max(r["max_abs_err"] for r in recs + [
+                w for w in wide_recs if w["kernel"] == name]),
             ms=wide["ms"], plain_ms=wide["plain_ms"],
             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
             library_ms=wide["library_ms"], library_call=wide["library_call"],

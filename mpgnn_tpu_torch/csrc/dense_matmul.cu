@@ -44,11 +44,17 @@
 //     per row block adding the splits through distributed shared memory
 //     measured slower on the H100 than this pass, and was not kept.)
 // The last pass differs: K4's adds the splits into out; K3's epilogue
-// (conv_epilogue_kernel, one CTA per 32 rows) adds them in the same order
-// (or reads the single split, which the main loop wrote into agg), writes
-// agg, stages W, root and the block's rows of agg and h in shared memory
-// and writes relu((agg @ W + h @ root) + b) with float32 FMA, every output
-// row once.
+// (conv_epilogue_kernel, one CTA per 32 rows and 64 output columns, 16
+// where H % 4 != 0) adds them in the same order (or reads the single
+// split, which the main loop wrote into agg), writes agg, and writes
+// relu((agg @ W + h @ root) + b) with float32 FMA, every output once. It
+// stages 32 rows of f at a time (the block's agg and h transposed, W's and
+// root's rows for its columns), so its shared memory (25 KB) does not grow
+// with F or H.
+// K3 takes any F, as the JAX kernel does: where F > 256 its main loop runs
+// once a slice of at most 256 columns of h, each slice streaming A once
+// into its columns of agg (or of the split scratch); K4 takes F <= 256 and
+// its wrapper slices wider operands.
 // TMA needs a 16-byte row stride: A's row stride lda must be a multiple of
 // 8 elements. build_dense_conv_operand pads the storage of a and a_t to
 // such a stride when n is not a multiple of 8 (each is then a view of its
@@ -70,6 +76,7 @@ constexpr int kConsumers = 2;                  // warpgroups of 64 rows
 constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
 constexpr int kATile = kBM * kBK * 2;          // 16 KB
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxWidth = 256;                 // columns of x a main loop
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -176,10 +183,11 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
       (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// xt[f, k] = bf16(x[k, f]) for f < F, k < n; 0 elsewhere in [FP, np]. For a
-// bf16 x the rounding keeps every value: the pre-pass only transposes.
+// xt[f, k] = bf16(x[k, f]) for f < F, k < n (x's rows ldx apart); 0
+// elsewhere in [FP, np]. For a bf16 x the rounding keeps every value: the
+// pre-pass only transposes.
 template <typename In>
-__global__ void round_bf16_t_kernel(const In* __restrict__ x,
+__global__ void round_bf16_t_kernel(const In* __restrict__ x, int ldx,
                                     __nv_bfloat16* __restrict__ xt, int n,
                                     int F, int FP, int np) {
   __shared__ float tile[32][33];
@@ -187,7 +195,7 @@ __global__ void round_bf16_t_kernel(const In* __restrict__ x,
   for (int j = threadIdx.y; j < 32; j += blockDim.y) {
     const int k = k0 + j, f = f0 + threadIdx.x;
     tile[j][threadIdx.x] =
-        k < n && f < F ? load_f(x + (size_t)k * F + f) : 0.f;
+        k < n && f < F ? load_f(x + (size_t)k * ldx + f) : 0.f;
   }
   __syncthreads();
   for (int j = threadIdx.y; j < 32; j += blockDim.y) {
@@ -208,12 +216,14 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return (size_t)kStages * stage_bytes<FP>() + 2 * kStages * 8 + 1024;
 }
 
+// out[split][row, col] for col < F, rows ldo apart and splits
+// split_stride apart
 template <int FP>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
-                    float* __restrict__ out, int n, int F, int k_tiles,
-                    int splits) {
+                    float* __restrict__ out, int ldo, size_t split_stride,
+                    int n, int F, int k_tiles, int splits) {
   constexpr int kStage = stage_bytes<FP>();
   constexpr int kNT = FP / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -286,7 +296,8 @@ dense_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
   // accumulator layout of m64nNk16: register i of lane l in warp wi of the
   // warpgroup holds row 16*wi + l/4 + 8*((i/2)%2), column 8*(i/4) +
   // 2*(l%4) + i%2
-  float* dst = out + (size_t)split * n * F;
+  float* dst = out + split * split_stride;
+  const bool pairs = F % 2 == 0 && ldo % 2 == 0 && split_stride % 2 == 0;
   const int wi = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -295,8 +306,8 @@ dense_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
       const int row = row0 + wg * 64 + wi * 16 + (l >> 2) + 8 * ((i >> 1) & 1);
       const int col = j * 64 + 8 * (i >> 2) + 2 * (l & 3);
       if (row >= n) continue;
-      float* p = dst + (size_t)row * F + col;
-      if (F % 2 == 0 && col < F) {
+      float* p = dst + (size_t)row * ldo + col;
+      if (pairs && col < F) {
         *reinterpret_cast<float2*>(p) = make_float2(acc[j][i], acc[j][i + 1]);
       } else {
         if (col < F) p[0] = acc[j][i];
@@ -338,22 +349,29 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
 
 constexpr int kEpiRows = 32;      // rows of K3's epilogue per CTA
 constexpr int kEpiThreads = 128;
+constexpr int kEpiF = 32;         // rows of f staged at a time
 constexpr int kEpiLd = kEpiRows + 4;   // transposed tile row, 16-byte aligned
-constexpr int kEpiLoads = 8;           // staging loads in flight a thread
+constexpr int kEpiLoads = kEpiRows * kEpiF / kEpiThreads;  // loads a thread
 
-size_t epilogue_smem(int F, int H) {
-  return ((size_t)2 * F * kEpiLd + (size_t)2 * F * H) * 4;
+// output columns of an epilogue CTA: 16 threads across, CW columns each
+template <int CW>
+__host__ __device__ constexpr int epilogue_cols() {
+  return 16 * CW;
 }
 
-// K3's epilogue over rows [32 * blockIdx.x, +32): agg = the splits of part
-// added in split order (part is agg itself when splits == 1), then
-// out = relu((agg @ w + h @ root) + b), each sum a float32 FMA chain over
-// f in order. The block's rows of agg and h are read coalesced, 8 loads in
-// flight a thread, and stored transposed (a bf16 h widened to float32, as
-// the JAX kernel's jnp.dot(hblk, root, preferred_element_type=f32) takes
-// it); a thread then takes 4 rows by CW columns (4 where H % 4 == 0), so
-// that each step over f reads shared memory 16 bytes at a time for 8 * CW
-// FMAs.
+// K3's epilogue over rows [32 * blockIdx.x, +32) and output columns
+// [HT * blockIdx.y, +HT), HT = 16 * CW: agg = the splits of part added in
+// split order (part is agg itself when splits == 1; the CTAs of column
+// block 0 write it), then out = relu((agg @ w + h @ root) + b), each sum a
+// float32 FMA chain over f in order. f goes by in chunks of 32: the
+// chunk's columns of the block's rows of agg and h are read 128 bytes a
+// row, 8 loads in flight a thread, and stored transposed (a bf16 h
+// widened to float32, as the JAX kernel's jnp.dot(hblk, root,
+// preferred_element_type=f32) takes it), beside the chunk's rows of w and
+// root for the CTA's columns. A thread takes 4 rows by CW columns (4 where
+// H % 4 == 0) and keeps its sums in registers across the chunks, so that
+// each step over f reads shared memory 16 bytes at a time for 8 * CW FMAs
+// and every output's chain runs over f = 0, 1, ..., F - 1 whatever F is.
 template <typename HIn, int CW>
 __global__ void __launch_bounds__(kEpiThreads)
 conv_epilogue_kernel(const float* part, const HIn* __restrict__ h,
@@ -361,102 +379,110 @@ conv_epilogue_kernel(const float* part, const HIn* __restrict__ h,
                      const float* __restrict__ root,
                      const float* __restrict__ b, float* __restrict__ out,
                      float* agg, int n, int F, int H, int splits) {
-  extern __shared__ __align__(16) float esm[];
-  float* Ct = esm;                       // [F][kEpiLd] agg, transposed
-  float* Ht = Ct + F * kEpiLd;           // [F][kEpiLd] h, transposed
-  float* Ws = Ht + F * kEpiLd;           // [F][H]
-  float* Rs = Ws + F * H;                // [F][H]
-  const int row0 = blockIdx.x * kEpiRows;
-  const int rows = min(kEpiRows, n - row0);
-  const size_t total = (size_t)n * F, base = (size_t)row0 * F;
-  const int count = rows * F;            // the block's values, contiguous
-  for (int q0 = threadIdx.x; q0 < kEpiRows * F;
-       q0 += kEpiLoads * kEpiThreads) {
+  constexpr int HT = epilogue_cols<CW>();
+  constexpr int kWLoads = 8;
+  __shared__ __align__(16) float Ct[kEpiF][kEpiLd];  // agg, transposed
+  __shared__ __align__(16) float Ht[kEpiF][kEpiLd];  // h, transposed
+  __shared__ __align__(16) float Ws[kEpiF][HT];
+  __shared__ __align__(16) float Rs[kEpiF][HT];
+  const int row0 = blockIdx.x * kEpiRows, col0 = blockIdx.y * HT;
+  const int rows = min(kEpiRows, n - row0), cols = min(HT, H - col0);
+  const size_t total = (size_t)n * F;
+  const bool write_agg = splits > 1 && blockIdx.y == 0;
+  const int r0 = (threadIdx.x / 16) * 4, j0 = (threadIdx.x % 16) * CW;
+  const bool mine = r0 < rows && j0 < cols;
+  float s1[4][CW], s2[4][CW];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) s1[k][j] = s2[k][j] = 0.f;
+  }
+  for (int f0 = 0; f0 < F; f0 += kEpiF) {
+    const int kf = min(kEpiF, F - f0);
     float a[kEpiLoads], hv[kEpiLoads];
+    size_t at[kEpiLoads];
+    bool ok[kEpiLoads];
 #pragma unroll
     for (int u = 0; u < kEpiLoads; ++u) {
-      const int q = q0 + u * kEpiThreads;
-      a[u] = q < count ? part[base + q] : 0.f;
-      hv[u] = q < count ? load_f(h + base + q) : 0.f;
+      const int q = threadIdx.x + u * kEpiThreads;
+      const int r = q / kEpiF, fi = q % kEpiF;
+      ok[u] = r < rows && fi < kf;
+      at[u] = (size_t)(row0 + r) * F + f0 + fi;
+      a[u] = ok[u] ? part[at[u]] : 0.f;
+      hv[u] = ok[u] ? load_f(h + at[u]) : 0.f;
     }
     for (int s = 1; s < splits; ++s) {
 #pragma unroll
       for (int u = 0; u < kEpiLoads; ++u) {
+        if (ok[u]) a[u] += part[s * total + at[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kEpiLoads; ++u) {
+      const int q = threadIdx.x + u * kEpiThreads;
+      if (write_agg && ok[u]) agg[at[u]] = a[u];
+      Ct[q % kEpiF][q / kEpiF] = a[u];
+      Ht[q % kEpiF][q / kEpiF] = hv[u];
+    }
+    for (int q0 = threadIdx.x; q0 < kEpiF * HT;
+         q0 += kWLoads * kEpiThreads) {
+      float wv[kWLoads], rv[kWLoads];
+#pragma unroll
+      for (int u = 0; u < kWLoads; ++u) {
         const int q = q0 + u * kEpiThreads;
-        if (q < count) a[u] += part[s * total + base + q];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kEpiLoads; ++u) {
-      const int q = q0 + u * kEpiThreads;
-      if (q >= kEpiRows * F) break;
-      if (splits > 1 && q < count) agg[base + q] = a[u];
-      Ct[(q % F) * kEpiLd + q / F] = a[u];
-      Ht[(q % F) * kEpiLd + q / F] = hv[u];
-    }
-  }
-  const int fh = F * H;
-  for (int q0 = threadIdx.x; q0 < fh; q0 += kEpiLoads * kEpiThreads) {
-    float wv[kEpiLoads], rv[kEpiLoads];
-#pragma unroll
-    for (int u = 0; u < kEpiLoads; ++u) {
-      const int q = q0 + u * kEpiThreads;
-      wv[u] = q < fh ? __ldg(w + q) : 0.f;
-      rv[u] = q < fh ? __ldg(root + q) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kEpiLoads; ++u) {
-      const int q = q0 + u * kEpiThreads;
-      if (q < fh) {
-        Ws[q] = wv[u];
-        Rs[q] = rv[u];
-      }
-    }
-  }
-  __syncthreads();
-  const int groups = H / CW;
-  for (int q = threadIdx.x; q < (kEpiRows / 4) * groups; q += blockDim.x) {
-    const int r0 = (q / groups) * 4, j0 = (q % groups) * CW;
-    if (r0 >= rows) continue;
-    float s1[4][CW], s2[4][CW];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) s1[k][j] = s2[k][j] = 0.f;
-    }
-    for (int f = 0; f < F; ++f) {
-      const float4 c = *reinterpret_cast<const float4*>(Ct + f * kEpiLd + r0);
-      const float4 hh =
-          *reinterpret_cast<const float4*>(Ht + f * kEpiLd + r0);
-      const float ca[4] = {c.x, c.y, c.z, c.w};
-      const float ha[4] = {hh.x, hh.y, hh.z, hh.w};
-      float wv[CW], rv[CW];
-      if constexpr (CW == 4) {
-        const float4 w4 = *reinterpret_cast<const float4*>(Ws + f * H + j0);
-        const float4 r4 = *reinterpret_cast<const float4*>(Rs + f * H + j0);
-        wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
-        rv[0] = r4.x, rv[1] = r4.y, rv[2] = r4.z, rv[3] = r4.w;
-      } else {
-        wv[0] = Ws[f * H + j0];
-        rv[0] = Rs[f * H + j0];
+        const int fi = q / HT, j = q % HT;
+        const bool in = q < kEpiF * HT && fi < kf && j < cols;
+        const size_t off = (size_t)(f0 + fi) * H + col0 + j;
+        wv[u] = in ? __ldg(w + off) : 0.f;
+        rv[u] = in ? __ldg(root + off) : 0.f;
       }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          s1[k][j] = fmaf(ca[k], wv[j], s1[k][j]);
-          s2[k][j] = fmaf(ha[k], rv[j], s2[k][j]);
+      for (int u = 0; u < kWLoads; ++u) {
+        const int q = q0 + u * kEpiThreads;
+        if (q < kEpiF * HT) {
+          Ws[q / HT][q % HT] = wv[u];
+          Rs[q / HT][q % HT] = rv[u];
         }
       }
     }
+    __syncthreads();
+    if (mine) {
+#pragma unroll 4
+      for (int fi = 0; fi < kf; ++fi) {
+        const float4 c = *reinterpret_cast<const float4*>(&Ct[fi][r0]);
+        const float4 hh = *reinterpret_cast<const float4*>(&Ht[fi][r0]);
+        const float ca[4] = {c.x, c.y, c.z, c.w};
+        const float ha[4] = {hh.x, hh.y, hh.z, hh.w};
+        float wv[CW], rv[CW];
+        if constexpr (CW == 4) {
+          const float4 w4 = *reinterpret_cast<const float4*>(&Ws[fi][j0]);
+          const float4 r4 = *reinterpret_cast<const float4*>(&Rs[fi][j0]);
+          wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
+          rv[0] = r4.x, rv[1] = r4.y, rv[2] = r4.z, rv[3] = r4.w;
+        } else {
+          wv[0] = Ws[fi][j0];
+          rv[0] = Rs[fi][j0];
+        }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (r0 + k >= rows) break;
-      float* o = out + (size_t)(row0 + r0 + k) * H + j0;
+        for (int k = 0; k < 4; ++k) {
 #pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        o[j] = fmaxf(s1[k][j] + s2[k][j] + __ldg(b + j0 + j), 0.f);
+          for (int j = 0; j < CW; ++j) {
+            s1[k][j] = fmaf(ca[k], wv[j], s1[k][j]);
+            s2[k][j] = fmaf(ha[k], rv[j], s2[k][j]);
+          }
+        }
       }
+    }
+    __syncthreads();
+  }
+  if (!mine) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (r0 + k >= rows) break;
+    float* o = out + (size_t)(row0 + r0 + k) * H + col0 + j0;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+      o[j] = fmaxf(s1[k][j] + s2[k][j] + __ldg(b + col0 + j0 + j), 0.f);
     }
   }
 }
@@ -506,14 +532,17 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the bf16 pre-pass and the main loop: A @ bf16(x) into dst ([splits, n, F]
-// when splits > 1, else [n, F])
+// the bf16 pre-pass and the main loop: A @ bf16(x) for x [n, F] (rows ldx
+// apart) into dst (rows ldo apart, splits split_stride apart when
+// splits > 1)
 template <int FP, typename In>
 int main_loop(const void* a, int lda, __nv_bfloat16* xt, const In* x,
-              float* dst, int n, int F, int splits, cudaStream_t s) {
+              int ldx, float* dst, int ldo, size_t split_stride, int n,
+              int F, int splits, cudaStream_t s) {
   const int np = (n + 7) / 8 * 8;
   const dim3 tgrid((np + 31) / 32, FP / 32);
-  round_bf16_t_kernel<In><<<tgrid, dim3(32, 8), 0, s>>>(x, xt, n, F, FP, np);
+  round_bf16_t_kernel<In><<<tgrid, dim3(32, 8), 0, s>>>(x, ldx, xt, n, F,
+                                                        FP, np);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_a, map_b;
@@ -529,8 +558,8 @@ int main_loop(const void* a, int lda, __nv_bfloat16* xt, const In* x,
   if (err != cudaSuccess) return (int)err;
   const int k_tiles = (n + kBK - 1) / kBK;
   const dim3 grid((n + kBM - 1) / kBM, splits);
-  dense_matmul_kernel<FP><<<grid, kThreads, smem, s>>>(map_a, map_b, dst, n,
-                                                       F, k_tiles, splits);
+  dense_matmul_kernel<FP><<<grid, kThreads, smem, s>>>(
+      map_a, map_b, dst, ldo, split_stride, n, F, k_tiles, splits);
   return (int)cudaGetLastError();
 }
 
@@ -543,38 +572,43 @@ int by_width(int F, Fn&& fn) {
   return fn(std::integral_constant<int, 256>());
 }
 
-bool valid(const void* a, int lda, int n, int F, int splits) {
-  return F > 0 && F <= 256 && lda >= n && lda % 8 == 0 &&
+bool valid(const void* a, int lda, int n, int splits) {
+  return lda >= n && lda % 8 == 0 &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0 && splits >= 1 &&
          splits <= (n + kBK - 1) / kBK;
 }
 
-// K3 with h of type HIn (float32, or bf16 at the hop 0 of a bf16 run)
+// K3 with h of type HIn (float32, or bf16 at the hop 0 of a bf16 run):
+// the main loop once a slice of at most kMaxWidth columns of h, then the
+// epilogue over every column
 template <typename HIn>
 int dense_conv(const void* a, int lda, void* xt, const HIn* h,
                const float* w, const float* root, const float* b, float* out,
                float* agg, float* part, int n, int F, int H, int splits,
                void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const size_t smem = epilogue_smem(F, H);
-  if (!valid(a, lda, n, F, splits) || H <= 0 || smem > (size_t)kMaxSmem) {
+  if (F <= 0 || H <= 0 || !valid(a, lda, n, splits)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
   float* dst = splits > 1 ? part : agg;
-  int err = by_width(F, [&](auto fp) {
-    return main_loop<decltype(fp)::value>(a, lda, xb, h, dst, n, F, splits,
-                                          s);
-  });
-  if (err != 0) return err;
-  auto epilogue = H % 4 == 0 ? conv_epilogue_kernel<HIn, 4>
-                             : conv_epilogue_kernel<HIn, 1>;
-  err = (int)cudaFuncSetAttribute(
-      epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != 0) return err;
-  epilogue<<<(n + kEpiRows - 1) / kEpiRows, kEpiThreads, smem, s>>>(
-      dst, h, w, root, b, out, agg, n, F, H, splits);
+  for (int c0 = 0; c0 < F; c0 += kMaxWidth) {
+    const int fs = F - c0 < kMaxWidth ? F - c0 : kMaxWidth;
+    const int err = by_width(fs, [&](auto fp) {
+      return main_loop<decltype(fp)::value>(a, lda, xb, h + c0, F, dst + c0,
+                                            F, (size_t)n * F, n, fs, splits,
+                                            s);
+    });
+    if (err != 0) return err;
+  }
+  const bool quads = H % 4 == 0;
+  const int cols = quads ? epilogue_cols<4>() : epilogue_cols<1>();
+  const dim3 grid((n + kEpiRows - 1) / kEpiRows, (H + cols - 1) / cols);
+  auto epilogue = quads ? conv_epilogue_kernel<HIn, 4>
+                        : conv_epilogue_kernel<HIn, 1>;
+  epilogue<<<grid, kEpiThreads, 0, s>>>(dst, h, w, root, b, out, agg, n, F,
+                                        H, splits);
   return (int)cudaGetLastError();
 }
 
@@ -591,13 +625,15 @@ int mpgnn_dense_matmul(const void* a, int lda, void* xt, const float* x,
                        float* out, float* part, int n, int F, int splits,
                        void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (!valid(a, lda, n, F, splits)) return (int)cudaErrorInvalidValue;
+  if (F <= 0 || F > kMaxWidth || !valid(a, lda, n, splits)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xt);
   const int err = by_width(F, [&](auto fp) {
-    return main_loop<decltype(fp)::value>(a, lda, xb, x,
-                                          splits > 1 ? part : out, n, F,
-                                          splits, s);
+    return main_loop<decltype(fp)::value>(a, lda, xb, x, F,
+                                          splits > 1 ? part : out, F,
+                                          (size_t)n * F, n, F, splits, s);
   });
   if (err != 0 || splits == 1) return err;
   const size_t total = (size_t)n * F;
@@ -607,10 +643,10 @@ int mpgnn_dense_matmul(const void* a, int lda, void* xt, const float* x,
   return (int)cudaGetLastError();
 }
 
-// K3. a: [n, n] bf16 with row stride lda, as for K4; xt, part and splits as
-// for K4; h, agg: [n, F]; w, root: [F, H]; b: [H]; out: [n, H], all float32
-// and contiguous. F * H small enough for the epilogue's shared memory
-// (F = H = 64 takes 49 KB; 227 KB at most).
+// K3. a: [n, n] bf16 with row stride lda, as for K4; xt: bf16 scratch
+// [FP, np] of the widest slice (FP = min(F, 256) rounded up as for K4);
+// part and splits as for K4; h, agg: [n, F]; w, root: [F, H]; b: [H];
+// out: [n, H], all float32 and contiguous. Any F > 0 and H > 0.
 int mpgnn_dense_conv(const void* a, int lda, void* xt, const float* h,
                      const float* w, const float* root, const float* b,
                      float* out, float* agg, float* part, int n, int F, int H,

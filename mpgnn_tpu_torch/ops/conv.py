@@ -15,7 +15,10 @@ the ``'pallas'`` backend is
 
 Both run one main loop (TMA and ``wgmma``, the reduction split over CTAs by
 ``matmul_splits``) and differ in their last pass: K4 adds the splits, K3's
-epilogue adds them and applies W, root, b and the ReLU.
+epilogue adds them and applies W, root, b and the ReLU. K3 takes any F and
+H, as the JAX kernel does (``dense_conv_plan``: its main loop runs once a
+slice of at most ``MAX_WIDTH`` columns of h, its epilogue stages f in
+chunks); K4 takes ``MAX_WIDTH`` columns a launch.
 
 ``dense_conv`` is a ``torch.autograd.Function`` whose backward is
 ``_conv_vjp_bwd`` of the JAX package: the small GEMMs stay ``torch.matmul``
@@ -47,10 +50,9 @@ CONV_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
 # K3's launches with a bf16 h (the hop 0 of a compute_dtype='bfloat16' run)
 CONV_BF16H_LAUNCHES = 0
-# widest input the kernels take (four 64-wide wgmma products), and the
-# largest F * H whose W and root the K3 epilogue stages in shared memory
+# widest input of one main loop (four 64-wide wgmma products): a K4
+# launch's width, a K3 slice's
 MAX_WIDTH = 256
-MAX_EPILOGUE_WEIGHTS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,14 +153,44 @@ def matmul_splits(n: int, sms: int) -> int:
     return max(1, min(-(-n // 64), sms // -(-n // 128)))
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseConvPlan:
+    """What K3 runs for h [n, f] on a card of ``sms`` SMs, as
+    ``mpgnn_dense_conv`` runs it: the main loop once for each ``(first
+    column, width)`` of ``slices`` (at most ``MAX_WIDTH`` columns each,
+    every one streaming A), the reduction cut into ``splits``, then the
+    epilogue over every column (its shared memory fixed, whatever f and
+    h); and the [FP, N8] bf16 scratch ``xt_shape`` of the transposed slice
+    that the wrapper allocates, reused by every slice."""
+
+    splits: int
+    slices: Tuple[Tuple[int, int], ...]
+    xt_shape: Tuple[int, int]
+
+
+def dense_conv_plan(n: int, f: int, h: int, sms: int) -> DenseConvPlan:
+    """K3's launch plan for any n, f, h > 0 (``DenseConvPlan``)."""
+    if min(n, f, h) <= 0:
+        raise ValueError(f"K3 takes n, F, H > 0, got {n}, {f}, {h}")
+    return DenseConvPlan(
+        splits=matmul_splits(n, sms),
+        slices=tuple((c, min(MAX_WIDTH, f - c))
+                     for c in range(0, f, MAX_WIDTH)),
+        xt_shape=(_k4_width(min(f, MAX_WIDTH)), -(-n // 8) * 8))
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def _main_loop_scratch(x: torch.Tensor):
     """(splits, xt): the split count on x's card and the [FP, N8] bf16
-    scratch of the transposed, rounded x that the main loop reads."""
+    scratch of the transposed, rounded x (at most ``MAX_WIDTH`` columns)
+    that the main loop reads."""
     n, f = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     xt = torch.empty((_k4_width(f), -(-n // 8) * 8), dtype=torch.bfloat16,
                      device=x.device)
-    return matmul_splits(n, sms), xt
+    return matmul_splits(n, _sms(x)), xt
 
 
 def _split_scratch(out: torch.Tensor, splits: int) -> torch.Tensor:
@@ -193,19 +225,18 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"shapes a {tuple(a.shape)}, h {tuple(h.shape)}, "
                          f"w {tuple(w.shape)}, root {tuple(root.shape)}, "
                          f"b {tuple(b.shape)} do not fit")
-    if f > MAX_WIDTH or f * hdim > MAX_EPILOGUE_WEIGHTS:
-        raise ValueError(f"K3 takes F <= {MAX_WIDTH} and F * H <= "
-                         f"{MAX_EPILOGUE_WEIGHTS}, got F={f}, H={hdim}")
     out = torch.empty((n, hdim), dtype=torch.float32, device=h.device)
     agg = torch.empty((n, f), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
-        splits, xt = _main_loop_scratch(h)
-        part = _split_scratch(agg, splits)
+        plan = dense_conv_plan(n, f, hdim, _sms(h))
+        xt = torch.empty(plan.xt_shape, dtype=torch.bfloat16,
+                         device=h.device)
+        part = _split_scratch(agg, plan.splits)
         _kernels.launch(
             "dense_conv_bf16h" if bf16h else "dense_conv", a.data_ptr(),
             a.stride(0), xt.data_ptr(), h.data_ptr(), w.data_ptr(),
             root.data_ptr(), b.data_ptr(), out.data_ptr(), agg.data_ptr(),
-            part.data_ptr(), n, f, hdim, splits, _stream(h),
+            part.data_ptr(), n, f, hdim, plan.splits, _stream(h),
         )
     global CONV_LAUNCHES, CONV_BF16H_LAUNCHES
     if bf16h:

@@ -9,12 +9,17 @@ checkpoint); a restore cuts them again for any (data, model) mesh.
 ``train_elastic`` runs the steps, checkpoints every ``checkpoint_every``,
 and when a step raises on every rank (a lost card; the tests' and
 ``chip_smoke.py``'s ``fault_hook``) all ranks take the same decision: keep
-the largest power of two below their count, as the JAX package does. The
-kept ranks build a new mesh, rebuild the step on it and restore the last
-checkpoint; the others return at once, with ``left`` set. Group creation
-is collective over every rank that started, so a recovery needs them all
-alive, as they are after a simulated fault; a second recovery after ranks
-have left raises instead of waiting on them.
+the largest power of two below their count, as the JAX package does, on
+every failure down to ``min_devices``. The kept ranks rebuild the step on
+the smaller mesh and restore the last checkpoint; the others return at
+once, with ``left`` set. Group creation is collective over every rank of
+the default group, so the meshes of every count a run can shrink to
+(``shrink_counts``) are built at its start, while all ranks are there: a
+recovery then creates no group, and no rank waits on one that has left.
+(``new_group(..., use_local_synchronization=True)`` would let the kept
+ranks create theirs alone, but it names a group by its ranks and the
+count of groups the calling process holds, which differs between ranks
+once a mesh over some of them was built.)
 """
 
 from __future__ import annotations
@@ -91,6 +96,24 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (seed + 1) * 1_000_003 + step)
 
 
+def _shrunk(n: int) -> int:
+    """The rank count a run on ``n`` ranks recovers on: the largest power
+    of two below n (1 stays 1), as the JAX package's."""
+    return max(1, 2 ** int(np.log2(max(n - 1, 1))))
+
+
+def shrink_counts(n: int, min_devices: int = 1) -> List[int]:
+    """The rank counts a run on ``n`` ranks can recover on, failure by
+    failure, while at least ``min_devices`` (4 -> 2 -> 1; 6 -> 4 -> 2 ->
+    1)."""
+    counts: List[int] = []
+    while True:
+        n = _shrunk(n)
+        if n < min_devices or n in counts:
+            return counts
+        counts.append(n)
+
+
 def train_elastic(
     graph,
     metapaths,
@@ -117,14 +140,17 @@ def train_elastic(
     ``ckpt_path`` every ``checkpoint_every``. A step that raises (every
     rank raising it, as ``fault_hook(step)`` does in tests) shrinks the
     ranks to the largest power of two below their count and resumes from
-    the last checkpoint on a new (n, 1) mesh of the first n; fewer than
-    ``min_devices`` re-raises. ``losses`` holds every step's loss, repeated
-    steps after a resume included, as the JAX package's."""
+    the last checkpoint on an (n, 1) mesh of the first n, on every failure;
+    fewer than ``min_devices`` re-raises. ``losses`` holds every step's
+    loss, repeated steps after a resume included, as the JAX package's."""
     device = resolve_device(device)
     cfg = cfg or MPGNNConfig()
     world = dist.get_world_size()
     ranks = list(range(world)) if ranks is None else list(ranks)
     mesh = make_mesh(axis_shapes, ("data", "model"), ranks, device)
+    # every mesh a recovery can move to, while every rank is here
+    shrunk = {n: make_mesh(None, ("data", "model"), ranks[:n], device)
+              for n in shrink_counts(len(ranks), min_devices)}
     if mesh.rank is None:
         return ElasticResult([], 0, 0, len(ranks), None, left=True)
     step_fn = build_sharded_train_step(mesh, graph, metapaths, split,
@@ -143,18 +169,14 @@ def train_elastic(
             if step % checkpoint_every == 0:
                 save_train_state(ckpt_path, step, step_fn)
         except Exception as e:  # noqa: BLE001 - any step failure recovers
-            new_n = max(1, 2 ** int(np.log2(max(len(ranks) - 1, 1))))
+            new_n = _shrunk(len(ranks))
             if new_n < min_devices:
                 raise
-            if len(ranks) != world:
-                raise RuntimeError(
-                    "a second recovery needs the ranks that left the "
-                    "first one, which have returned") from e
             log.warning("step %d failed (%s); recovering on %d ranks from "
                         "%s", step, e, new_n, ckpt_path)
             recoveries += 1
             ranks = ranks[:new_n]
-            mesh = make_mesh(None, ("data", "model"), ranks, device)
+            mesh = shrunk[new_n]
             if mesh.rank is None:
                 return ElasticResult(losses, step, recoveries, len(ranks),
                                      None, left=True)

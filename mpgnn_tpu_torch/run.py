@@ -1,4 +1,5 @@
-"""Main CLI: the full metapath search over a dataset, on one GPU.
+"""Main CLI: the full metapath search over a dataset, on one GPU or over
+ranks (``--mesh``).
 
 Counterpart of ``python -m mpgnn_tpu.run`` (the reference's ``main.py``
 argparse and ``main(args)``, main.py:1191-1508), with the same flags:
@@ -14,28 +15,37 @@ a relation, else 'segment', and the batched final evaluation routes each
 length group to 'csr' or 'segment' by the same cutover
 (``train.loops.resolve_backend``, ``train.batch_eval.resolve_eval_backend``).
 
-``--mesh SPEC`` fans the search out over the ranks that ``torchrun``
-starts, the reference's ``mpiexec -n 10`` (run.sh:32): each rank computes
-its slice of every sweep's batch (``parallel.context``) and all take the
-same decisions; only rank 0 prints the summary and writes checkpoints,
-models and the ``--trace_dir`` trace, and rank r > 0 keeps its frontier
-in ``<--frontier>.class<i>.pkl.rank<r>``:
+``--mesh SPEC`` fans the search out over ranks, the reference's ``mpiexec
+-n 10`` (run.sh:32): each rank computes its slice of every sweep's batch
+(``parallel.context``) and all take the same decisions; only rank 0
+prints the summary and writes checkpoints, models and the ``--trace_dir``
+trace, and rank r > 0 keeps its frontier in
+``<--frontier>.class<i>.pkl.rank<r>``. One command starts the ranks, as
+the JAX CLI's ``--mesh`` runs from one command:
 
-    torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2 ...
+    python -m mpgnn_tpu_torch.run --mesh 2 --retries 1 ...
 
-Each rank works on ``cuda:LOCAL_RANK`` (modulo the cards present); the
-collectives run on NCCL where each rank has a card of its own, else on
-gloo, which also serves several ranks on one card
-(``parallel.mesh.pick_backend``; the choice is logged).
+Started so (no ``WORLD_SIZE`` in its environment), the command is a
+launcher: it starts the spec's product of ranks on this host, each a child
+``python -m mpgnn_tpu_torch.run`` with the same flags and torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``, a free ``MASTER_PORT``), kills them all at once when one
+fails, and with ``--retries R`` starts them all again, up to R times
+(``--frontier`` and ``--pickle_filename`` make each attempt resume). Under
+torchrun (``torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2
+...``) the ranks are torchrun's and ``--retries`` is refused: torchrun's
+``--max-restarts`` restarts them. Each rank works on ``cuda:LOCAL_RANK``
+(modulo the cards present); the collectives run on NCCL where each rank
+has a card of its own, else on gloo, which also serves several ranks on
+one card (``parallel.mesh.pick_backend``; the choice is logged).
 
 Differences from the JAX CLI:
 * ``--device`` (default ``cuda``) picks the device; ``--platform cpu`` is
   its alias, so the JAX command lines run unchanged;
-* ``--mesh`` spans processes (torchrun's ranks), not one process's
-  devices;
+* ``--mesh`` spans processes (ranks), not one process's devices;
 * refused: ``--dropout_rng threefry|rbg``: the port draws dropout masks
   from a ``torch.Generator`` only ("What the port does not inherit"), and
-  ``--retries`` with ``--mesh``;
+  ``--retries`` with ``--mesh`` under torchrun;
 * the warmer (``utils.warm``, off with ``--no_warm``) compiles nothing
   ahead: before the graph loads, it starts the device's first calls on a
   thread of its own (the context, the kernel libraries' load and build,
@@ -60,19 +70,25 @@ import argparse
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
 import time
+from typing import List, Optional
 
 import numpy as np
 
 ACM_STYLE_DATASETS = ("DBLP", "IMDB", "ACM")
+# seconds between a failed attempt and the next
+RETRY_PAUSE_S = 10.0
 
 
-def _supervise(args, argv) -> int:
-    """Run the search in a child process and restart it on failure, up to
-    ``--retries`` times; with ``--frontier`` and ``--pickle_filename`` each
-    restart resumes instead of recomputing."""
+def _supervise(args, argv, ranks: Optional[int] = None) -> int:
+    """Run the search in a child process (``ranks`` None) or as ``ranks``
+    child processes, one rank each of ``--mesh`` (``_run_ranks``), and
+    start it again on failure, up to ``--retries`` times; with
+    ``--frontier`` and ``--pickle_filename`` each restart resumes instead of
+    recomputing. Returns the last attempt's exit code."""
     base = list(sys.argv[1:] if argv is None else argv)
     child_args = []
     skip = False
@@ -89,7 +105,7 @@ def _supervise(args, argv) -> int:
     cmd = [sys.executable, "-m", "mpgnn_tpu_torch.run"] + child_args
     rc = 1
     for attempt in range(1, args.retries + 2):
-        rc = subprocess.call(cmd)
+        rc = subprocess.call(cmd) if ranks is None else _run_ranks(cmd, ranks)
         if rc == 0:
             return 0
         print(
@@ -99,8 +115,67 @@ def _supervise(args, argv) -> int:
             file=sys.stderr, flush=True,
         )
         if attempt <= args.retries:
-            time.sleep(10)
+            time.sleep(RETRY_PAUSE_S)
     return rc
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(cmd: List[str], world: int) -> int:
+    """Run ``cmd`` as ranks 0 .. world - 1 of one process group on this
+    host, with the environment torchrun gives its ranks and a fresh
+    rendezvous port; they share this process's stdout and stderr. When a
+    rank exits non-zero, kill the others at once (a collective would wait
+    on the lost rank until its process group's timeout). Returns the first
+    non-zero exit code seen, else 0."""
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(cmd, env=env))
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                return failed[0]
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+
+
+def _mesh_ranks(spec: str) -> int:
+    """The rank count a ``--mesh`` spec names: the product of its sizes,
+    every one given."""
+    from mpgnn_tpu_torch.parallel.context import parse_mesh_spec
+
+    sizes = [int(p.split("=")[-1]) for p in spec.split(",") if p.strip()]
+    if not sizes or min(sizes) < 1:
+        raise ValueError(f"mesh spec {spec!r}: a launch needs every size, "
+                         f"each at least 1 (-1 only under torchrun)")
+    world = int(np.prod(sizes))
+    parse_mesh_spec(spec, world)
+    return world
+
+
+def _under_torchrun() -> bool:
+    """Whether this process is a rank already (torchrun's, the launcher's,
+    or a caller's process group)."""
+    import torch.distributed as dist
+
+    return dist.is_initialized() or "WORLD_SIZE" in os.environ
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -137,9 +212,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="alias of --device for the JAX command lines: cpu "
                         "or gpu")
     p.add_argument("--mesh", type=str, default=None,
-                   help="fan the sweeps out over torchrun's ranks: '2', "
-                        "'rel=2' or 'data=2,model=2' (the batch axes are "
-                        "split over every rank)")
+                   help="fan the sweeps out over ranks: '2', 'rel=2' or "
+                        "'data=2,model=2' (the batch axes are split over "
+                        "every rank); without torchrun this command starts "
+                        "the spec's product of ranks itself")
     p.add_argument("--save_model", type=str, default=None,
                    help="directory to save the final joint model's "
                         "parameters per class (params.pt)")
@@ -152,9 +228,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bag_gap_inclusive", action="store_true",
                    help="use the hop-0-style <= gap cut at bag hops too")
     p.add_argument("--retries", type=int, default=0,
-                   help="supervise the search in a subprocess and restart "
-                        "it up to this many times on failure; combine with "
-                        "--frontier and --pickle_filename to resume")
+                   help="supervise the search in a subprocess (with --mesh, "
+                        "its ranks) and restart it up to this many times on "
+                        "failure; combine with --frontier and "
+                        "--pickle_filename to resume")
     p.add_argument("--frontier", type=str, default=None,
                    help="frontier-checkpoint path prefix: each class's "
                         "search saves its frontier to <prefix>.class<i>.pkl "
@@ -179,22 +256,29 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refusals(args) -> list:
     """The flags and values the CLI refuses, each with its reason: a mesh
-    spec that does not fit the ranks, ``--retries`` with ``--mesh``, and
-    what the port does not inherit."""
+    spec that does not fit the ranks, ``--retries`` with ``--mesh`` under
+    torchrun, and what the port does not inherit."""
     out = []
-    if args.mesh:
+    if args.mesh and _under_torchrun():
         import torch.distributed as dist
 
         from mpgnn_tpu_torch.parallel.context import parse_mesh_spec
 
         world = (dist.get_world_size() if dist.is_initialized()
-                 else int(os.environ.get("WORLD_SIZE", 1)))
+                 else int(os.environ["WORLD_SIZE"]))
         try:
             parse_mesh_spec(args.mesh, world)
         except ValueError as e:
-            out.append(f"--mesh: {e} (start the ranks with torchrun)")
+            out.append(f"--mesh: {e} started by torchrun")
         if args.retries:
-            out.append("--retries does not supervise --mesh ranks")
+            out.append("--retries does not supervise torchrun's ranks: "
+                       "give torchrun --max-restarts, or start --mesh "
+                       "without torchrun")
+    elif args.mesh:
+        try:
+            _mesh_ranks(args.mesh)
+        except ValueError as e:
+            out.append(f"--mesh: {e}")
     if args.dropout_rng != "auto":
         out.append(f"dropout_rng {args.dropout_rng!r} is not ported: dropout "
                    f"masks come from a torch.Generator (ROADMAP.md, 'What "
@@ -203,7 +287,8 @@ def _refusals(args) -> list:
 
 
 def _join_mesh(args, device):
-    """Join torchrun's process group (unless the caller already has one),
+    """Join the ranks' process group from torchrun's environment (set by
+    torchrun or by the launcher; unless the caller already has a group),
     install the sweep mesh of ``--mesh`` and return (this rank's device,
     its rank, whether this call joined the group)."""
     import torch
@@ -242,6 +327,8 @@ def main(argv=None):
     refused = _refusals(args)
     if refused:
         ap.error("; ".join(refused))
+    if args.mesh and not _under_torchrun():
+        return _supervise(args, argv, ranks=_mesh_ranks(args.mesh))
     if args.retries > 0:
         return _supervise(args, argv)
     logging.basicConfig(

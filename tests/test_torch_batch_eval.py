@@ -61,6 +61,20 @@ from mpgnn_tpu_torch.train.loops import (
 from mpgnn_tpu_torch.weights import params_from_jax, stack_params_from_jax
 from test_torch_csr import _merge_path_walk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread in this module, as tests/test_torch_warm.py
+    runs: the tier-1 run shares the cores among several workers, where
+    PyTorch's intra-op pool waits on descheduled threads at every parallel
+    op of these CPU training loops (100-200x slower than alone). Both sides
+    of every comparison run under it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F1_ATOL = 1e-6
 LOGP_ATOL = 1e-5
 PARAM_ATOL = 1e-4

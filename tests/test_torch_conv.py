@@ -90,13 +90,14 @@ def test_k4_splits_give_every_sm_a_cta(n):
     assert tconv.matmul_splits(32768, 132) == 1
 
 
-def _conv_case(f, seed, n=200, e=700, hdim=16):
-    """tests/test_pallas_conv.py's shapes and scales, from numpy."""
+def _conv_case(f, seed, n=200, e=700, hdim=16, scale=0.3):
+    """tests/test_pallas_conv.py's shapes and scales, from numpy (w and
+    root times ``scale``)."""
     src, dst = _relation(n, e, seed)
     rng = np.random.default_rng(seed + 10)
     arrs = (rng.normal(size=(n, f)).astype(np.float32),
-            (rng.normal(size=(f, hdim)) * 0.3).astype(np.float32),
-            (rng.normal(size=(f, hdim)) * 0.3).astype(np.float32),
+            (rng.normal(size=(f, hdim)) * scale).astype(np.float32),
+            (rng.normal(size=(f, hdim)) * scale).astype(np.float32),
             (rng.normal(size=(hdim,)) * 0.1).astype(np.float32))
     g = rng.normal(size=(n, hdim)).astype(np.float32)
     return src, dst, arrs, g
@@ -127,6 +128,59 @@ def test_dense_conv_matches_jax_kernel(f):
                                    rtol=0, atol=GRAD_ATOL)
     # the CPU path runs the plain versions and counts no launch
     assert (tconv.CONV_LAUNCHES, tconv.MATMUL_LAUNCHES) == launches
+
+
+# widths past one main loop (F = 300: two slices), past the K3 epilogue's
+# former shared memory (F = H = 256) and H % 4 != 0 (one output column a
+# thread); w and root scaled by 1/sqrt(F) as glorot's are
+WIDE = [(300, 64), (256, 256), (64, 63)]
+
+
+@pytest.mark.parametrize("f,hdim", WIDE)
+def test_wide_dense_conv_matches_jax_kernel(f, hdim):
+    """The JAX kernel takes any F and H (W, root and h whole in VMEM); the
+    port's dense_conv gives its value and its four gradients at the widths
+    the card's K3 formerly refused."""
+    n = 200
+    src, dst, arrs, g = _conv_case(f, seed=f + hdim, n=n, hdim=hdim,
+                                   scale=f ** -0.5)
+    jop = jconv.build_dense_conv_operand(src, dst, n, block_rows=64)
+
+    def loss(*args):
+        return jnp.sum(jconv.pallas_dense_conv(jop, True, *args) * g)
+
+    jargs = [jnp.asarray(a) for a in arrs]
+    want = np.asarray(jconv.pallas_dense_conv(jop, True, *jargs))
+    want_grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*jargs)
+
+    op = tconv.build_dense_conv_operand(src, dst, n, "cpu")
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    out = tconv.dense_conv(op, *leaves)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=0,
+                               atol=FWD_ATOL)
+    (out * torch.from_numpy(g)).sum().backward()
+    for leaf, wg in zip(leaves, want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(wg),
+                                   rtol=0, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("n,f,hdim,slices,xt", [
+    (5000, 300, 64, ((0, 256), (256, 44)), (256, 5000)),
+    (5000, 256, 256, ((0, 256),), (256, 5000)),
+    (257, 512, 64, ((0, 256), (256, 256)), (256, 264)),
+    (257, 64, 63, ((0, 64),), (64, 264)),
+    (5000, 2, 64, ((0, 2),), (64, 5000)),
+])
+def test_k3_launch_plan_takes_any_width(n, f, hdim, slices, xt):
+    """The card path's plan (``dense_conv_plan``, what ``dense_conv_fwd``
+    allocates and ``mpgnn_dense_conv`` runs) at every F and H: one main
+    loop a slice of at most 256 columns of h, the scratch of the widest
+    slice, the reduction split as K4's."""
+    plan = tconv.dense_conv_plan(n, f, hdim, 132)
+    assert plan.slices == slices and plan.xt_shape == xt
+    assert plan.splits == tconv.matmul_splits(n, 132)
+    with pytest.raises(ValueError):
+        tconv.dense_conv_plan(n, 0, hdim, 132)
 
 
 def test_dense_conv_skips_dh_when_h_needs_no_gradient():

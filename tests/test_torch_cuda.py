@@ -736,6 +736,66 @@ def test_conv_kernel_takes_a_bf16_h(dev, n, f):
     torch.testing.assert_close(agg, want_agg, **TOL)
 
 
+@pytest.mark.parametrize("bf16h", [False, True])
+@pytest.mark.parametrize("f,hdim", [(300, 64), (256, 256), (512, 64),
+                                    (64, 63)])
+@pytest.mark.parametrize("n", [257, 5000])
+def test_conv_kernel_takes_any_width(dev, n, f, hdim, bf16h):
+    """K3 and its bf16-h form where the JAX kernel takes what the card's
+    formerly refused: F past one main loop's 256 columns (300: a slice of
+    44; 512: two full slices), F = H = 256 (past the former epilogue's
+    shared memory) and H % 4 != 0 (one output column a thread); one launch
+    each, against the plain version, a second launch bitwise the first."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, (h, w, root, b) = _conv_inputs(n, 10 * n, f, hdim, dev, seed=f)
+    if bf16h:
+        h = h.bfloat16()
+    count = "CONV_BF16H_LAUNCHES" if bf16h else "CONV_LAUNCHES"
+    before = getattr(conv, count)
+    out, agg = conv.dense_conv_fwd(op.a, h, w, root, b)
+    again = conv.dense_conv_fwd(op.a, h, w, root, b)
+    want_out, want_agg = conv.dense_conv_plain(op.a, h, w, root, b)
+    torch.cuda.synchronize()
+    assert getattr(conv, count) == before + 2
+    assert out.shape == (n, hdim) and agg.shape == (n, f)
+    assert torch.equal(out, again[0]) and torch.equal(agg, again[1])
+    torch.testing.assert_close(agg, want_agg, **TOL)
+    torch.testing.assert_close(out, want_out, **TOL)
+
+
+def test_wide_conv_backward_runs_k4_for_dh(dev):
+    """At F = H = 256 the backward's dh goes through one K4 launch over
+    a_t, and the four gradients equal float64 sums on the card's own ReLU
+    mask (a CPU reference would flip the mask where K3's float32 output
+    lies within rounding of 0, and move every gradient there): dh's K4 term
+    within 1e-5 of the plain version on the operand the backward forms,
+    the float32 GEMMs within 1e-4."""
+    from mpgnn_tpu_torch.ops import conv
+
+    op, ts = _conv_inputs(5000, 50000, 256, 256, dev, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(5000, 256)).astype(np.float32)).to(dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ts]
+    before = (conv.CONV_LAUNCHES, conv.MATMUL_LAUNCHES)
+    out = conv.dense_conv(op, *leaves)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (conv.CONV_LAUNCHES, conv.MATMUL_LAUNCHES) == (before[0] + 1,
+                                                          before[1] + 1)
+    h, w, root, b = ts
+    _, agg = conv.dense_conv_plain(op.a, h, w, root, b)
+    dz = torch.where(out.detach() > 0, g, torch.zeros_like(g))
+    d = (dz @ w.t()).contiguous()
+    want_dh = conv.dense_matmul_plain(op.a_t, d) + dz @ root.t()
+    torch.testing.assert_close(leaves[0].grad, want_dh, **TOL)
+    dz = dz.double()
+    for got, want in ((leaves[1].grad, agg.double().t() @ dz),
+                      (leaves[2].grad, h.double().t() @ dz),
+                      (leaves[3].grad, dz.sum(0))):
+        torch.testing.assert_close(got, want.float(), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("backend", ["csr", "pallas", "segment", "dense"])
 def test_bf16_training_on_the_card(dev, backend):
     """``train_mpgnn`` in bf16 on the card against the same run on the

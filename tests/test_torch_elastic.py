@@ -4,8 +4,10 @@ JAX package's ``train_elastic`` on as many virtual CPU devices.
 One pool of 4 ranks runs every check (``_elastic_checks``, which imports
 nothing of JAX): a checkpoint's round trip and its resume on 2 of the 4
 ranks, ``train_elastic`` with a fault injected at step 5 (4 -> 2 ranks),
-and the give-up below ``min_devices``. Both packages start from the JAX
-package's initial parameters of seed 0 at dropout 0.
+with faults at steps 5 and 9 (4 -> 2 -> 1), and the give-up below
+``min_devices`` after a first recovery (4 -> 2, then below 2). Both
+packages start from the JAX package's initial parameters of seed 0 at
+dropout 0.
 
 Tolerances, with their reasons: checkpointed tensors equal; a step's loss
 after the resize within 1e-5 of the same step on the larger mesh and of
@@ -33,6 +35,7 @@ WORLD = 4
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 CFG = dict(epochs=1, hidden_dim=8, dropout=0.0)
 FAULT_STEP, NUM_STEPS, EVERY = 5, 12, 4
+FAULT_STEPS = (5, 9)
 
 
 def _setup():
@@ -48,6 +51,17 @@ def _fault(step):
     if step == FAULT_STEP and not _fault.fired:
         _fault.fired = True
         raise RuntimeError("injected chip loss")
+
+
+def _faults(steps):
+    """A fault hook that fails once at each of ``steps``."""
+    fired = set()
+
+    def hook(step):
+        if step in steps and step not in fired:
+            fired.add(step)
+            raise RuntimeError(f"injected chip loss at step {step}")
+    return hook
 
 
 def _always_fault(step):
@@ -85,14 +99,22 @@ def _elastic_checks(device, params, ckpt_dir):
         device=device)
     out["elastic"] = (res.losses, res.steps_run, res.recoveries,
                       res.final_device_count, res.left)
-    # the give-up: 4 -> 2 ranks is below min_devices = 4
+    # two faults: 4 -> 2 -> 1 ranks, ranks 1-3 leaving
+    res = elastic.train_elastic(
+        graph, mp, split, 2, num_steps=NUM_STEPS,
+        ckpt_path=os.path.join(ckpt_dir, "twice.pt"), cfg=cfg,
+        checkpoint_every=EVERY, fault_hook=_faults(FAULT_STEPS),
+        init_params=params, device=device)
+    out["twice"] = (res.losses, res.steps_run, res.recoveries,
+                    res.final_device_count, res.left)
+    # the give-up: 4 -> 2 ranks, then 2 -> 1 is below min_devices = 2
     try:
-        elastic.train_elastic(
+        res = elastic.train_elastic(
             graph, mp, split, 2, num_steps=4,
             ckpt_path=os.path.join(ckpt_dir, "gave_up.pt"), cfg=cfg,
-            min_devices=4, fault_hook=_always_fault, init_params=params,
+            min_devices=2, fault_hook=_always_fault, init_params=params,
             device=device)
-        out["give_up"] = None
+        out["give_up"] = ("left", res.recoveries) if res.left else None
     except RuntimeError as e:
         out["give_up"] = str(e)
     return out
@@ -181,16 +203,50 @@ def test_train_elastic_recovers_as_jax(ranks, tmp_path):
     assert want.recoveries == 1 and want.final_device_count == 2
 
 
-def test_train_elastic_gives_up_below_min_devices(ranks, tmp_path):
+def test_train_elastic_recovers_twice_as_jax(ranks, tmp_path):
+    """Faults at steps 5 and 9 on every rank: both packages shrink 4 -> 2
+    from the step-4 checkpoint, then 2 -> 1 from the step-8 one, and end
+    with the same losses, steps and counts; ranks 2 and 3 leave at the
+    first recovery, rank 1 at the second."""
     import jax
 
     from mpgnn_tpu.parallel.elastic import train_elastic as j_elastic
 
     graph, mp, split = _jax_setup()
+    want = j_elastic(graph, mp, split, 2, num_steps=NUM_STEPS,
+                     ckpt_path=str(tmp_path / "ck"), cfg=_jax_cfg(),
+                     devices=jax.devices()[:4], checkpoint_every=EVERY,
+                     seed=0, fault_hook=_faults(FAULT_STEPS))
+    assert (want.recoveries, want.final_device_count) == (2, 1)
+    losses, steps, recoveries, count, left = ranks[0]["twice"]
+    assert (steps, recoveries, count, left) == (
+        want.steps_run, want.recoveries, want.final_device_count, False)
+    np.testing.assert_allclose(losses, want.losses, **LOSS_TOL)
+    assert [r["twice"][-1] for r in ranks] == [False, True, True, True]
+
+
+def test_train_elastic_gives_up_below_min_devices(ranks, tmp_path):
+    """A fault at every step with min_devices = 2: both packages recover
+    once (4 -> 2) and re-raise at the second failure, where 1 rank would
+    be below the minimum; ranks 2 and 3 leave at the recovery."""
+    import jax
+
+    from mpgnn_tpu.parallel.elastic import train_elastic as j_elastic
+
+    graph, mp, split = _jax_setup()
+    calls = []
+
+    def fault(step):
+        calls.append(step)
+        _always_fault(step)
+
     with pytest.raises(RuntimeError, match="persistent"):
         j_elastic(graph, mp, split, 2, num_steps=4,
                   ckpt_path=str(tmp_path / "ck"), cfg=_jax_cfg(),
-                  devices=jax.devices()[:4], min_devices=4,
-                  fault_hook=_always_fault)
-    for r in ranks:
+                  devices=jax.devices()[:4], min_devices=2,
+                  fault_hook=fault)
+    assert calls == [0, 0]
+    for r in ranks[:2]:
         assert r["give_up"] is not None and "persistent" in r["give_up"]
+    for r in ranks[2:]:
+        assert r["give_up"] == ("left", 1)

@@ -42,6 +42,22 @@ SCORER = dict(epochs_flat=20, epochs_bags=10, max_restarts=3)
 BUDGET = 1_000_000
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread in this module's searches, as
+    tests/test_torch_warm.py runs: the tier-1 run shares the cores among
+    several workers, where PyTorch's intra-op pool waits on descheduled
+    threads at every parallel op (100-200x slower than alone); the CLI's
+    child processes get OMP_NUM_THREADS=1. Both sides of every comparison
+    run under it."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def pinned_budget(monkeypatch):
     monkeypatch.setattr(jscoring, "_MEM_BUDGET_ENTRIES", BUDGET)
@@ -238,6 +254,7 @@ def _cli(dataset, *extra):
            "--label_file", "label.dat", "--epochs", "10", "--max_hops", "1",
            *extra]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
                           env=env, timeout=300)
 
@@ -270,17 +287,117 @@ def test_cli_runs_and_resumes_from_a_jax_checkpoint(dataset, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "does not multiply to the 1 ranks"),
+    (["--mesh", "1", "--retries", "1"], "--max-restarts"),
     (["--dropout_rng", "rbg"], "does not inherit"),
     (["--dropout_rng", "threefry"], "does not inherit"),
 ])
-def test_cli_refuses_what_is_not_ported(capsys, flag, item):
+def test_cli_refuses_what_is_not_ported(capsys, monkeypatch, flag, item):
+    """Under torchrun (one rank here: WORLD_SIZE=1) a mesh spec must fit
+    torchrun's ranks, and torchrun, not --retries, restarts them."""
     from mpgnn_tpu_torch.run import main
 
+    monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(SystemExit):
         main(["--hidden_dim", "8", "--dataset", "synthetic", "--folder", ".",
               "--node_file", "n", "--link_file", "l", "--label_file", "l",
               *flag])
     assert item in capsys.readouterr().err
+
+
+def test_cli_launch_needs_every_mesh_size(capsys, monkeypatch):
+    """Without torchrun the CLI starts the spec's ranks itself, so every
+    size must be given: -1 (inferred from torchrun's count) is refused."""
+    from mpgnn_tpu_torch.run import main
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit):
+        main(["--hidden_dim", "8", "--dataset", "synthetic", "--folder", ".",
+              "--node_file", "n", "--link_file", "l", "--label_file", "l",
+              "--mesh", "data=-1,model=2"])
+    assert "-1 only under torchrun" in capsys.readouterr().err
+
+
+# --mesh from one command: the CLI as its own launcher and supervisor
+MESH_TIMEOUT_S = 300
+# a test-only sitecustomize for the launched ranks: rank 1 exits at its
+# first import of the search engine (its process group is up by then),
+# once: the marker file says it has
+_FAIL_ONCE = """\
+import os, sys
+
+_marker = os.environ.get("MPGNN_TEST_FAIL_ONCE")
+if _marker and os.environ.get("RANK") == "1" and not os.path.exists(_marker):
+    class _FailOnce:
+        def find_spec(self, name, path=None, target=None):
+            if name == "mpgnn_tpu_torch.search.engine":
+                open(_marker, "w").close()
+                os._exit(3)
+            return None
+
+    sys.meta_path.insert(0, _FailOnce())
+"""
+
+
+@pytest.fixture(scope="module")
+def dataset500(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("ds500"))
+    generate_synthetic_graph(500, 4, "red-red-blue", seed=3, out_dir=out)
+    return out
+
+
+def _cli_session(dataset, extra, env_extra=None):
+    """The CLI in a session of its own (its ranks too), killed whole if it
+    outlives MESH_TIMEOUT_S; one intra-op thread a process."""
+    import signal
+
+    cmd = [sys.executable, "-m", "mpgnn_tpu_torch.run", "--device", "cpu",
+           "--hidden_dim", "8", "--dataset", "synthetic", "--folder",
+           dataset, "--node_file", "node.dat", "--link_file", "link.dat",
+           "--label_file", "label.dat", "--epochs", "20", "--max_hops", "1",
+           "--no_warm", *extra]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE")}
+    env.update(OMP_NUM_THREADS="1", **(env_extra or {}))
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, cwd=REPO, env=env, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        pytest.fail(f"{extra} outlived {MESH_TIMEOUT_S} s:\n{err[-3000:]}")
+    assert p.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1]), err
+
+
+@pytest.fixture(scope="module")
+def single_run(dataset500):
+    return _cli_session(dataset500, [])[0]
+
+
+def test_cli_mesh_launches_its_ranks(dataset500, single_run):
+    """``--mesh 2`` without torchrun starts 2 ranks (gloo on the CPU) and
+    prints the single-process run's summary once."""
+    summary, err = _cli_session(dataset500, ["--mesh", "2"])
+    assert summary["classes"] == single_run["classes"]
+    assert summary["dataset"] == single_run["dataset"]
+    assert err.count("sweep mesh active") == 2
+
+
+def test_cli_mesh_retries_a_failed_rank(dataset500, single_run, tmp_path):
+    """``--mesh 2 --retries 1`` with rank 1 failing on its first attempt:
+    the launcher kills rank 0 at once, logs the attempt, starts both ranks
+    again and ends with rc 0 and the unfailed run's summary."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_FAIL_ONCE)
+    marker = tmp_path / "failed_once"
+    summary, err = _cli_session(
+        dataset500, ["--mesh", "2", "--retries", "1"],
+        dict(PYTHONPATH=str(site), MPGNN_TEST_FAIL_ONCE=str(marker)))
+    assert marker.exists()
+    assert "[supervisor] attempt 1 exited rc=3; retrying" in err
+    assert summary["classes"] == single_run["classes"]
 
 
 def _stub_eval(graph, paths, split, num_classes, cfg=None, seed=0,

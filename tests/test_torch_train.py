@@ -36,6 +36,20 @@ from mpgnn_tpu_torch.train import loops
 from mpgnn_tpu_torch.train.metrics import macro_f1
 from mpgnn_tpu_torch.weights import params_from_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread in this module, as tests/test_torch_warm.py
+    runs: the tier-1 run shares the cores among several workers, where
+    PyTorch's intra-op pool waits on descheduled threads at every parallel
+    op of these CPU training loops (100-200x slower than alone). Both sides
+    of every comparison run under it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPLIT_FIELDS = ("node_idx", "train_idx", "train_y", "val_idx", "val_y",
                 "test_idx", "test_y")
 LOSS_ATOL = 1e-5
