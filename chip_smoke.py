@@ -204,11 +204,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``data/synthetic_multiclass`` against the replicated step; (d)
    ``train_elastic`` 4 -> 2 ranks with a fault at step 5, and 4 -> 2 -> 1
    with another at step 9 (``bench_parallel.ELASTIC_*``), against the run
-   without; (e) ``torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run
-   --mesh 2`` at ``MESH_CLI``'s cut settings against the single-process
+   without, and the seconds ``train_elastic``'s meshes take to build, the
+   shrink meshes apart (``bench_parallel.mesh_setup_s``); (e) ``torchrun
+   --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2`` at ``MESH_CLI``'s cut settings against the single-process
    CLI: the same selections and F1s; (f) the same line started without
    torchrun, ``--mesh 2 --retries 1``, rank 1 failing on its first attempt
-   (``FAIL_ONCE_SITE``): rc 0, one attempt logged, the same summary.
+   (``bench_parallel.RANK_SITE``): rc 0, one attempt logged, the same
+   summary.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -367,11 +369,13 @@ def kernel_us(torch, fn, reps: int = 20) -> dict:
 
 
 def bound(num_bytes: float, flops: float, bf16_flops: float = 0.0):
-    """(least ms, 'bytes' or 'operations') at the published peaks: float32
-    operations at the float32 rate, bf16 tensor-core operations at the bf16
-    dense rate."""
+    """(least ms, 'bytes' or 'operations') at the published peaks: the
+    largest of the bytes at the memory rate, the float32 operations at the
+    float32 rate and the bf16 tensor-core operations at the bf16 dense rate
+    (the CUDA cores and the tensor cores can run at once, so their times
+    are not added)."""
     t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -704,8 +708,10 @@ def profile_phase(torch, pred, tag, calls=5):
                   launches_per_refresh=c / calls) for k, t, c in rows[:8]])
 
 
-def dense_phase(torch, conv, graph_s):
-    """Hold K3 and K4 against their plain versions and time them."""
+def dense_phase(torch, conv, graph_s, bits: bool = False):
+    """Hold K3 and K4 against their plain versions and time them; with
+    ``bits``, also keep each output's digest (K3, K3 with a bf16 h, K4) for
+    ``hold_bits``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -736,7 +742,7 @@ def dense_phase(torch, conv, graph_s):
         digests = {"dense_conv": digest(out, agg),
                    "dense_conv_bf16h": digest(*conv.dense_conv_fwd(
                        op.a, h.bfloat16(), w, root, b)),
-                   "dense_matmul": digest(dh)}
+                   "dense_matmul": digest(dh)} if bits else {}
         torch.cuda.synchronize()
         check(torch.equal(out, again_out) and torch.equal(agg, again_agg),
               f"dense_conv {tag} F={f}: a second launch differs")
@@ -910,8 +916,7 @@ def wide_conv_phase(torch, conv, graph_s) -> list:
                     op.a, h, w, root, b), 3),
                 library_ms=cuda_ms_cold(torch, lib, 20, flush),
                 library_call="torch.mm bf16 + epilogue", bound_ms=b_ms,
-                bound_by=b_by, slices=len(conv.dense_conv_plan(
-                    n, f, hd, 1).slices), kernel_us=by_kernel)
+                bound_by=b_by, kernel_us=by_kernel)
             log(phase="wide_conv", **rec)
             recs.append(rec)
     del op, flush
@@ -3141,13 +3146,15 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
           rel <= SHARDED_LOSS_RTOL,
           f"sharded step off the replicated one by {rel}")
     failed, records = bench_parallel.judge_elastic(se)
+    mesh_setup = bench_parallel.mesh_setup_record(se)
+    log(phase="elastic_mesh_setup", backend="gloo", **mesh_setup)
     for rec in records:
         log(phase="elastic", **rec, no_fault=se[0]["no_fault"],
             seconds=time.perf_counter() - t0)
     for f in failed:
         check(False, f)
     out.update(sharded=sharded, replicated=replicated, elastic=se[0]["fault"],
-               elastic_twice=se[0]["twice"])
+               elastic_twice=se[0]["twice"], elastic_mesh_setup=mesh_setup)
 
     # (e) the search fan-out under torchrun
     t0 = time.perf_counter()
@@ -3178,15 +3185,11 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     # rank 1 fails on its first attempt
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        with open(os.path.join(tmp, "sitecustomize.py"), "w") as f:
-            f.write(FAIL_ONCE_SITE)
         marker = os.path.join(tmp, "failed_once")
         env = {k: v for k, v in os.environ.items()
                if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
-        env.update(PYTHONPATH=os.pathsep.join(
-            [tmp] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
-            MPGNN_FAIL_ONCE=marker)
-        rc, stdout, stderr = run_session(
+        env.update(bench_parallel.rank_site_env(tmp, MPGNN_FAIL_ONCE=marker))
+        rc, stdout, stderr = bench_parallel.run_session(
             [sys.executable, "-m", "mpgnn_tpu_torch.run", *MESH_CLI,
              "--mesh", "2", "--retries", "1"], env, 600)
         failed_once = os.path.exists(marker)
@@ -3206,63 +3209,13 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     return out
 
 
-# 10 (f): a sitecustomize on the launched ranks' PYTHONPATH: rank 1 exits
-# at its first import of the search engine (its process group is up by
-# then), once (the marker file says it has); then it hands over to the
-# sitecustomize it shadows, if the interpreter has one
-FAIL_ONCE_SITE = """\
-import importlib, os, sys
-
-_marker = os.environ.get("MPGNN_FAIL_ONCE")
-if _marker and os.environ.get("RANK") == "1" and not os.path.exists(_marker):
-    class _FailOnce:
-        def find_spec(self, name, path=None, target=None):
-            if name == "mpgnn_tpu_torch.search.engine":
-                open(_marker, "w").close()
-                os._exit(3)
-            return None
-
-    sys.meta_path.insert(0, _FailOnce())
-
-_here = os.path.dirname(os.path.abspath(__file__))
-_path = sys.path[:]
-sys.path[:] = [p for p in _path if os.path.abspath(p or os.curdir) != _here]
-_me = sys.modules.pop("sitecustomize", None)
-try:
-    importlib.import_module("sitecustomize")
-except ImportError:
-    pass
-finally:
-    sys.path[:] = _path
-    sys.modules["sitecustomize"] = _me
-"""
-
-
-def run_session(cmd, env, timeout):
-    """(exit code, stdout, stderr) of ``cmd`` run from the repo's root in a
-    session of its own, whose every process (a launcher's ranks too) is
-    killed if it outlives ``timeout`` seconds."""
-    import signal
-
-    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                         stderr=subprocess.PIPE, text=True,
-                         start_new_session=True)
-    try:
-        out, err = p.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        out, err = p.communicate()
-        raise RuntimeError(f"{cmd} outlived {timeout} s:\n{err[-3000:]}")
-    return p.returncode, out, err
-
-
 def wide_shapes(recs: list, name: str) -> dict:
     """The kernels line's record of phase 6's wide K3 shapes of kernel
     ``name``: each shape's time, bound, plain and library times and
     error."""
     return {"wide": {f"N={r['N']} F={r['F']} H={r['H']}": {
         k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms", "max_abs_err", "slices")}
+                          "library_ms", "max_abs_err")}
         for r in recs if r["kernel"] == name}}
 
 
@@ -3383,8 +3336,8 @@ def main() -> int:
     probe = gather_probe(records["csr_scatter"],
                          os.path.abspath(args.package_root))
     if args.kernels_only:
-        dense = dense_phase(torch, conv, graph_s)
-        if hasattr(conv, "dense_conv_plan"):    # K3 at every width
+        dense = dense_phase(torch, conv, graph_s, bool(args.bits_file))
+        if not hasattr(conv, "MAX_EPILOGUE_WEIGHTS"):  # K3 at every width
             wide_conv_phase(torch, conv, graph_s)
         if args.bits_file:
             hold_bits(dense, args.bits_file)

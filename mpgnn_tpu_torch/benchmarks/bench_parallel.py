@@ -23,13 +23,19 @@ within ``HALO_*`` and the control does not (``judge``; exit 1 where
 not). Several ranks on one card measure correctness and the exchange's
 cost, not scaling. It refuses to run without a card.
 
-    python -m mpgnn_tpu_torch.benchmarks.bench_parallel \
-        --elastic data/synthetic_multiclass
+    python -m mpgnn_tpu_torch.benchmarks.bench_parallel --elastic
 
-runs ``train_elastic`` on 4 ranks instead (NCCL where the machine has 4
-cards, else gloo ranks sharing them): without a fault, with one (4 -> 2
-ranks) and with two (4 -> 2 -> 1), each held to the unfaulted run
-(``judge_elastic``; exit 1 where one does not hold), one JSON line.
+runs ``train_elastic`` on 4 ranks instead, over ``data/synthetic_multiclass``
+and its metapaths ``SYNTH_PATHS`` (NCCL where the machine has 4 cards, else
+gloo ranks sharing them): without a fault, with one (4 -> 2 ranks) and with
+two (4 -> 2 -> 1), each held to the unfaulted run (``judge_elastic``; exit
+1 where one does not hold), and the seconds its meshes take to build
+(``mesh_setup_s``), one JSON line.
+
+It also holds what ``chip_smoke.py`` and the tests share to check the
+search CLI's own rank launcher (``run.py --mesh`` without torchrun):
+``RANK_SITE``, a sitecustomize for the launched ranks, and
+``run_session``.
 """
 
 from __future__ import annotations
@@ -37,9 +43,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import signal
+import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
@@ -59,6 +69,9 @@ from mpgnn_tpu_torch.train import loops
 
 HIDDEN = 64
 METAPATHS = [[0, 1]]
+ROOT = Path(__file__).resolve().parents[2]
+SYNTH = ROOT / "data" / "synthetic_multiclass"
+SYNTH_PATHS = [[1, 0], [2, 3]]            # metapath.dat, metapath2.dat
 # the node-sharded runs against the single-process csr run from the same
 # seed (dropout 0): each rank sums a row's local and halo edges in two K1
 # launches where the single process sums them in one, float32 in another
@@ -252,14 +265,35 @@ def param_diff(a: dict, b: dict) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in b)
 
 
+def mesh_setup_s(device) -> dict:
+    """The seconds this rank spends building ``train_elastic``'s meshes
+    over every rank of the default group, as it builds them: the run's
+    own mesh, then apart those of every count it can shrink to
+    (``elastic.shrink_counts``), which a run without a failure never
+    uses. Each rank starts after a barrier."""
+    world = dist.get_world_size()
+    dist.barrier()
+    t0 = time.perf_counter()
+    make_mesh(None, ("data", "model"), list(range(world)), device)
+    t1 = time.perf_counter()
+    counts = elastic.shrink_counts(world)
+    for n in counts:
+        make_mesh(None, ("data", "model"), list(range(n)), device)
+    t2 = time.perf_counter()
+    dist.barrier()
+    return dict(run_mesh_s=t1 - t0, shrink_meshes_s=t2 - t1,
+                shrink_counts=counts)
+
+
 def sharded_elastic_rank(device, graph_files, metapaths, steps: int,
                          fault_steps, elastic_steps: int, every: int,
                          ckpt_dir: str) -> dict:
-    """Phase 10 (c) and (d) on each of 4 gloo ranks: ``steps`` of the
-    sharded step on (data, model) = (2, 2), then ``train_elastic`` without
-    a fault, with one at ``fault_steps[0]`` on every rank (4 -> 2 ranks)
-    and with one at each of ``fault_steps`` (4 -> 2 -> 1). A rank that
-    left a run takes part in the next."""
+    """Phase 10 (c) and (d) on each of 4 ranks: ``steps`` of the sharded
+    step on (data, model) = (2, 2), ``train_elastic``'s meshes timed
+    (``mesh_setup_s``), then ``train_elastic`` without a fault, with one
+    at ``fault_steps[0]`` on every rank (4 -> 2 ranks) and with one at
+    each of ``fault_steps`` (4 -> 2 -> 1). A rank that left a run takes
+    part in the next."""
     from mpgnn_tpu_torch.graph.io import load_dat_files
 
     graph, labels, _ = load_dat_files(*graph_files)
@@ -270,6 +304,7 @@ def sharded_elastic_rank(device, graph_files, metapaths, steps: int,
     step = build_sharded_train_step(mesh, graph, metapaths, split, c, cfg)
     out = {"sharded": [step() for _ in range(steps)]}
     del step
+    out["mesh_setup"] = mesh_setup_s(device)
 
     def faults(at):
         fired = set()
@@ -393,44 +428,125 @@ def judge(ranks: List[dict], w1: dict) -> List[str]:
     return bad
 
 
-def elastic_main(backend: str, folder: str) -> int:
+def mesh_setup_record(ranks: List[dict]) -> dict:
+    """``sharded_elastic_rank``'s mesh timings over its ranks: the slowest
+    rank's seconds for the run's mesh and for the shrink meshes."""
+    setups = [r["mesh_setup"] for r in ranks]
+    return dict(run_mesh_s=max(s["run_mesh_s"] for s in setups),
+                shrink_meshes_s=max(s["shrink_meshes_s"] for s in setups),
+                shrink_counts=setups[0]["shrink_counts"])
+
+
+def elastic_main(backend: str) -> int:
     """``--elastic``: ``sharded_elastic_rank`` on 4 ranks of ``backend``
-    over ``folder``'s graph, judged by ``judge_elastic``; one JSON line."""
-    import os
+    over ``SYNTH``'s graph and ``SYNTH_PATHS``, judged by
+    ``judge_elastic``; one JSON line."""
     import tempfile
 
-    files = [os.path.join(folder, f) for f in ("node.dat", "link.dat",
-                                               "label.dat")]
+    files = [str(SYNTH / f) for f in ("node.dat", "link.dat", "label.dat")]
     with tempfile.TemporaryDirectory() as ckpt:
         ranks = spawn_ranks(
             sharded_elastic_rank, 4,
-            (files, [[1, 0], [2, 3]], 2, ELASTIC_FAULTS, ELASTIC_STEPS,
+            (files, SYNTH_PATHS, 2, ELASTIC_FAULTS, ELASTIC_STEPS,
              ELASTIC_EVERY, ckpt), backend=backend, device="cuda",
             timeout_s=900)
     bad, records = judge_elastic(ranks)
     for b in bad:
         print(f"bench_parallel: {b}", file=sys.stderr)
     print(json.dumps({"card": card(), "cards": torch.cuda.device_count(),
-                      "backend": backend, "folder": folder,
+                      "backend": backend, "folder": str(SYNTH),
                       "holds": not bad, "elastic": records,
+                      "mesh_setup": mesh_setup_record(ranks),
                       "sharded": ranks[0]["sharded"]}))
     return 1 if bad else 0
+
+
+# The launcher's checks: a sitecustomize put on the launched ranks'
+# PYTHONPATH, which acts at a rank's first import of the search engine (its
+# process group is up by then). With MPGNN_FAIL_ONCE=<marker>, rank 1 exits
+# with code 3, once (the marker file says it has); with
+# MPGNN_HOLD_RANKS=<dir>, every rank writes its pid to <dir>/rank<r>.pid
+# and sleeps, as a long search would run on. Then it hands over to the
+# sitecustomize it shadows, if the interpreter has one.
+RANK_SITE = """\
+import importlib, os, sys, time
+
+_marker = os.environ.get("MPGNN_FAIL_ONCE")
+_hold = os.environ.get("MPGNN_HOLD_RANKS")
+_rank = os.environ.get("RANK")
+if _rank is not None and (_hold or (_marker and _rank == "1"
+                                    and not os.path.exists(_marker))):
+    class _AtEngine:
+        def find_spec(self, name, path=None, target=None):
+            if name == "mpgnn_tpu_torch.search.engine":
+                if _hold:
+                    with open(os.path.join(_hold, f"rank{_rank}.pid"),
+                              "w") as f:
+                        f.write(str(os.getpid()))
+                    time.sleep(3600)
+                else:
+                    open(_marker, "w").close()
+                    os._exit(3)
+            return None
+
+    sys.meta_path.insert(0, _AtEngine())
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_path = sys.path[:]
+sys.path[:] = [p for p in _path if os.path.abspath(p or os.curdir) != _here]
+_me = sys.modules.pop("sitecustomize", None)
+try:
+    importlib.import_module("sitecustomize")
+except ImportError:
+    pass
+finally:
+    sys.path[:] = _path
+    sys.modules["sitecustomize"] = _me
+"""
+
+
+def rank_site_env(site_dir: str, **modes: str) -> dict:
+    """Write ``RANK_SITE`` into ``site_dir`` and return the environment
+    that puts it first on a child's PYTHONPATH with ``modes``
+    (``MPGNN_FAIL_ONCE=...``, ``MPGNN_HOLD_RANKS=...``)."""
+    with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+        f.write(RANK_SITE)
+    return dict(PYTHONPATH=os.pathsep.join(
+        [site_dir] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        **modes)
+
+
+def run_session(cmd: List[str], env: dict, timeout: float,
+                cwd=ROOT) -> tuple:
+    """(exit code, stdout, stderr) of ``cmd`` run from ``cwd`` in a session
+    of its own, whose every process (a launcher's ranks too) is killed if
+    it outlives ``timeout`` seconds (then RuntimeError)."""
+    p = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise RuntimeError(f"{cmd} outlived {timeout} s:\n{err[-3000:]}")
+    return p.returncode, out, err
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--elastic", metavar="FOLDER", default=None,
+    ap.add_argument("--elastic", action="store_true",
                     help="instead of the halo runs: train_elastic on 4 "
-                         "ranks over FOLDER's graph (data/"
-                         "synthetic_multiclass), 4 -> 2 and 4 -> 2 -> 1")
+                         "ranks over data/synthetic_multiclass, 4 -> 2 "
+                         "and 4 -> 2 -> 1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_parallel: no CUDA device", file=sys.stderr)
         return 2
     if args.elastic:
-        return elastic_main(pick_backend("cuda", 4), args.elastic)
+        return elastic_main(pick_backend("cuda", 4))
     backend = pick_backend("cuda", args.ranks)
     try:
         ranks = spawn_ranks(halo_train_rank, args.ranks, (args.epochs, 2),

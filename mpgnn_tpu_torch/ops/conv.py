@@ -16,9 +16,9 @@ the ``'pallas'`` backend is
 Both run one main loop (TMA and ``wgmma``, the reduction split over CTAs by
 ``matmul_splits``) and differ in their last pass: K4 adds the splits, K3's
 epilogue adds them and applies W, root, b and the ReLU. K3 takes any F and
-H, as the JAX kernel does (``dense_conv_plan``: its main loop runs once a
-slice of at most ``MAX_WIDTH`` columns of h, its epilogue stages f in
-chunks); K4 takes ``MAX_WIDTH`` columns a launch.
+H, as the JAX kernel does (its main loop runs once a slice of at most
+``MAX_WIDTH`` columns of h, its epilogue stages f in chunks); K4 takes
+``MAX_WIDTH`` columns a launch.
 
 ``dense_conv`` is a ``torch.autograd.Function`` whose backward is
 ``_conv_vjp_bwd`` of the JAX package: the small GEMMs stay ``torch.matmul``
@@ -153,50 +153,44 @@ def matmul_splits(n: int, sms: int) -> int:
     return max(1, min(-(-n // 64), sms // -(-n // 128)))
 
 
-@dataclasses.dataclass(frozen=True)
-class DenseConvPlan:
-    """What K3 runs for h [n, f] on a card of ``sms`` SMs, as
-    ``mpgnn_dense_conv`` runs it: the main loop once for each ``(first
-    column, width)`` of ``slices`` (at most ``MAX_WIDTH`` columns each,
-    every one streaming A), the reduction cut into ``splits``, then the
-    epilogue over every column (its shared memory fixed, whatever f and
-    h); and the [FP, N8] bf16 scratch ``xt_shape`` of the transposed slice
-    that the wrapper allocates, reused by every slice."""
-
-    splits: int
-    slices: Tuple[Tuple[int, int], ...]
-    xt_shape: Tuple[int, int]
-
-
-def dense_conv_plan(n: int, f: int, h: int, sms: int) -> DenseConvPlan:
-    """K3's launch plan for any n, f, h > 0 (``DenseConvPlan``)."""
-    if min(n, f, h) <= 0:
-        raise ValueError(f"K3 takes n, F, H > 0, got {n}, {f}, {h}")
-    return DenseConvPlan(
-        splits=matmul_splits(n, sms),
-        slices=tuple((c, min(MAX_WIDTH, f - c))
-                     for c in range(0, f, MAX_WIDTH)),
-        xt_shape=(_k4_width(min(f, MAX_WIDTH)), -(-n // 8) * 8))
-
-
-def _sms(x: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(x.device).multi_processor_count
-
-
 def _main_loop_scratch(x: torch.Tensor):
     """(splits, xt): the split count on x's card and the [FP, N8] bf16
     scratch of the transposed, rounded x (at most ``MAX_WIDTH`` columns)
     that the main loop reads."""
     n, f = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     xt = torch.empty((_k4_width(f), -(-n // 8) * 8), dtype=torch.bfloat16,
                      device=x.device)
-    return matmul_splits(n, _sms(x)), xt
+    return matmul_splits(n, sms), xt
 
 
 def _split_scratch(out: torch.Tensor, splits: int) -> torch.Tensor:
     """The [splits, n, F] scratch of the split sums; ``out`` itself for one
     split (the main loop then writes it directly)."""
     return out if splits == 1 else out.new_empty((splits,) + out.shape)
+
+
+def _conv_shapes(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                 root: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int]:
+    """(n, F, H): the card path's check of K3's operands, which refuses bad
+    types, layouts and shapes and takes any F and H."""
+    bf16h = h.dtype == torch.bfloat16
+    _check(a, w, root, b, *([] if bf16h else [h]))
+    if not h.is_contiguous():
+        raise ValueError("kernel takes contiguous tensors")
+    if h.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
+                         f"be 2-D")
+    n, f = h.shape
+    hdim = w.shape[1]
+    if a.shape[0] != n or w.shape != (f, hdim) or root.shape != (f, hdim) \
+            or b.shape != (hdim,):
+        raise ValueError(f"shapes a {tuple(a.shape)}, h {tuple(h.shape)}, "
+                         f"w {tuple(w.shape)}, root {tuple(root.shape)}, "
+                         f"b {tuple(b.shape)} do not fit")
+    if min(n, f, hdim) <= 0:
+        raise ValueError(f"K3 takes n, F, H > 0, got {n}, {f}, {hdim}")
+    return n, f, hdim
 
 
 def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
@@ -212,31 +206,18 @@ def dense_conv_fwd(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     bf16h = h.dtype == torch.bfloat16
-    _check(a, w, root, b, *([] if bf16h else [h]))
-    if not h.is_contiguous():
-        raise ValueError("kernel takes contiguous tensors")
-    if h.dim() != 2 or w.dim() != 2:
-        raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
-                         f"be 2-D")
-    n, f = h.shape
-    hdim = w.shape[1]
-    if a.shape[0] != n or w.shape != (f, hdim) or root.shape != (f, hdim) \
-            or b.shape != (hdim,):
-        raise ValueError(f"shapes a {tuple(a.shape)}, h {tuple(h.shape)}, "
-                         f"w {tuple(w.shape)}, root {tuple(root.shape)}, "
-                         f"b {tuple(b.shape)} do not fit")
+    n, f, hdim = _conv_shapes(a, h, w, root, b)
     out = torch.empty((n, hdim), dtype=torch.float32, device=h.device)
     agg = torch.empty((n, f), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
-        plan = dense_conv_plan(n, f, hdim, _sms(h))
-        xt = torch.empty(plan.xt_shape, dtype=torch.bfloat16,
-                         device=h.device)
-        part = _split_scratch(agg, plan.splits)
+        # one scratch of the widest slice, reused by every slice
+        splits, xt = _main_loop_scratch(h[:, :MAX_WIDTH])
+        part = _split_scratch(agg, splits)
         _kernels.launch(
             "dense_conv_bf16h" if bf16h else "dense_conv", a.data_ptr(),
             a.stride(0), xt.data_ptr(), h.data_ptr(), w.data_ptr(),
             root.data_ptr(), b.data_ptr(), out.data_ptr(), agg.data_ptr(),
-            part.data_ptr(), n, f, hdim, plan.splits, _stream(h),
+            part.data_ptr(), n, f, hdim, splits, _stream(h),
         )
     global CONV_LAUNCHES, CONV_BF16H_LAUNCHES
     if bf16h:

@@ -30,7 +30,8 @@ launcher: it starts the spec's product of ranks on this host, each a child
 ``python -m mpgnn_tpu_torch.run`` with the same flags and torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
 ``MASTER_ADDR``, a free ``MASTER_PORT``), kills them all at once when one
-fails, and with ``--retries R`` starts them all again, up to R times
+fails or the launcher is stopped (SIGTERM, SIGHUP, Ctrl-C), and with
+``--retries R`` starts them all again, up to R times
 (``--frontier`` and ``--pickle_filename`` make each attempt resume). Under
 torchrun (``torchrun --nproc_per_node 2 -m mpgnn_tpu_torch.run --mesh 2
 ...``) the ranks are torchrun's and ``--retries`` is refused: torchrun's
@@ -67,12 +68,15 @@ test_f1}}``, ``wall_s``; logs go to stderr.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
+import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -104,19 +108,45 @@ def _supervise(args, argv, ranks: Optional[int] = None) -> int:
         child_args.append(a)
     cmd = [sys.executable, "-m", "mpgnn_tpu_torch.run"] + child_args
     rc = 1
-    for attempt in range(1, args.retries + 2):
-        rc = subprocess.call(cmd) if ranks is None else _run_ranks(cmd, ranks)
-        if rc == 0:
-            return 0
-        print(
-            f"[supervisor] attempt {attempt} exited rc={rc}"
-            + ("; retrying (checkpoints resume the search)"
-               if attempt <= args.retries else "; giving up"),
-            file=sys.stderr, flush=True,
-        )
-        if attempt <= args.retries:
-            time.sleep(RETRY_PAUSE_S)
+    with _exit_on_hangup():
+        for attempt in range(1, args.retries + 2):
+            rc = (subprocess.call(cmd) if ranks is None
+                  else _run_ranks(cmd, ranks))
+            if rc == 0:
+                return 0
+            print(
+                f"[supervisor] attempt {attempt} exited rc={rc}"
+                + ("; retrying (checkpoints resume the search)"
+                   if attempt <= args.retries else "; giving up"),
+                file=sys.stderr, flush=True,
+            )
+            if attempt <= args.retries:
+                time.sleep(RETRY_PAUSE_S)
     return rc
+
+
+@contextlib.contextmanager
+def _exit_on_hangup():
+    """Within it, SIGTERM and SIGHUP (a ``timeout``, a scheduler's or a
+    closed terminal's stop) raise SystemExit(128 + signal), so that the
+    children are killed on the way out (``_run_ranks``' ``finally``,
+    ``subprocess.call``'s kill on an exception) instead of outliving their
+    supervisor. Only the main thread takes signals: elsewhere it does
+    nothing."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def _exit(signum, frame):
+        raise SystemExit(128 + signum)
+
+    old = {sig: signal.signal(sig, _exit)
+           for sig in (signal.SIGTERM, signal.SIGHUP)}
+    try:
+        yield
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
 
 
 def _free_port() -> int:

@@ -164,23 +164,24 @@ def test_wide_dense_conv_matches_jax_kernel(f, hdim):
                                    rtol=0, atol=GRAD_ATOL)
 
 
-@pytest.mark.parametrize("n,f,hdim,slices,xt", [
-    (5000, 300, 64, ((0, 256), (256, 44)), (256, 5000)),
-    (5000, 256, 256, ((0, 256),), (256, 5000)),
-    (257, 512, 64, ((0, 256), (256, 256)), (256, 264)),
-    (257, 64, 63, ((0, 64),), (64, 264)),
-    (5000, 2, 64, ((0, 2),), (64, 5000)),
+@pytest.mark.parametrize("n,f,hdim", [
+    (5000, 300, 64), (5000, 256, 256), (257, 512, 64), (257, 64, 63),
+    (5000, 2, 64),
 ])
-def test_k3_launch_plan_takes_any_width(n, f, hdim, slices, xt):
-    """The card path's plan (``dense_conv_plan``, what ``dense_conv_fwd``
-    allocates and ``mpgnn_dense_conv`` runs) at every F and H: one main
-    loop a slice of at most 256 columns of h, the scratch of the widest
-    slice, the reduction split as K4's."""
-    plan = tconv.dense_conv_plan(n, f, hdim, 132)
-    assert plan.slices == slices and plan.xt_shape == xt
-    assert plan.splits == tconv.matmul_splits(n, 132)
-    with pytest.raises(ValueError):
-        tconv.dense_conv_plan(n, 0, hdim, 132)
+def test_k3_launch_plan_takes_any_width(n, f, hdim):
+    """The card path's operand check (``_conv_shapes``, what
+    ``dense_conv_fwd`` runs before it launches K3) takes every F and H, for
+    a float32 and a bf16 h, and still refuses operands that do not fit."""
+    src = np.arange(n) % n
+    op = tconv.build_dense_conv_operand(src, (src + 1) % n, n, "cpu")
+    w = torch.zeros(f, hdim)
+    b = torch.zeros(hdim)
+    for h in (torch.zeros(n, f), torch.zeros(n, f, dtype=torch.bfloat16)):
+        assert tconv._conv_shapes(op.a, h, w, w.clone(), b) == (n, f, hdim)
+        with pytest.raises(ValueError):
+            tconv._conv_shapes(op.a, h, w, torch.zeros(f + 1, hdim), b)
+        with pytest.raises(ValueError):
+            tconv._conv_shapes(op.a, h[:, :0], w[:0], w[:0], b)
 
 
 def test_dense_conv_skips_dh_when_h_needs_no_gradient():

@@ -32,6 +32,7 @@ from mpgnn_tpu.graph.io import split_nodes as j_split
 from mpgnn_tpu.search import engine as jeng
 from mpgnn_tpu.search import scoring as jscoring
 from mpgnn_tpu_torch.config import MPGNNConfig, ScorerConfig, SearchConfig
+from mpgnn_tpu_torch.benchmarks import bench_parallel
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.graph.io import split_nodes
 from mpgnn_tpu_torch.search import engine as teng
@@ -319,25 +320,6 @@ def test_cli_launch_needs_every_mesh_size(capsys, monkeypatch):
 
 # --mesh from one command: the CLI as its own launcher and supervisor
 MESH_TIMEOUT_S = 300
-# a test-only sitecustomize for the launched ranks: rank 1 exits at its
-# first import of the search engine (its process group is up by then),
-# once: the marker file says it has
-_FAIL_ONCE = """\
-import os, sys
-
-_marker = os.environ.get("MPGNN_TEST_FAIL_ONCE")
-if _marker and os.environ.get("RANK") == "1" and not os.path.exists(_marker):
-    class _FailOnce:
-        def find_spec(self, name, path=None, target=None):
-            if name == "mpgnn_tpu_torch.search.engine":
-                open(_marker, "w").close()
-                os._exit(3)
-            return None
-
-    sys.meta_path.insert(0, _FailOnce())
-"""
-
-
 @pytest.fixture(scope="module")
 def dataset500(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("ds500"))
@@ -345,28 +327,30 @@ def dataset500(tmp_path_factory):
     return out
 
 
+def _cli_line(dataset, extra):
+    return [sys.executable, "-m", "mpgnn_tpu_torch.run", "--device", "cpu",
+            "--hidden_dim", "8", "--dataset", "synthetic", "--folder",
+            dataset, "--node_file", "node.dat", "--link_file", "link.dat",
+            "--label_file", "label.dat", "--epochs", "20", "--max_hops", "1",
+            "--no_warm", *extra]
+
+
+def _cli_env(env_extra=None):
+    """The children's environment: no torchrun variables, one intra-op
+    thread a process."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env.update(OMP_NUM_THREADS="1", **(env_extra or {}))
+    return env
+
+
 def _cli_session(dataset, extra, env_extra=None):
     """The CLI in a session of its own (its ranks too), killed whole if it
-    outlives MESH_TIMEOUT_S; one intra-op thread a process."""
-    import signal
-
-    cmd = [sys.executable, "-m", "mpgnn_tpu_torch.run", "--device", "cpu",
-           "--hidden_dim", "8", "--dataset", "synthetic", "--folder",
-           dataset, "--node_file", "node.dat", "--link_file", "link.dat",
-           "--label_file", "label.dat", "--epochs", "20", "--max_hops", "1",
-           "--no_warm", *extra]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("PYTHONPATH", "WORLD_SIZE")}
-    env.update(OMP_NUM_THREADS="1", **(env_extra or {}))
-    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         text=True, cwd=REPO, env=env, start_new_session=True)
-    try:
-        out, err = p.communicate(timeout=MESH_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        out, err = p.communicate()
-        pytest.fail(f"{extra} outlived {MESH_TIMEOUT_S} s:\n{err[-3000:]}")
-    assert p.returncode == 0, err[-3000:]
+    outlives MESH_TIMEOUT_S (``bench_parallel.run_session``)."""
+    rc, out, err = bench_parallel.run_session(
+        _cli_line(dataset, extra), _cli_env(env_extra), MESH_TIMEOUT_S,
+        cwd=REPO)
+    assert rc == 0, err[-3000:]
     return json.loads(out.strip().splitlines()[-1]), err
 
 
@@ -388,16 +372,64 @@ def test_cli_mesh_retries_a_failed_rank(dataset500, single_run, tmp_path):
     """``--mesh 2 --retries 1`` with rank 1 failing on its first attempt:
     the launcher kills rank 0 at once, logs the attempt, starts both ranks
     again and ends with rc 0 and the unfailed run's summary."""
-    site = tmp_path / "site"
-    site.mkdir()
-    (site / "sitecustomize.py").write_text(_FAIL_ONCE)
     marker = tmp_path / "failed_once"
-    summary, err = _cli_session(
-        dataset500, ["--mesh", "2", "--retries", "1"],
-        dict(PYTHONPATH=str(site), MPGNN_TEST_FAIL_ONCE=str(marker)))
+    env = bench_parallel.rank_site_env(str(tmp_path),
+                                       MPGNN_FAIL_ONCE=str(marker))
+    summary, err = _cli_session(dataset500, ["--mesh", "2", "--retries", "1"],
+                                env)
     assert marker.exists()
     assert "[supervisor] attempt 1 exited rc=3; retrying" in err
     assert summary["classes"] == single_run["classes"]
+
+
+@pytest.mark.parametrize("sig", ["SIGTERM", "SIGHUP"])
+def test_cli_mesh_launcher_takes_its_ranks_down(dataset500, tmp_path, sig):
+    """A launcher stopped by SIGTERM or SIGHUP (a ``timeout``, a scheduler)
+    kills its ranks before it exits, and does not retry: no rank outlives
+    it."""
+    import signal
+    import time
+
+    pids = tmp_path / "pids"
+    pids.mkdir()
+    env = _cli_env(bench_parallel.rank_site_env(str(tmp_path),
+                                                MPGNN_HOLD_RANKS=str(pids)))
+    log = tmp_path / "stderr"
+    with open(log, "w") as err:
+        p = subprocess.Popen(
+            _cli_line(dataset500, ["--mesh", "2", "--retries", "1"]),
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=err,
+            start_new_session=True)
+    ranks = []
+    try:
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while len(ranks) < 2:
+            assert p.poll() is None, log.read_text()[-3000:]
+            assert time.monotonic() < deadline, "the ranks did not start"
+            time.sleep(0.1)
+            ranks = [int(t) for t in (f.read_text() for f in pids.iterdir())
+                     if t]
+        p.send_signal(getattr(signal, sig))
+        rc = p.wait(timeout=60)
+        assert rc == 128 + getattr(signal, sig), log.read_text()[-3000:]
+        alive = []
+        for pid in ranks:
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        assert not alive, f"ranks {alive} outlived their launcher"
+        assert "[supervisor]" not in log.read_text()
+    finally:
+        for pid in ranks:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
 
 
 def _stub_eval(graph, paths, split, num_classes, cfg=None, seed=0,
