@@ -2593,13 +2593,15 @@ def ooc_profile(torch, pg, planted, split, epochs=5) -> None:
 
 def ooc_trace(tmp) -> dict:
     """9 (c): the search CLI with ``--trace_dir`` in a child process: one
-    trace a class, K1's kernel named in them."""
+    trace a class (each with its spans file beside it), K1's kernel named
+    in them."""
     trace_dir = os.path.join(tmp, "trace")
     run = cli_child(["--dataset", "synthetic", "--folder", SYNTH,
                      "--node_file", "node.dat", "--link_file", "link.dat",
                      "--label_file", "label.dat", *OOC_CLI, "--trace_dir",
                      trace_dir])
-    names = sorted(os.listdir(trace_dir))
+    names = sorted(n for n in os.listdir(trace_dir)
+                   if n.startswith("trace-"))
     k1 = 0
     for name in names:
         with open(os.path.join(trace_dir, name)) as f:

@@ -66,6 +66,7 @@ from mpgnn_tpu_torch.parallel.mesh import make_mesh, pick_backend, \
     spawn_ranks
 from mpgnn_tpu_torch.parallel.shard import build_sharded_train_step
 from mpgnn_tpu_torch.train import loops
+from mpgnn_tpu_torch.utils.prof import reset_spans, spans
 
 HIDDEN = 64
 METAPATHS = [[0, 1]]
@@ -175,8 +176,8 @@ def halo_run(graph, split, mesh, cfg, zero_halo_on=None) -> dict:
     """One node-sharded run on this rank, with its counts and its final
     parameters on the host. One exchange of the first hop, forward and
     backward, runs before the counts are set to 0 (an NCCL communicator is
-    set up on its first collective), and the exchanges are timed with
-    ``halo.EXCHANGE_SYNC`` on."""
+    set up on its first collective), and the exchanges are timed (the
+    span ``halo.exchange``) with ``halo.EXCHANGE_SYNC`` on."""
     hop_ops = loops.build_hop_arrays(
         graph, METAPATHS, backend="halo", mesh=mesh,
         halo_exchange=cfg.halo_exchange, halo_local=cfg.halo_local)
@@ -185,7 +186,7 @@ def halo_run(graph, split, mesh, cfg, zero_halo_on=None) -> dict:
         .backward()
     torch.cuda.synchronize()
     csr.SCATTER_LAUNCHES = csr.SCATTER_BF16_LAUNCHES = 0
-    halo.EXCHANGE_CALLS, halo.EXCHANGE_SECONDS = 0, 0.0
+    reset_spans()
     halo.EXCHANGE_SYNC = True
     t0 = time.perf_counter()
     try:
@@ -194,6 +195,7 @@ def halo_run(graph, split, mesh, cfg, zero_halo_on=None) -> dict:
     finally:
         halo.EXCHANGE_SYNC = False
     wall = time.perf_counter() - t0
+    ex = spans().get("halo.exchange", {"calls": 0, "host_s": 0.0})
     shards = [op[3] for ops in hop_ops for op in ops]
     return dict(
         rank=dist.get_rank(), exchange=cfg.halo_exchange,
@@ -205,9 +207,9 @@ def halo_run(graph, split, mesh, cfg, zero_halo_on=None) -> dict:
         k1_launches=csr.SCATTER_LAUNCHES,
         k1_bf16_launches=csr.SCATTER_BF16_LAUNCHES,
         k1_expected=expected_k1(hop_ops, cfg.epochs),
-        exchanges=halo.EXCHANGE_CALLS,
-        exchange_ms=1e3 * halo.EXCHANGE_SECONDS / max(halo.EXCHANGE_CALLS, 1),
-        exchange_ms_per_epoch=1e3 * halo.EXCHANGE_SECONDS / cfg.epochs,
+        exchanges=ex["calls"],
+        exchange_ms=1e3 * ex["host_s"] / max(ex["calls"], 1),
+        exchange_ms_per_epoch=1e3 * ex["host_s"] / cfg.epochs,
         halo_rows=[s.halo for s in shards],
         rows_sent=[int(s.send_idx.numel()) for s in shards],
         params=host_params(res.params))

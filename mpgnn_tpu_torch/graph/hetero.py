@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from mpgnn_tpu_torch.native import build_ell, degrees, sort_by_relation
+from mpgnn_tpu_torch.utils.prof import span
 
 
 def _as_int32(a) -> np.ndarray:
@@ -66,7 +67,8 @@ class HeteroGraph:
 
     ``x`` is the [N, F] float32 node feature matrix; ``edge_src``,
     ``edge_dst`` and ``edge_type`` are [E] arrays in file order. The stable
-    sort keeps file order inside each relation's segment.
+    sort keeps file order inside each relation's segment; it is timed as
+    the span ``graph.hetero``.
     """
 
     def __init__(
@@ -100,10 +102,11 @@ class HeteroGraph:
         self.edge_dst = edge_dst
         self.edge_type = edge_type
 
-        order, rel_ptr = sort_by_relation(edge_type, self.num_relations)
-        self.sorted_src = edge_src[order]
-        self.sorted_dst = edge_dst[order]
-        self.sorted_type = edge_type[order]
+        with span("graph.hetero"):
+            order, rel_ptr = sort_by_relation(edge_type, self.num_relations)
+            self.sorted_src = edge_src[order]
+            self.sorted_dst = edge_dst[order]
+            self.sorted_type = edge_type[order]
         self.rel_ptr = rel_ptr
         self.rel_counts = np.diff(rel_ptr).astype(np.int64)
         self._cache: Dict[tuple, object] = {}

@@ -52,6 +52,7 @@ from mpgnn_tpu_torch.ops.spmm import (
     rel_mean_aggregate,
 )
 from mpgnn_tpu_torch.parallel.halo import halo_sharded_mean_aggregate
+from mpgnn_tpu_torch.utils.prof import span
 
 
 def hop_aggregate(h: torch.Tensor, op: Tuple, num_nodes: int) -> torch.Tensor:
@@ -135,26 +136,29 @@ class MPNetm(nn.Module):
     """Parameters: ``convs[m][j]`` (a RelConv of ``models.relconv``: plain,
     or the basis / block variant when ``num_bases`` / ``num_blocks`` is
     set, bases winning), ``fc1`` and ``fc2`` (nn.Linear). Built empty;
-    ``init_mpgnn`` or ``weights.params_from_jax`` fills them."""
+    ``init_mpgnn`` or ``weights.params_from_jax`` fills them. The build is
+    timed as the span ``model.init``."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_classes: int,
                  metapath_lengths: Sequence[int], device=None,
                  num_bases: Optional[int] = None,
                  num_blocks: Optional[int] = None):
         super().__init__()
-        self.convs = nn.ModuleList(
-            nn.ModuleList(
-                make_relconv(input_dim if j == 0 else hidden_dim, hidden_dim,
-                             num_bases, num_blocks, device=device)
-                for j in range(n)
+        with span("model.init"):
+            self.convs = nn.ModuleList(
+                nn.ModuleList(
+                    make_relconv(input_dim if j == 0 else hidden_dim,
+                                 hidden_dim, num_bases, num_blocks,
+                                 device=device)
+                    for j in range(n)
+                )
+                for n in metapath_lengths
             )
-            for n in metapath_lengths
-        )
-        self.fc1 = nn.utils.skip_init(
-            nn.Linear, hidden_dim * len(metapath_lengths), hidden_dim,
-            device=device)
-        self.fc2 = nn.utils.skip_init(nn.Linear, hidden_dim, num_classes,
-                                      device=device)
+            self.fc1 = nn.utils.skip_init(
+                nn.Linear, hidden_dim * len(metapath_lengths), hidden_dim,
+                device=device)
+            self.fc2 = nn.utils.skip_init(nn.Linear, hidden_dim,
+                                          num_classes, device=device)
 
     def forward(self, x: torch.Tensor, hop_ops, *,
                 dropout_rate: float = 0.6,
@@ -211,10 +215,13 @@ def precompute_first_hop(x: torch.Tensor, hop_ops,
     ``compute_dtype``, default x's), which are constant for a whole
     training run (dropout comes after each conv), so it is computed once
     outside the epoch loop. None for a fused hop, whose kernel owns its
-    aggregation: it runs on x every epoch."""
-    xd = x.to(compute_dtype or x.dtype)
-    return [None if ops[0][0] == "fused"
-            else hop_aggregate(xd, ops[0], x.shape[0]) for ops in hop_ops]
+    aggregation: it runs on x every epoch. Timed as the span
+    ``model.first_hop``."""
+    with span("model.first_hop"):
+        xd = x.to(compute_dtype or x.dtype)
+        return [None if ops[0][0] == "fused"
+                else hop_aggregate(xd, ops[0], x.shape[0])
+                for ops in hop_ops]
 
 
 @torch.no_grad()

@@ -22,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from mpgnn_tpu_torch.utils.prof import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
@@ -118,20 +120,26 @@ def build_log(name: str) -> str:
 
 def lib(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>.cu``, building it at first
-    use, with the argument types of every entry point it holds."""
+    use, with the argument types of every entry point it holds. A first
+    load (with its build, if any) is timed as the span ``kernels.load``."""
     with _LOCK:
         if source not in _LIBS:
-            path = build_all()[source]
-            cdll = ctypes.CDLL(str(path))
-            for src, fn_name, argtypes in _SIGNATURES.values():
-                if src == source:
-                    fn = getattr(cdll, fn_name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-            cdll.mpgnn_error_string.argtypes = [ctypes.c_int]
-            cdll.mpgnn_error_string.restype = ctypes.c_char_p
-            _LIBS[source] = cdll
+            with span("kernels.load"):
+                _LIBS[source] = _load(source)
         return _LIBS[source]
+
+
+def _load(source: str) -> ctypes.CDLL:
+    path = build_all()[source]
+    cdll = ctypes.CDLL(str(path))
+    for src, fn_name, argtypes in _SIGNATURES.values():
+        if src == source:
+            fn = getattr(cdll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    cdll.mpgnn_error_string.argtypes = [ctypes.c_int]
+    cdll.mpgnn_error_string.restype = ctypes.c_char_p
+    return cdll
 
 
 def launch(name: str, *args) -> None:

@@ -45,6 +45,7 @@ import torch
 from mpgnn_tpu_torch.native import degrees, sort_block_col
 from mpgnn_tpu_torch.ops import _kernels
 from mpgnn_tpu_torch.ops.segment import segment_mean
+from mpgnn_tpu_torch.utils.prof import span
 
 # A direction routes to the dedup blocking when its edges per distinct
 # (row block, column) pair reach this ratio. The value was measured on the
@@ -221,7 +222,8 @@ def build_csr_blocking(
     row-block size of ``dedup_ratio`` (default ``DEDUP_BLOCK_ROWS``).
     ``dedup='auto'`` routes a direction to the dedup blocking (K2) when its
     ``dedup_ratio`` at ``bm`` reaches ``DEDUP_MIN_RATIO``; ``'never'`` and
-    ``'always'`` force a side."""
+    ``'always'`` force a side. Each direction's routing is timed as the
+    span ``csr.route``, its build as ``csr.build``."""
     if dedup not in ("auto", "never", "always"):
         raise ValueError(f"dedup must be auto, never or always, not {dedup!r}")
     src = np.asarray(src, dtype=np.int64)
@@ -233,17 +235,19 @@ def build_csr_blocking(
     def want(rows, cols):
         if dedup == "never" or len(src) == 0:
             return False
-        return dedup == "always" or dedup_ratio(rows, cols, bm) >= DEDUP_MIN_RATIO
+        if dedup == "always":
+            return True
+        with span("csr.route"):
+            return dedup_ratio(rows, cols, bm) >= DEDUP_MIN_RATIO
 
     n = num_nodes
-    if want(src, dst):
-        fwd = _build_one_direction_dedup(src, dst, inv, n, n, False)
-    else:
-        fwd = _build_one_direction(src, dst, ew, n, n)
-    if want(dst, src):
-        bwd = _build_one_direction_dedup(dst, src, inv, n, n, True)
-    else:
-        bwd = _build_one_direction(dst, src, ew, n, n)
+    fwd_dedup, bwd_dedup = want(src, dst), want(dst, src)
+    with span("csr.build"):
+        fwd = (_build_one_direction_dedup(src, dst, inv, n, n, False)
+               if fwd_dedup else _build_one_direction(src, dst, ew, n, n))
+    with span("csr.build"):
+        bwd = (_build_one_direction_dedup(dst, src, inv, n, n, True)
+               if bwd_dedup else _build_one_direction(dst, src, ew, n, n))
     return fwd, bwd
 
 

@@ -33,7 +33,6 @@ wire rows equal its useful rows.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,18 +46,17 @@ from mpgnn_tpu_torch.parallel.mesh import (
     start_all_to_all,
     start_ring,
 )
+from mpgnn_tpu_torch.utils.prof import start_span, stop_span
 
 EXCHANGES = ("a2a", "ppermute")
 LOCALS = ("segment", "csr")
 
-# exchanges started (forward and backward) and the host seconds from each
-# start to its received rows on the device; chip_smoke.py reads them. An
-# NCCL exchange returns to the host before its rows land: with
-# EXCHANGE_SYNC set, each wait synchronizes the device before the clock
-# stops, so that the seconds cover the exchange (and the local K1 launched
-# while it was in flight) on either backend
-EXCHANGE_CALLS = 0
-EXCHANGE_SECONDS = 0.0
+# Each exchange (forward and backward) is timed as the span
+# ``halo.exchange``, from its start to its received rows. An NCCL exchange
+# returns to the host before its rows land: with EXCHANGE_SYNC set, each
+# wait synchronizes the device before the span closes, so that its host
+# seconds cover the exchange (and the local K1 launched while it was in
+# flight) on either backend
 EXCHANGE_SYNC = False
 
 
@@ -292,20 +290,19 @@ class HaloShard:
 
 
 def _start(shard: HaloShard, group, ranks, rows: torch.Tensor,
-           reverse: bool) -> Tuple[Exchange, float]:
+           reverse: bool) -> Tuple[Exchange, object]:
     """Start the exchange of ``rows``: forward, the send rows; reverse, the
-    halo's cotangent back to the rows' owners."""
-    global EXCHANGE_CALLS
-    EXCHANGE_CALLS += 1
-    t0 = time.perf_counter()
+    halo's cotangent back to the rows' owners. Returns the exchange and its
+    open span, which ``_wait`` closes."""
+    sp = start_span("halo.exchange")
     width = rows.shape[1]
     if not shard.moves:
-        return Exchange([], [rows.new_zeros((0, width))], rows.device), t0
+        return Exchange([], [rows.new_zeros((0, width))], rows.device), sp
     send_splits, recv_splits = shard.send_splits, shard.recv_splits
     if reverse:
         send_splits, recv_splits = recv_splits, send_splits
     if shard.exchange == "a2a":
-        return start_all_to_all(rows, send_splits, recv_splits, group), t0
+        return start_all_to_all(rows, send_splits, recv_splits, group), sp
     P, p = shard.num_shards, shard.rank
     chunks, off = [], 0
     for r, n in enumerate(send_splits, start=1):
@@ -315,16 +312,15 @@ def _start(shard: HaloShard, group, ranks, rows: torch.Tensor,
         chunks.append((rows[off:off + n], to, frm, recv_splits[r - 1]))
         off += n
     return start_ring(chunks, width, rows.dtype, ranks, group,
-                      rows.device), t0
+                      rows.device), sp
 
 
-def _wait(started: Tuple[Exchange, float]) -> torch.Tensor:
-    global EXCHANGE_SECONDS
-    ex, t0 = started
+def _wait(started: Tuple[Exchange, object]) -> torch.Tensor:
+    ex, sp = started
     out = ex.wait()
     if EXCHANGE_SYNC and out.is_cuda:
         torch.cuda.synchronize(out.device)
-    EXCHANGE_SECONDS += time.perf_counter() - t0
+    stop_span(sp)
     return out
 
 

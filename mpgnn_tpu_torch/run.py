@@ -55,7 +55,15 @@ Differences from the JAX CLI:
   length group's batched evaluation once, where the JAX engine warms;
 * ``--trace_dir DIR`` writes one ``torch.profiler`` Chrome trace JSON a
   class into DIR (``utils.prof.device_trace``), where the JAX CLI writes a
-  ``jax.profiler`` trace.
+  ``jax.profiler`` trace. Beside each trace, ``spans-<pid>-<ns>.json``
+  holds the program's spans since the process started, as they stand
+  when the class's trace ends (``utils.prof.spans``: calls, host seconds,
+  traced calls and seconds, device seconds and the enclosing span of
+  each), such as the graph load's ``graph.hetero``, the sweep's
+  ``score.operands``, ``score.upload``, ``score.epochs`` and
+  ``score.gather``, and the MPNetm runs' ``train.build_hop_arrays`` and
+  ``train_step.*``; each span timed during the trace is a
+  ``user_annotation`` range of its name in it.
 
 ``--dataset DBLP|IMDB|ACM`` reads the pre-split ``labels_{train,val,test}
 .dat`` of ``--folder`` (``graph.io.load_acm_style``) and trains on that

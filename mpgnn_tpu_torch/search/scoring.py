@@ -68,6 +68,7 @@ from mpgnn_tpu_torch.parallel.context import (
     sweep_devices,
     sweep_slice,
 )
+from mpgnn_tpu_torch.utils.prof import span
 
 log = logging.getLogger("mpgnn_tpu_torch.scoring")
 
@@ -234,10 +235,11 @@ def dest_min_labels(
 
 def _flat_ids(a: np.ndarray, width: int, device) -> torch.Tensor:
     """[R, ...] per-row ids -> int64 ids into an [R, width] tensor's flat
-    view, on ``device``."""
-    a = torch.as_tensor(a, dtype=torch.long, device=device)
-    off = torch.arange(a.shape[0], device=device) * width
-    return a + off.view(-1, *([1] * (a.dim() - 1)))
+    view, on ``device`` (the span ``score.upload``)."""
+    with span("score.upload"):
+        a = torch.as_tensor(a, dtype=torch.long, device=device)
+        off = torch.arange(a.shape[0], device=device) * width
+        return a + off.view(-1, *([1] * (a.dim() - 1)))
 
 
 def _segment_has(seg: torch.Tensor, em: torch.Tensor, size: int):
@@ -249,8 +251,10 @@ def _segment_has(seg: torch.Tensor, em: torch.Tensor, size: int):
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                           device=device)
+    """``a`` on ``device`` (the span ``score.upload``)."""
+    with span("score.upload"):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
 
 
 # ======================================================== flat (hop-0) sweep
@@ -264,16 +268,18 @@ class FlatScore:
 def _flat_sweep(w, forward, ct, has, y, lmask, denom, const,
                 *, epochs: int, lr: float):
     """Train R flat scorers for ``epochs`` steps from ``w``; return (w,
-    loss [R] of the last epoch's forward, before its step)."""
-    opt = Adam([w], lr)
-    loss = None
-    for e in range(epochs):
-        pred, win = forward(w)
-        if e == epochs - 1:
-            loss = flat_loss(pred, y, lmask, denom, const)
-        g = flat_grad(w, pred, win, has, y, ct)
-        w = opt.update([w], [g])[0].clamp(0.0, 1.0)     # main.py:668
-    return w, loss
+    loss [R] of the last epoch's forward, before its step). Timed as the
+    span ``score.epochs``."""
+    with span("score.epochs"):
+        opt = Adam([w], lr)
+        loss = None
+        for e in range(epochs):
+            pred, win = forward(w)
+            if e == epochs - 1:
+                loss = flat_loss(pred, y, lmask, denom, const)
+            g = flat_grad(w, pred, win, has, y, ct)
+            w = opt.update([w], [g])[0].clamp(0.0, 1.0)     # main.py:668
+        return w, loss
 
 
 def score_relations_flat(
@@ -293,7 +299,10 @@ def score_relations_flat(
     own edges (main.py:728-735); otherwise the fixed labeled-source list
     serves every relation (FB15K mode). ``warmer``
     (``utils.warm.ProgramWarmer``) warms each chunk's sweep form before
-    the chunk loop reaches it."""
+    the chunk loop reaches it. Each chunk's host operands are timed as the
+    span ``score.operands``, its copies to the device as ``score.upload``,
+    its epochs as ``score.epochs`` and its results' return to the host
+    (with the sweep mesh's gather) as ``score.gather``."""
     device = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     node_labels = np.asarray(node_labels, dtype=np.float32).reshape(-1)
@@ -317,23 +326,25 @@ def score_relations_flat(
             "flat sweep chunk %d/%d: %d relations, mode=%s, pad=%d, C=%d",
             ci + 1, len(chunks), R, mode, pad, cpad,
         )
-        if mode == "ell":
-            nbr, mask = _relation_ell_stack(graph, chunk, pad)
-            has_edge_rows = mask.any(axis=-1)              # [R, N]
-        else:
-            srcs, dsts_a, emask, nodes = _relation_segment_stack_compact(
-                graph, chunk, pad, cpad
-            )
-            has_edge_rows = np.stack(
-                [graph.rel_degrees(int(r)) > 0 for r in chunk]
-            )
-        w0 = np.empty((R, N), dtype=np.float32)
-        loss_mask = np.zeros((R, N), dtype=np.float32)
-        for i, r in enumerate(chunk):
-            src_mask = has_edge_rows[i] if fixed_mask is None else fixed_mask
-            loss_mask[i] = src_mask.astype(np.float32)
-            dsts, mins = dest_min_labels(graph, r, src_mask, node_labels)
-            w0[i] = init_weights(rng, N, dsts, mins, cfg.init_noise)
+        with span("score.operands"):
+            if mode == "ell":
+                nbr, mask = _relation_ell_stack(graph, chunk, pad)
+                has_edge_rows = mask.any(axis=-1)              # [R, N]
+            else:
+                srcs, dsts_a, emask, nodes = _relation_segment_stack_compact(
+                    graph, chunk, pad, cpad
+                )
+                has_edge_rows = np.stack(
+                    [graph.rel_degrees(int(r)) > 0 for r in chunk]
+                )
+            w0 = np.empty((R, N), dtype=np.float32)
+            loss_mask = np.zeros((R, N), dtype=np.float32)
+            for i, r in enumerate(chunk):
+                src_mask = (has_edge_rows[i] if fixed_mask is None
+                            else fixed_mask)
+                loss_mask[i] = src_mask.astype(np.float32)
+                dsts, mins = dest_min_labels(graph, r, src_mask, node_labels)
+                w0[i] = init_weights(rng, N, dsts, mins, cfg.init_noise)
         sl = sweep_slice(R)     # this rank's relations of the chunk
         if mode == "ell":
             lmask = _t(loss_mask[sl], device)
@@ -348,41 +359,50 @@ def score_relations_flat(
                 _t(node_labels, device), lmask, denom, None,
                 epochs=cfg.epochs_flat, lr=cfg.lr,
             )
-            w = gather_sweep(w, R).cpu().numpy()
+            with span("score.gather"):
+                w = gather_sweep(w, R).cpu().numpy()
         else:
             # device state in each relation's compact endpoint space; the
             # label-informed init and the masks stay full-space on the host
-            y_rows = np.broadcast_to(node_labels, (R, N))
-            lmask = _t(_gather_compact(loss_mask, nodes, cpad)[sl], device)
-            denom = np.maximum(loss_mask.sum(axis=1), 1.0).astype(np.float32)
-            # sources outside the compact space but in the loss mask (fixed
-            # sources without edges of the relation) add a constant
-            y2 = node_labels.astype(np.float64) ** 2
-            const = np.array([
-                float((y2 * loss_mask[i]).sum()
-                      - (y2[nodes[i]] * loss_mask[i][nodes[i]]).sum())
-                for i in range(R)
-            ], dtype=np.float32)
+            with span("score.operands"):
+                y_rows = np.broadcast_to(node_labels, (R, N))
+                lmask_c = _gather_compact(loss_mask, nodes, cpad)[sl]
+                w0_c = _gather_compact(w0, nodes, cpad)[sl]
+                y_c = _gather_compact(y_rows, nodes, cpad)[sl]
+                denom = np.maximum(loss_mask.sum(axis=1),
+                                   1.0).astype(np.float32)
+                # sources outside the compact space but in the loss mask
+                # (fixed sources without edges of the relation) add a
+                # constant
+                y2 = node_labels.astype(np.float64) ** 2
+                const = np.array([
+                    float((y2 * loss_mask[i]).sum()
+                          - (y2[nodes[i]] * loss_mask[i][nodes[i]]).sum())
+                    for i in range(R)
+                ], dtype=np.float32)
+            lmask = _t(lmask_c, device)
             src_f = _flat_ids(srcs[sl], cpad, device)
             dst_f = _flat_ids(dsts_a[sl], cpad, device)
             em = _t(emask[sl], device)
             has = _segment_has(src_f, em, cpad)
             denom_t = _t(denom[sl], device)
             w_c, loss = _flat_sweep(
-                _t(_gather_compact(w0, nodes, cpad)[sl], device),
+                _t(w0_c, device),
                 lambda w: flat_forward_seg(w, src_f, dst_f, em, has),
                 (1.0 / denom_t)[:, None] * lmask, has,
-                _t(_gather_compact(y_rows, nodes, cpad)[sl], device), lmask,
+                _t(y_c, device), lmask,
                 denom_t, _t(const[sl], device),
                 epochs=cfg.epochs_flat, lr=cfg.lr,
             )
             # back to full space: nodes outside the endpoint space keep
             # their init (zero gradient, zero Adam update, clamp no-op)
-            w_c = gather_sweep(w_c, R).cpu().numpy()
+            with span("score.gather"):
+                w_c = gather_sweep(w_c, R).cpu().numpy()
             w = w0
             for i, nd in enumerate(nodes):
                 w[i][nd] = w_c[i][: len(nd)]
-        loss = gather_sweep(loss, R).cpu().numpy()
+        with span("score.gather"):
+            loss = gather_sweep(loss, R).cpu().numpy()
         for i, r in enumerate(chunk):
             if int(r) not in results:   # chunk padding repeats relations
                 results[int(r)] = FlatScore(int(r), float(loss[i]), w[i])

@@ -38,6 +38,7 @@ from mpgnn_tpu_torch.parallel.halo import (
     shard_graph_features,
 )
 from mpgnn_tpu_torch.train.metrics import macro_f1
+from mpgnn_tpu_torch.utils.prof import span
 
 log = logging.getLogger("mpgnn_tpu_torch.train")
 
@@ -105,14 +106,15 @@ def resolve_backend(
     edges or more, else 'segment'. The JAX package's decision order."""
     if backend != "auto":
         return backend
-    if budget_bytes is None:
-        budget_bytes = auto_dense_budget_bytes()
-    uniq = {int(r) for mp in metapaths for r in mp}
-    dense_bytes = 2 * len(uniq) * graph.num_nodes * graph.num_nodes * 4
-    if dense_bytes <= budget_bytes:
-        return "dense"
-    max_e = max((int(graph.rel_counts[r]) for r in uniq), default=0)
-    return "csr" if max_e >= CSR_EDGE_CUTOVER else "segment"
+    with span("train.resolve_backend"):
+        if budget_bytes is None:
+            budget_bytes = auto_dense_budget_bytes()
+        uniq = {int(r) for mp in metapaths for r in mp}
+        dense_bytes = 2 * len(uniq) * graph.num_nodes * graph.num_nodes * 4
+        if dense_bytes <= budget_bytes:
+            return "dense"
+        max_e = max((int(graph.rel_counts[r]) for r in uniq), default=0)
+        return "csr" if max_e >= CSR_EDGE_CUTOVER else "segment"
 
 
 def _check_backend(backend: str, mesh=None) -> None:
@@ -161,17 +163,15 @@ def build_hop_arrays(
     model the operands serve: under bf16 'dense' keeps A and A^T in bf16,
     cast once (the JAX package casts A to h's dtype in every product)."""
     _check_backend(backend, mesh)
-    if backend == "halo":
-        return [[halo_operand(graph, rel, mesh, mesh_axis, halo_exchange,
-                              halo_local, mesh.device if device is None
-                              else torch.device(device))
+    with span("train.build_hop_arrays"):
+        if backend == "halo":
+            return [[halo_operand(graph, rel, mesh, mesh_axis, halo_exchange,
+                                  halo_local, mesh.device if device is None
+                                  else torch.device(device))
+                     for rel in mp] for mp in metapaths]
+        device = resolve_device(device)
+        return [[relation_operand(graph, rel, backend, device, dtype)
                  for rel in mp] for mp in metapaths]
-    device = resolve_device(device)
-    hop_ops: List[List[tuple]] = []
-    for mp in metapaths:
-        hop_ops.append([relation_operand(graph, rel, backend, device, dtype)
-                        for rel in mp])
-    return hop_ops
 
 
 def halo_operand(graph: HeteroGraph, rel: int, mesh, axis: str,
@@ -253,7 +253,8 @@ def relation_op(graph: HeteroGraph, rel: int, backend: str,
     ``num_rows`` (at least ``graph.num_nodes``; 'segment' and 'csr' only)
     gives the operand that many rows, the extra ones with no edges: the
     fused clustered mode's common row count. ``dedup`` is
-    ``build_csr_blocking``'s."""
+    ``build_csr_blocking``'s. The copies to ``device`` are timed as the
+    span ``operand.upload``."""
     if num_rows is not None and backend not in ("segment", "csr"):
         raise ValueError(f"num_rows is for segment and csr, not {backend!r}")
     n = graph.num_nodes if num_rows is None else num_rows
@@ -262,26 +263,31 @@ def relation_op(graph: HeteroGraph, rel: int, backend: str,
         deg = np.zeros(n, dtype=np.int64)
         deg[: graph.num_nodes] = graph.rel_degrees(rel)
         inv = (1.0 / np.maximum(deg, 1)).astype(np.float32)
-        return ("segment",
-                torch.from_numpy(s.astype(np.int64)).to(device),
-                torch.from_numpy(d.astype(np.int64)).to(device),
-                torch.from_numpy(inv).to(device))
+        host = (s.astype(np.int64), d.astype(np.int64), inv)
+        with span("operand.upload"):
+            return ("segment",) + tuple(torch.from_numpy(a).to(device)
+                                        for a in host)
     if backend == "ell":
         nbr, mask = graph.neighbor_table(rel)
-        return ("ell", torch.from_numpy(nbr.astype(np.int64)).to(device),
-                torch.from_numpy(mask).to(device))
+        nbr = nbr.astype(np.int64)
+        with span("operand.upload"):
+            return ("ell", torch.from_numpy(nbr).to(device),
+                    torch.from_numpy(mask).to(device))
     s, d = graph.rel_edges(rel)
     if backend == "csr":
         fwd, bwd = build_csr_blocking(s, d, n, dedup=dedup)
-        return ("csr", fwd.to(device), bwd.to(device))
+        with span("operand.upload"):
+            return ("csr", fwd.to(device), bwd.to(device))
     if backend == "ell2":
-        return ("ell2",) + tuple(
-            build_ell2_operand(s, d, graph.num_nodes).to(device))
+        op = build_ell2_operand(s, d, graph.num_nodes)
+        with span("operand.upload"):
+            return ("ell2",) + tuple(op.to(device))
     if backend == "dense":
         return ("dense",) + dense_adjacency(s, d, graph.num_nodes, device)
     if backend == "onehot":
         fwd, bwd = build_spmm_blocking(s, d, graph.num_nodes)
-        return ("onehot", fwd.to(device), bwd.to(device))
+        with span("operand.upload"):
+            return ("onehot", fwd.to(device), bwd.to(device))
     return ("fused", build_dense_conv_operand(s, d, graph.num_nodes, device))
 
 
@@ -298,9 +304,11 @@ def make_optimizer(model: torch.nn.Module,
                    cfg: MPGNNConfig) -> torch.optim.Optimizer:
     """Adam(lr) with L2 weight decay added to the gradient before the
     moments (not AdamW): the JAX package's
-    ``optax.chain(add_decayed_weights, adam)``."""
-    return torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                            weight_decay=cfg.weight_decay)
+    ``optax.chain(add_decayed_weights, adam)``. Timed as the span
+    ``train.make_optimizer``."""
+    with span("train.make_optimizer"):
+        return torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                                weight_decay=cfg.weight_decay)
 
 
 def weighted_nll(logp: torch.Tensor, idx: torch.Tensor, y: torch.Tensor,
@@ -330,19 +338,28 @@ def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
     backward and Adam. With ``rows`` (``parallel.halo.HaloRows``) the model
     runs on this rank's rows of a node-sharded run: the NLL is its share
     and the gradients are summed across the ranks before the step. Returns
-    the loss (this rank's share with ``rows``)."""
-    opt.zero_grad(set_to_none=True)
-    logp = model(x, hop_ops, dropout_rate=cfg.dropout, generator=generator,
-                 train=True, first_hop_agg=first, compute_dtype=dt,
-                 shard_rows=None if rows is None else rows.shard_rows)
-    if rows is None:
-        loss = weighted_nll(logp, train_idx, train_y, w)
-    else:
-        loss = rows.nll(logp, train_idx, train_y, w)
-    loss.backward()
-    if rows is not None:
-        rows.sync_grads(list(model.parameters()))
-    opt.step()
+    the loss (this rank's share with ``rows``). Timed as the span
+    ``train.step`` around ``train_step.forward`` (with the NLL),
+    ``train_step.backward`` (with the ranks' gradient sum) and
+    ``train_step.optimizer`` (``utils.prof``)."""
+    with span("train.step"):
+        opt.zero_grad(set_to_none=True)
+        with span("train_step.forward"):
+            logp = model(x, hop_ops, dropout_rate=cfg.dropout,
+                         generator=generator, train=True,
+                         first_hop_agg=first, compute_dtype=dt,
+                         shard_rows=None if rows is None
+                         else rows.shard_rows)
+            if rows is None:
+                loss = weighted_nll(logp, train_idx, train_y, w)
+            else:
+                loss = rows.nll(logp, train_idx, train_y, w)
+        with span("train_step.backward"):
+            loss.backward()
+            if rows is not None:
+                rows.sync_grads(list(model.parameters()))
+        with span("train_step.optimizer"):
+            opt.step()
     return loss
 
 

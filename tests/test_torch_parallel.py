@@ -53,6 +53,7 @@ from mpgnn_tpu_torch.parallel.mesh import (
     spawn_ranks,
 )
 from mpgnn_tpu_torch.train import loops
+from mpgnn_tpu_torch.utils.prof import spans
 
 WORLD = 4
 AGG_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -238,16 +239,22 @@ def _blocks(mesh, t):
                            mesh.axis_group("nodes")).numpy()
 
 
+def _exchanges() -> int:
+    return spans().get("halo.exchange", {"calls": 0})["calls"]
+
+
 def _aggregate(mesh, device, src, dst, x, exchange, local, grad):
     n = x.shape[0]
     plan = halo.build_halo_plan(src, dst, n, mesh.size, exchange)
     sh = plan.shard(mesh.axis_rank("nodes"), device, local)
     xl = halo.shard_graph_features(x, mesh, "nodes", device)
     xl.requires_grad_(grad)
+    before = _exchanges()
     out = halo.halo_sharded_mean_aggregate(mesh, xl, sh)
-    res = {"out": _blocks(mesh, out)}
     if grad:
         (out.float() ** 2).sum().backward()
+    res = {"out": _blocks(mesh, out), "exchanges": _exchanges() - before}
+    if grad:
         res["grad"] = _blocks(mesh, xl.grad)
     return res
 
@@ -556,6 +563,20 @@ def test_halo_aggregate_with_a_silent_rank(ranks, exchange, local):
     (ref ** 2).sum().backward()
     np.testing.assert_allclose(got["out"], ref.detach().numpy(), **AGG_TOL)
     np.testing.assert_allclose(got["grad"], xt.grad.numpy(), **AGG_TOL)
+
+
+@pytest.mark.parametrize("local", ["segment", "csr"])
+@pytest.mark.parametrize("exchange", ["a2a", "ppermute"])
+def test_halo_exchange_is_one_span_each_way(ranks, exchange, local):
+    """Each exchange, forward and backward, is one call of the span
+    ``halo.exchange`` on every rank of the mesh, a rank that sends nothing
+    too; a forward alone is one."""
+    for r in range(WORLD):
+        got = ranks[r][("agg", 4, "reference", exchange, local)]
+        assert got["exchanges"] == 2, r
+    for r in (0, 1):
+        assert ranks[r][("silent", exchange, local)]["exchanges"] == 2, r
+    assert all(ranks[r][("pad", 4)]["exchanges"] == 1 for r in range(WORLD))
 
 
 @pytest.mark.parametrize("p", [2, 4])

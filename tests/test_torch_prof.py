@@ -1,7 +1,8 @@
 """mpgnn_tpu_torch.utils.prof on the CPU: ``PhaseTimer`` as the JAX
 package's (the same summary layout), and ``device_trace`` writing one
-torch.profiler Chrome trace JSON that names the ops run inside it, and
-doing nothing without a directory."""
+torch.profiler Chrome trace JSON that names the ops run inside it, with
+the spans timed inside it beside it, and doing nothing without a
+directory."""
 
 import json
 import os
@@ -10,7 +11,7 @@ import time
 import torch
 
 from mpgnn_tpu.utils.prof import PhaseTimer as JPhaseTimer
-from mpgnn_tpu_torch.utils.prof import PhaseTimer, device_trace
+from mpgnn_tpu_torch.utils.prof import PhaseTimer, device_trace, span
 
 
 def test_phase_timer_matches_jax(monkeypatch):
@@ -41,18 +42,28 @@ def test_phase_timer_matches_jax(monkeypatch):
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     d = str(tmp_path / "trace")
+    with span("outside.trace"):
+        pass
     with device_trace(d) as path:
         x = torch.ones(64, 64)
-        (x @ x).sum()
-    assert os.path.dirname(path) == d and os.listdir(d) == [
-        os.path.basename(path)]
+        with span("inside.trace"):
+            (x @ x).sum()
+    name = os.path.basename(path)
+    spans_name = "spans-" + name[len("trace-"):]
+    assert os.path.dirname(path) == d
+    assert sorted(os.listdir(d)) == sorted([name, spans_name])
     with open(path) as f:
         trace = json.load(f)
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "aten::mm" in names
+    assert "aten::mm" in names and "inside.trace" in names
+    with open(os.path.join(d, spans_name)) as f:
+        spans = json.load(f)
+    assert spans["inside.trace"]["traced_calls"] == 1
+    assert spans["outside.trace"]["traced_calls"] == 0
     with device_trace(None) as nothing:
         torch.ones(2).sum()
     assert nothing is None
     with device_trace("") as nothing:
         pass
-    assert nothing is None and os.listdir(d) == [os.path.basename(path)]
+    assert nothing is None
+    assert sorted(os.listdir(d)) == sorted([name, spans_name])

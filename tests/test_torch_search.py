@@ -492,7 +492,8 @@ def test_cli_acm_style_dataset_matches_jax(tmp_path, capsys, monkeypatch):
 def test_cli_trace_dir_writes_a_trace(dataset, tmp_path, capsys,
                                       monkeypatch):
     """``--trace_dir`` profiles each class's search into one Chrome trace
-    JSON (one class here: binary labels)."""
+    JSON, with the spans timed in it beside it (one class here: binary
+    labels)."""
     from mpgnn_tpu_torch.run import main
 
     monkeypatch.setattr(teng, "train_mpgnn", _stub_train())
@@ -504,11 +505,15 @@ def test_cli_trace_dir_writes_a_trace(dataset, tmp_path, capsys,
           "--max_hops", "1", "--trace_dir", trace_dir])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(summary["classes"]) == ["0"]
-    (name,) = os.listdir(trace_dir)
+    name, spans_name = sorted(os.listdir(trace_dir), reverse=True)
     assert name.startswith("trace-") and name.endswith(".json")
+    assert spans_name == "spans-" + name[len("trace-"):]
     with open(os.path.join(trace_dir, name)) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    with open(os.path.join(trace_dir, spans_name)) as f:
+        spans = json.load(f)
+    assert spans["score.epochs"]["traced_calls"] >= 1
 
 
 def test_cli_trains_labels_with_gaps(tmp_path, capsys):
