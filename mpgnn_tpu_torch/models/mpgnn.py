@@ -24,6 +24,7 @@ model of the RGCN baseline (``rgcn_baseline.py``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -118,18 +119,44 @@ def linear(fc: nn.Linear, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _drop(h: torch.Tensor, dropout_rate: float, scale: float,
           generator: Optional[torch.Generator],
-          shard_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+          whole: Optional[Tuple[int, object]] = None) -> torch.Tensor:
     """Keep each entry with probability 1 - p (a float32 draw on h's shape,
     whatever h's dtype) and divide the kept ones by ``scale``. With
-    ``shard_rows`` = (first row, total rows), h is one block of a
-    node-sharded [total, H] activation: the draw is over the whole of it,
-    alike on every rank, and h keeps its own rows."""
-    shape = h.shape if shard_rows is None else (shard_rows[1], h.shape[1])
+    ``whole`` = (rows, index), h holds the rows ``index`` (a slice or an
+    index tensor) of a [rows, H] activation (a rank's block of a
+    node-sharded one, or the row tail's rows): the draw is over the whole
+    of it, so the masks and the generator's state are the whole's, and h
+    keeps its own rows."""
+    shape = h.shape if whole is None else (whole[0], h.shape[1])
     draw = torch.rand(shape, generator=generator, device=h.device)
-    if shard_rows is not None:
-        draw = draw[shard_rows[0]: shard_rows[0] + h.shape[0]]
+    if whole is not None:
+        draw = draw[whole[1]]
     keep = draw < 1.0 - dropout_rate
     return torch.where(keep, h / scale, torch.zeros_like(h))
+
+
+# When ``train.loops.train_step`` runs the model's tail on the loss's rows
+# alone (``MPNetm.forward``'s ``rows``): each metapath's last conv, fc1,
+# fc2 and log_softmax on the T rows, after gathers of the last
+# aggregation, its input and the masks, whose gradients scatter back into
+# [N, H]. It does where the loss reads at most ROW_TAIL_SHARE of the N
+# rows and the tail drops at least ROW_TAIL_MIN_DROP rows (N - T);
+# elsewhere the full tail runs and pays no gathers. Read with
+# ``train_step`` (hidden 64, float32, csr, random rows; row tail over
+# full tail) on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# * device-bound, ogbn-mag's full graph (1.94M nodes, 3 metapaths), CUDA
+#   events over 10 steps: 0.433, 0.610, 0.773, 0.858, 0.941 at 10, 30,
+#   50, 60 and 70% of the rows with 349 classes; 0.518, 0.685, 0.845,
+#   0.928, 1.006 with 2 classes. The two cross at 69-77% of the rows.
+# * host-bound, the step's wall set by its launches (random graphs of 20k
+#   to 200k nodes, 3 metapaths, 6.5-8 ms a step; medians of 11-15 rounds,
+#   full and tail alternated): the tail's extra launches cost 4-19% where
+#   it drops 14k-143k rows, and it reads 0.85-0.99 where it drops 190k-
+#   196k (a 200k-node graph at 5%; the 200k-node power-law KG's labelled
+#   split at 2.2%, 2 classes, 1 to 3 metapaths: 0.91-0.98). A 300k-node
+#   graph's step is device-bound: 0.73 at 210k and 285k rows dropped.
+ROW_TAIL_SHARE = 0.6
+ROW_TAIL_MIN_DROP = 150_000
 
 
 class MPNetm(nn.Module):
@@ -164,9 +191,10 @@ class MPNetm(nn.Module):
                 dropout_rate: float = 0.6,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
-                first_hop_agg: Optional[List] = None,
+                first_hop_agg: Optional[FirstHop] = None,
                 compute_dtype: Optional[torch.dtype] = None,
-                shard_rows: Optional[Tuple[int, int]] = None
+                shard_rows: Optional[Tuple[int, int]] = None,
+                rows: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """[N, C] float32 log-probabilities; ``hop_ops[m][j]`` is hop j of
         metapath m (``build_hop_arrays``). For 'halo' hops x is this rank's
@@ -179,49 +207,112 @@ class MPNetm(nn.Module):
         order. ``first_hop_agg`` (``precompute_first_hop``) holds each
         metapath's cached hop-0 aggregation, or None to compute it.
 
+        ``rows`` (a 1-D index tensor, not with ``shard_rows``) gives
+        [len(rows), C], the log-probabilities of those rows in their order:
+        each metapath's last hop aggregates over all rows and then takes
+        ``rows`` of its aggregation and input (a fused hop, of its output),
+        so that conv, its dropout, fc1, fc2 and log_softmax run on those
+        rows alone, timed as the span ``model.row_tail``. Each mask is
+        still drawn on the whole [N, H] and cut to ``rows``, so the
+        generator gives the same masks as without ``rows``.
+
         ``compute_dtype`` (default x's) is the JAX package's: x is cast to
         it, each conv computes in its input's dtype, fc1 and fc2 take their
         parameters cast to it, and log_softmax runs in float32. A fused hop
         (K3) returns float32 whatever its input, as in the JAX package, so
         under bf16 the hops after a fused hop 0 run in float32."""
+        if rows is not None and shard_rows is not None:
+            raise ValueError("rows restrict a single-device forward, not a "
+                             "node-sharded one")
         dt = compute_dtype or x.dtype
-        x = x.to(dt)
+        x_in, x = x, x.to(dt)
         scale = dropout_scale(dropout_rate, dt)
         num_nodes = x.shape[0]
+        whole = None if shard_rows is None else (
+            shard_rows[1], slice(shard_rows[0], shard_rows[0] + num_nodes))
         embeddings = []
-        for i, (stack, ops) in enumerate(zip(self.convs, hop_ops)):
-            h = x
-            for j, (conv, op) in enumerate(zip(stack, ops)):
-                cached = first_hop_agg[i] if j == 0 and first_hop_agg else None
-                if cached is not None:
-                    h = torch.relu(conv(cached.to(dt), h))
-                elif op[0] == "fused":
-                    h = dense_conv(op[1], h, conv.effective_weight(),
-                                   conv.root, conv.bias)
-                else:
-                    h = torch.relu(conv(hop_aggregate(h, op, num_nodes), h))
-                if train and dropout_rate > 0.0:
-                    h = _drop(h, dropout_rate, scale, generator, shard_rows)
-            embeddings.append(h)
-        h = torch.relu(linear(self.fc1, torch.cat(embeddings, dim=1), dt))
-        h = linear(self.fc2, h, dt)
-        return torch.log_softmax(h.float(), dim=1)
+        with contextlib.ExitStack() as tail:
+            for i, (stack, ops) in enumerate(zip(self.convs, hop_ops)):
+                h = x
+                for j, (conv, op) in enumerate(zip(stack, ops)):
+                    cut = rows is not None and j == len(stack) - 1
+                    if cut and i == 0:
+                        tail.enter_context(span("model.row_tail"))
+                    cached = (first_hop_agg[i] if j == 0 and first_hop_agg
+                              else None)
+                    if cached is not None and cut:
+                        agg, h = first_hop_agg.at_rows(i, x_in, rows, dt)
+                        h = torch.relu(conv(agg, h))
+                    elif cached is not None:
+                        h = torch.relu(conv(cached.to(dt), h))
+                    elif op[0] == "fused":
+                        h = dense_conv(op[1], h, conv.effective_weight(),
+                                       conv.root, conv.bias)
+                        if cut:
+                            h = h.index_select(0, rows)
+                    else:
+                        agg = hop_aggregate(h, op, num_nodes)
+                        if cut:
+                            agg = agg.index_select(0, rows)
+                            h = h.index_select(0, rows)
+                        h = torch.relu(conv(agg, h))
+                    if train and dropout_rate > 0.0:
+                        h = _drop(h, dropout_rate, scale, generator,
+                                  (num_nodes, rows) if cut else whole)
+                embeddings.append(h)
+            h = torch.relu(linear(self.fc1, torch.cat(embeddings, dim=1), dt))
+            h = linear(self.fc2, h, dt)
+            return torch.log_softmax(h.float(), dim=1)
+
+
+class FirstHop(list):
+    """``precompute_first_hop``'s list: each metapath's hop-0 aggregation
+    of x, None for a fused hop. For the row tail it also keeps what the
+    conv of a one-hop metapath reads, that aggregation's and x's rows:
+    ``at_rows`` gathers them on its first call for a pair of x and rows,
+    both constants of a training run, and gives the same tensors after."""
+
+    def __init__(self, aggs) -> None:
+        super().__init__(aggs)
+        self._key: Optional[tuple] = None
+        self._at_rows: dict = {}
+
+    @torch.no_grad()
+    def at_rows(self, i: int, x: torch.Tensor, rows: torch.Tensor,
+                dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(metapath i's aggregation, x) at ``rows``, cast to ``dt``; kept
+        while x and rows are the same tensors and dt the same dtype. They
+        are constants, so x may not need a gradient."""
+        if x.requires_grad:
+            raise ValueError("the row tail keeps x's rows as constants; "
+                             "x may not require a gradient")
+        key = self._key
+        if key is None or key[0] is not x or key[1] is not rows \
+                or key[2] != dt:
+            self._key, self._at_rows = (x, rows, dt), {}
+        got = self._at_rows
+        if "x" not in got:
+            got["x"] = x.to(dt).index_select(0, rows)
+        if i not in got:
+            got[i] = self[i].to(dt).index_select(0, rows)
+        return got[i], got["x"]
 
 
 @torch.no_grad()
 def precompute_first_hop(x: torch.Tensor, hop_ops,
-                         compute_dtype: Optional[torch.dtype] = None) -> List:
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> FirstHop:
     """Per-metapath hop-0 aggregation of the input features (cast to
     ``compute_dtype``, default x's), which are constant for a whole
     training run (dropout comes after each conv), so it is computed once
     outside the epoch loop. None for a fused hop, whose kernel owns its
-    aggregation: it runs on x every epoch. Timed as the span
-    ``model.first_hop``."""
+    aggregation: it runs on x every epoch. A ``FirstHop``, which keeps the
+    rows a row tail reads. Timed as the span ``model.first_hop``."""
     with span("model.first_hop"):
         xd = x.to(compute_dtype or x.dtype)
-        return [None if ops[0][0] == "fused"
-                else hop_aggregate(xd, ops[0], x.shape[0])
-                for ops in hop_ops]
+        return FirstHop(None if ops[0][0] == "fused"
+                        else hop_aggregate(xd, ops[0], x.shape[0])
+                        for ops in hop_ops)
 
 
 @torch.no_grad()

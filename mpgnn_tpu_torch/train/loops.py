@@ -22,6 +22,8 @@ from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.device import free_memory_bytes, resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph, NodeSplit
 from mpgnn_tpu_torch.models.mpgnn import (
+    ROW_TAIL_MIN_DROP,
+    ROW_TAIL_SHARE,
     MPNetm,
     init_mpgnn,
     precompute_first_hop,
@@ -311,11 +313,13 @@ def make_optimizer(model: torch.nn.Module,
                                 weight_decay=cfg.weight_decay)
 
 
-def weighted_nll(logp: torch.Tensor, idx: torch.Tensor, y: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
+def weighted_nll(logp: torch.Tensor, idx: Optional[torch.Tensor],
+                 y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``sum(per * w) / sum(w)`` of the per-node NLL of ``logp[idx]``
-    against ``y``, ``w`` the [len(idx)] per-node class weights."""
-    per = -logp[idx].gather(1, y[:, None])[:, 0]
+    against ``y``, ``w`` the [len(idx)] per-node class weights; ``idx``
+    None when logp's rows are already the loss's, in its order."""
+    per = (-logp.gather(1, y[:, None])[:, 0] if idx is None
+           else -logp[idx, y])
     return (per * w).sum() / w.sum()
 
 
@@ -341,7 +345,15 @@ def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
     the loss (this rank's share with ``rows``). Timed as the span
     ``train.step`` around ``train_step.forward`` (with the NLL),
     ``train_step.backward`` (with the ranks' gradient sum) and
-    ``train_step.optimizer`` (``utils.prof``)."""
+    ``train_step.optimizer`` (``utils.prof``).
+
+    Without ``rows``, where the loss reads at most ``ROW_TAIL_SHARE`` of
+    the N rows and leaves at least ``ROW_TAIL_MIN_DROP`` of them out, the
+    forward runs its tail on ``train_idx`` alone (``MPNetm.forward``'s
+    ``rows``): the same loss, gradients and masks."""
+    t, n = train_idx.numel(), x.shape[0]
+    tail = (rows is None and t <= ROW_TAIL_SHARE * n
+            and n - t >= ROW_TAIL_MIN_DROP)
     with span("train.step"):
         opt.zero_grad(set_to_none=True)
         with span("train_step.forward"):
@@ -349,11 +361,13 @@ def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
                          generator=generator, train=True,
                          first_hop_agg=first, compute_dtype=dt,
                          shard_rows=None if rows is None
-                         else rows.shard_rows)
-            if rows is None:
-                loss = weighted_nll(logp, train_idx, train_y, w)
-            else:
+                         else rows.shard_rows,
+                         rows=train_idx if tail else None)
+            if rows is not None:
                 loss = rows.nll(logp, train_idx, train_y, w)
+            else:
+                loss = weighted_nll(logp, None if tail else train_idx,
+                                    train_y, w)
         with span("train_step.backward"):
             loss.backward()
             if rows is not None:

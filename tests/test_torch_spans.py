@@ -165,6 +165,39 @@ def test_train_step_opens_its_three_phases_once_a_step(fresh, steps):
     assert got["train.step"]["parent"] is None
 
 
+@pytest.mark.parametrize("epochs", [1, 4])
+def test_row_tail_opens_once_a_step_and_never_outside_training(
+        fresh, epochs, monkeypatch):
+    """``model.row_tail`` counts the training steps of ``fit_mpgnn`` that
+    ran the tail on the loss's rows, one a step (the floor on the rows it
+    drops taken down to this small graph); ``fit_mpgnn``'s evaluation and
+    a predictor's refresh run the full forward."""
+    from mpgnn_tpu_torch.graph.io import split_nodes
+    from mpgnn_tpu_torch.serve import MetapathPredictor
+
+    g = _graph(2, n=90, e=600)
+    mps = [[0], [0, 1]]
+    split = split_nodes(np.arange(60) % 3, node_idx=range(60))
+    assert len(split.train_idx) <= loops.ROW_TAIL_SHARE * 90
+    monkeypatch.setattr(loops, "ROW_TAIL_MIN_DROP", 0)
+    model = init_mpgnn(4, 8, 3, mps, device="cpu")
+    cfg = MPGNNConfig(hidden_dim=8, epochs=epochs)
+    loops.fit_mpgnn(model, loops.build_hop_arrays(g, mps, "csr",
+                                                  device="cpu"),
+                    torch.as_tensor(g.x), loops.split_tensors(split, "cpu"),
+                    torch.ones(3), cfg, torch.Generator().manual_seed(0), 3,
+                    track_best=True)
+    got = fresh.spans()
+    assert got["model.row_tail"]["calls"] == got["train.step"]["calls"] \
+        == epochs
+    assert got["model.row_tail"]["parent"] == "train_step.forward"
+    fresh.reset_spans()
+    MetapathPredictor(g, mps, model, backend="csr", device="cpu").refresh()
+    loops.evaluate_mpgnn(g, mps, model, split.test_idx, split.test_y, 3,
+                         device="cpu")
+    assert "model.row_tail" not in fresh.spans()
+
+
 @pytest.mark.parametrize("rels", [1, 2, 3])
 def test_csr_operands_route_and_build_each_direction(fresh, rels):
     g = _graph(rels)

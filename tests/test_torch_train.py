@@ -11,7 +11,14 @@ Tolerances, with their reasons:
   element that float32 noise dominates moves its parameter by up to lr a
   step on either side; the loss and the predictions do not see it. The
   pallas backend rounds h to bf16 on both sides, where a last-bit
-  difference can flip a rounding; the same tolerances hold there."""
+  difference can flip a rounding; the same tolerances hold there.
+* the row tail against the full tail (one step from the same parameters
+  and generator, dropout 0.6): the same sums over fewer rows, in another
+  order. float32: loss, gradients and parameters rtol 1e-5 on an atol of
+  1e-6 (loss), 1e-6 (gradients) and 1e-4 (a hundredth of Adam's first
+  step, which divides each gradient by its own magnitude); bf16 compute:
+  rtol 2e-2, about two bf16 roundings, on the same atols times 10.
+  The generator's state: identical."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +41,7 @@ from mpgnn_tpu_torch.graph.io import mask_label_leak, read_labels, split_nodes
 from mpgnn_tpu_torch.models.mpgnn import init_mpgnn
 from mpgnn_tpu_torch.train import loops
 from mpgnn_tpu_torch.train.metrics import macro_f1
+from mpgnn_tpu_torch.utils import prof
 from mpgnn_tpu_torch.weights import params_from_jax
 
 
@@ -176,12 +184,16 @@ VARIANTS = {
     # first
     "track_best": dict(track_best=True, metapaths=[[2, 2]]),
     "x_override": dict(x_override=True),
+    # the loss on 40% of the nodes' split, 29% of the rows: every step
+    # runs the tail on the loss's rows (``model.row_tail``; the floor on
+    # the rows it drops taken down to this small graph)
+    "subset": dict(subset=0.4),
 }
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("backend", ["segment", "csr", "pallas"])
-def test_fit_matches_jax_train(planted, backend, variant):
+def test_fit_matches_jax_train(planted, backend, variant, monkeypatch):
     jg, tg, g = planted
     opts = dict(VARIANTS[variant])
     metapaths = opts.pop("metapaths", [list(g["metapath_relations"]),
@@ -190,8 +202,15 @@ def test_fit_matches_jax_train(planted, backend, variant):
     if opts.pop("x_override", False):
         x = (2.0 * x + np.random.default_rng(5).normal(
             size=x.shape)).astype(np.float32)
+    labels, ids = g["labels"], None
+    if "subset" in opts:
+        n = len(labels)
+        ids = np.sort(np.random.default_rng(7).permutation(n)[
+            :int(opts.pop("subset") * n)])
+        labels = labels[ids]
+        monkeypatch.setattr(loops, "ROW_TAIL_MIN_DROP", 0)
     seed, epochs, hidden = 3, 30, 16
-    want = j_train(jg, metapaths, j_split(g["labels"]), 2,
+    want = j_train(jg, metapaths, j_split(labels, ids), 2,
                    JConfig(epochs=epochs, hidden_dim=hidden, dropout=0.0),
                    seed=seed, backend=backend, x_override=x, **opts)
 
@@ -199,15 +218,19 @@ def test_fit_matches_jax_train(planted, backend, variant):
     init_key, _ = jax.random.split(jax.random.PRNGKey(seed))
     model = params_from_jax(
         j_init(init_key, x.shape[1], hidden, 2, metapaths), device="cpu")
-    split = split_nodes(g["labels"])
+    split = split_nodes(labels, ids)
     cw = loops.class_weights(split.train_y, 2,
                              opts.get("class_weighted", False))
     cfg = MPGNNConfig(epochs=epochs, hidden_dim=hidden, dropout=0.0)
+    prof.reset_spans()
     train_f1, val_f1, test_f1, loss = loops.fit_mpgnn(
         model, loops.build_hop_arrays(tg, metapaths, backend, device="cpu"),
         torch.from_numpy(x), loops.split_tensors(split, "cpu"),
         torch.from_numpy(cw), cfg, None, 2,
         track_best=opts.get("track_best", False))
+    if ids is not None:
+        assert prof.spans()["model.row_tail"]["calls"] == epochs
+    prof.reset_spans()
     assert abs(loss - want.final_loss) <= LOSS_ATOL
     np.testing.assert_allclose((train_f1, val_f1, test_f1),
                                (want.train_f1, want.val_f1, want.test_f1),
@@ -288,3 +311,104 @@ def test_train_mpgnn_refuses_what_is_not_ported(planted, change, err):
     with pytest.raises(ValueError, match=err):
         loops.train_mpgnn(tg, [[0]], split_nodes(g["labels"]), 2,
                           device="cpu", **change)
+
+
+# ---------------------------------------------------------------- row tail
+ROW_TAIL_METAPATHS = {1: [[0], [3]], 2: [[1, 2], [3]], 3: [[0, 1, 2], [3]]}
+
+
+def _row_tail_step(tg, metapaths, backend, dt, train_idx, seed=11):
+    """One ``train_step`` from seeded parameters and a seeded generator:
+    (loss, {leaf: gradient}, {leaf: parameter after Adam}, generator
+    state after, ``model.row_tail``'s and ``train.step``'s calls)."""
+    from mpgnn_tpu_torch.models.mpgnn import precompute_first_hop
+
+    cfg = MPGNNConfig(hidden_dim=16, dropout=0.6)
+    model = init_mpgnn(tg.feat_dim, 16, 5, metapaths,
+                       generator=torch.Generator().manual_seed(seed),
+                       device="cpu")
+    opt = loops.make_optimizer(model, cfg)
+    hop_ops = loops.build_hop_arrays(tg, metapaths, backend, device="cpu",
+                                     dtype=dt)
+    x = torch.from_numpy(tg.x).to(dt)
+    first = precompute_first_hop(x, hop_ops, dt)
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.integers(0, 5, train_idx.numel()))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, train_idx.numel())
+                         ).float()
+    gen = torch.Generator().manual_seed(seed + 1)
+    prof.reset_spans()
+    loss = loops.train_step(model, opt, x, hop_ops, first, train_idx, y, w,
+                            cfg, gen, dt)
+    calls = {k: v["calls"] for k, v in prof.spans().items()}
+    prof.reset_spans()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return (loss.detach(), grads, params, gen.get_state(),
+            calls.get("model.row_tail", 0), calls["train.step"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [1, 2, 3])
+@pytest.mark.parametrize("backend", ["segment", "csr", "pallas"])
+def test_row_tail_step_matches_the_full_tail(planted, backend, length, dtype,
+                                             monkeypatch):
+    """The step on the loss's rows (about 30% of them, in a shuffled order)
+    gives the full tail's loss, gradients, Adam update and generator
+    state."""
+    _, tg, _ = planted
+    monkeypatch.setattr(loops, "ROW_TAIL_MIN_DROP", 0)
+    dt = getattr(torch, dtype)
+    metapaths = ROW_TAIL_METAPATHS[length]
+    n = tg.num_nodes
+    idx = torch.from_numpy(np.random.default_rng(length).permutation(n)
+                           [: int(0.3 * n)])
+    got = _row_tail_step(tg, metapaths, backend, dt, idx)
+    monkeypatch.setattr(loops, "ROW_TAIL_SHARE", 0.0)
+    want = _row_tail_step(tg, metapaths, backend, dt, idx)
+    assert (got[4], got[5]) == (1, 1) and want[4] == 0
+    rtol, scale = (1e-5, 1.0) if dt == torch.float32 else (2e-2, 10.0)
+    torch.testing.assert_close(got[0], want[0], rtol=rtol, atol=1e-6 * scale)
+    for k in want[1]:
+        torch.testing.assert_close(got[1][k], want[1][k], rtol=rtol,
+                                   atol=1e-6 * scale, msg=k)
+        torch.testing.assert_close(got[2][k], want[2][k], rtol=rtol,
+                                   atol=1e-4 * scale, msg=k)
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("over", [0.05, 1.0])
+def test_full_tail_where_the_loss_reads_most_rows(planted, over,
+                                                  monkeypatch):
+    """A loss over more than ``ROW_TAIL_SHARE`` of the rows keeps the full
+    tail: ``model.row_tail`` is not opened."""
+    _, tg, _ = planted
+    monkeypatch.setattr(loops, "ROW_TAIL_MIN_DROP", 0)
+    n = tg.num_nodes
+    share = min(1.0, loops.ROW_TAIL_SHARE + over)
+    idx = torch.from_numpy(np.random.default_rng(0).permutation(n)
+                           [: int(np.ceil(share * n))])
+    got = _row_tail_step(tg, ROW_TAIL_METAPATHS[2], "csr", torch.float32,
+                         idx)
+    assert (got[4], got[5]) == (0, 1)
+
+
+@pytest.mark.parametrize("floor,opened", [(None, 0), ("drop", 1),
+                                          ("drop+1", 0)])
+def test_full_tail_where_the_tail_drops_few_rows(planted, floor, opened,
+                                                 monkeypatch):
+    """A tail that would leave out fewer than ``ROW_TAIL_MIN_DROP`` rows
+    (this small graph's, at the default) keeps the full tail; one that
+    leaves out exactly that many runs on the loss's rows."""
+    _, tg, _ = planted
+    n = tg.num_nodes
+    idx = torch.from_numpy(np.random.default_rng(0).permutation(n)
+                           [: int(0.3 * n)])
+    drop = n - idx.numel()
+    assert drop < loops.ROW_TAIL_MIN_DROP
+    if floor is not None:
+        monkeypatch.setattr(loops, "ROW_TAIL_MIN_DROP",
+                            drop + (floor == "drop+1"))
+    got = _row_tail_step(tg, ROW_TAIL_METAPATHS[2], "csr", torch.float32,
+                         idx)
+    assert (got[4], got[5]) == (opened, 1)
