@@ -19,7 +19,8 @@ evaluation of the search (``train/batch_eval.py``).
 
 ``MetapathNet`` is the reference's two-conv MPNet (model.py:153-176) and
 ``RgcnNet`` its plain all-relations RGCN ``Net`` (model.py:132-149), the
-model of the RGCN baseline (``rgcn_baseline.py``).
+model of the RGCN baseline (``rgcn_baseline.py``), on the relations' hop
+operands.
 """
 
 from __future__ import annotations
@@ -35,11 +36,9 @@ from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.models.relconv import (
     RelConv,
     RgcnConv,
-    RgcnEdges,
     init_params_like,
     init_relconv,
     make_relconv,
-    rgcn_aggregate,
     uniform,
 )
 from mpgnn_tpu_torch.ops.conv import dense_conv, grouped_dense_aggregate
@@ -570,9 +569,20 @@ def init_metapath_net(input_dim: int, hidden_dim: int, output_dim: int,
 # ------------------------------------------------------------ the RGCN Net
 class RgcnNet(nn.Module):
     """The reference's plain RGCN ``Net`` (model.py:132-149): ``conv1``
-    (input -> hidden) then ``conv2`` (hidden -> output) repeated, each over
-    every relation (``relconv.rgcn_aggregate``) with its root and bias,
-    ReLU after each, a ``linear`` head and log_softmax."""
+    (input -> hidden) then ``conv2`` (hidden -> output) repeated, each
+    ``ReLU(sum_r mean_r(h) @ W_r + h @ root + bias)`` over every relation
+    (eq. 2 of Schlichtkrull et al. 2018, 1/c_{i,r} the count of i's
+    r-edges), a ``linear`` head and log_softmax.
+
+    Each relation's mean runs through ``hop_aggregate`` on its hop
+    operand (``rgcn_baseline.rgcn_operands``: the operands MPNetm's hops
+    use), before its product: the aggregations and ``h`` side by side
+    (``rgcn_input``) meet the relations' weights and the root stacked
+    (``rgcn_weight``) in one product. Layer 0's aggregations of the
+    constant features may be given once (``precompute_rgcn_input``). The
+    build is timed as the span ``model.init``, each layer's sum over
+    relations (aggregations, the product, the bias) as
+    ``rgcn.relations``."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_rel: int,
                  output_dim: int, num_classes: int,
@@ -581,23 +591,69 @@ class RgcnNet(nn.Module):
         super().__init__()
         if num_bases is not None:
             num_blocks = None
-        self.conv1 = RgcnConv(input_dim, hidden_dim, num_rel, num_bases,
-                              num_blocks, device=device)
-        self.conv2 = RgcnConv(hidden_dim, output_dim, num_rel, num_bases,
-                              num_blocks, device=device)
-        self.linear = nn.utils.skip_init(nn.Linear, output_dim, num_classes,
-                                         device=device)
+        with span("model.init"):
+            self.conv1 = RgcnConv(input_dim, hidden_dim, num_rel, num_bases,
+                                  num_blocks, device=device)
+            self.conv2 = RgcnConv(hidden_dim, output_dim, num_rel,
+                                  num_bases, num_blocks, device=device)
+            self.linear = nn.utils.skip_init(nn.Linear, output_dim,
+                                             num_classes, device=device)
 
-    def forward(self, x: torch.Tensor, edges: RgcnEdges,
-                metapath_length: int) -> torch.Tensor:
-        """[N, C] log-probabilities after ``metapath_length`` layers over
-        ``edges`` (``relconv.rgcn_edges``)."""
+    def forward(self, x: torch.Tensor, rel_ops: Sequence[Optional[Tuple]],
+                metapath_length: int, *,
+                first: Optional[torch.Tensor] = None,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[N, C] log-probabilities after ``metapath_length`` layers;
+        ``rel_ops[r]`` is relation r's operand, None for a relation
+        without edges. ``first`` is ``precompute_rgcn_input(x, rel_ops)``,
+        layer 0's input, or None to compute it. ``rows`` (a 1-D index
+        tensor) gives [len(rows), C], the head on those rows alone: every
+        layer runs on all rows."""
         h = x
         for layer in range(metapath_length):
             conv = self.conv1 if layer == 0 else self.conv2
-            agg = rgcn_aggregate(h, conv.effective_weights(), edges)
-            h = torch.relu(agg + h @ conv.root + conv.bias)
+            with span("rgcn.relations"):
+                inp = (first if layer == 0 and first is not None
+                       else rgcn_input(h, rel_ops))
+                z = torch.addmm(conv.bias, inp, rgcn_weight(conv, rel_ops))
+            h = torch.relu(z)
+        if rows is not None:
+            h = h.index_select(0, rows)
         return torch.log_softmax(self.linear(h), dim=1)
+
+
+def rgcn_input(h: torch.Tensor, rel_ops: Sequence[Optional[Tuple]]
+               ) -> torch.Tensor:
+    """[N, (R' + 1) F]: the mean aggregation of h over each of the R'
+    relations with an operand, in relation order, then h."""
+    n = h.shape[0]
+    return torch.cat([hop_aggregate(h, op, n) for op in rel_ops
+                      if op is not None] + [h], dim=1)
+
+
+def rgcn_weight(conv: RgcnConv, rel_ops: Sequence[Optional[Tuple]]
+                ) -> torch.Tensor:
+    """[(R' + 1) in, out]: the effective weights of the relations with an
+    operand, in relation order, then the root, the rows ``rgcn_input``'s
+    columns meet. Differentiable in every variant's parameters; each
+    relation's weight is taken by its host index, so no index goes to the
+    device."""
+    w = conv.effective_weights()
+    if len(rel_ops) != w.shape[0]:
+        raise ValueError(f"{len(rel_ops)} relation operands for a conv of "
+                         f"{w.shape[0]} relations")
+    return torch.cat([w[r] for r, op in enumerate(rel_ops) if op is not None]
+                     + [conv.root])
+
+
+@torch.no_grad()
+def precompute_rgcn_input(x: torch.Tensor,
+                          rel_ops: Sequence[Optional[Tuple]]) -> torch.Tensor:
+    """Layer 0's input, ``rgcn_input(x, rel_ops)``: x is constant for a
+    whole training run, so its aggregations are computed once, outside the
+    epoch loop. Timed as the span ``model.first_hop``."""
+    with span("model.first_hop"):
+        return rgcn_input(x, rel_ops)
 
 
 @torch.no_grad()

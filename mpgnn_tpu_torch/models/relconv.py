@@ -9,7 +9,9 @@ decompositions (mp_rgcn_layer.py:120-137): a mixture of bases
 (``RelConvBasis``) or a block-diagonal matrix (``RelConvBlock``).
 
 Also ``fast_rgcn_aggregate``, the all-relations message pass of the RGCN
-baseline (CustomFastRGCNConv, mp_rgcn_layer.py:287-357).
+``Net`` (CustomFastRGCNConv, mp_rgcn_layer.py:287-357), kept beside the
+JAX package's for parity: the RGCN baseline runs on the relations' hop
+operands (``models.mpgnn.RgcnNet``).
 """
 
 from __future__ import annotations

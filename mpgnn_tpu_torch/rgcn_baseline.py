@@ -9,35 +9,51 @@ the baseline weighs each class by n / (C * count)), report macro-F1.
     python -m mpgnn_tpu_torch.rgcn_baseline --folder <dir> --metapath_length 3
 
 It runs on the GPU unless ``--device cpu`` (or its alias ``--platform
-cpu``, for the JAX command lines) is given. The aggregation is
-``models.relconv.rgcn_aggregate``, one product per relation and a gather,
-in PyTorch ops: the JAX package's ``fast_rgcn_aggregate`` has no Pallas
-kernel either.
+cpu``, for the JAX command lines) is given. It trains on the port's normal
+path: each relation's mean aggregation runs on the hop operands MPNetm's
+hops use (``train.loops.build_hop_arrays``, one relation a hop; with
+``--backend auto``, the default, resolved by ``resolve_backend`` as
+``train_mpgnn`` resolves it: the csr kernels K1/K2 on a large graph), and
+every epoch is one ``train.loops.rgcn_train_step``. ``setup_rgcn`` builds
+the run's objects; the benchmark calls it too.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 import time
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.device import resolve_device
-from mpgnn_tpu_torch.models.mpgnn import init_rgcn_net
-from mpgnn_tpu_torch.models.relconv import rgcn_edges
+from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+from mpgnn_tpu_torch.models.mpgnn import (
+    RgcnNet,
+    init_rgcn_net,
+    precompute_rgcn_input,
+)
 from mpgnn_tpu_torch.train.loops import (
+    auto_dense_budget_bytes,
+    build_hop_arrays,
     make_optimizer,
+    resolve_backend,
+    rgcn_train_step,
     split_tensors,
-    weighted_nll,
 )
 from mpgnn_tpu_torch.train.metrics import macro_f1
 
 log = logging.getLogger("mpgnn_tpu_torch.rgcn_baseline")
+
+# the backends whose operands ``models.mpgnn.hop_aggregate`` takes alone:
+# 'pallas' fuses the aggregation into its conv's kernel, 'halo' shards
+# the rows over a mesh
+RGCN_BACKENDS = ("segment", "csr", "ell", "ell2", "dense", "onehot")
 
 
 def balanced_class_weights(y: np.ndarray, num_classes: int) -> np.ndarray:
@@ -48,6 +64,94 @@ def balanced_class_weights(y: np.ndarray, num_classes: int) -> np.ndarray:
     counts = np.bincount(y, minlength=num_classes).astype(np.float64)
     counts[counts == 0] = 1.0
     return (len(y) / (num_classes * counts)).astype(np.float32)
+
+
+def rgcn_operands(graph: HeteroGraph, backend: str, device
+                  ) -> List[Optional[Tuple]]:
+    """Each relation's aggregation operand on ``device``, None for a
+    relation without edges: ``build_hop_arrays`` of one-hop metapaths, so
+    from the graph's operand cache (``relation_operand``) that MPNetm's
+    hops share. ``backend`` is one of ``RGCN_BACKENDS``."""
+    if backend not in RGCN_BACKENDS:
+        raise ValueError(f"the RGCN baseline takes a backend of "
+                         f"{RGCN_BACKENDS}, not {backend!r}")
+    present = graph.present_relations()
+    ops = build_hop_arrays(graph, [[r] for r in present], backend=backend,
+                           device=device)
+    out: List[Optional[Tuple]] = [None] * graph.num_relations
+    for r, hop in zip(present, ops):
+        out[r] = hop[0]
+    return out
+
+
+@dataclasses.dataclass
+class RgcnTraining:
+    """One RGCN baseline run's objects on the device, and its epoch."""
+
+    model: RgcnNet
+    opt: torch.optim.Optimizer
+    x: torch.Tensor
+    rel_ops: List[Optional[Tuple]]
+    first: torch.Tensor            # layer 0's input, precompute_rgcn_input
+    metapath_length: int
+    train_idx: torch.Tensor
+    train_y: torch.Tensor
+    w: torch.Tensor                # [T] class weights of the train rows
+    backend: str
+
+    def step(self) -> torch.Tensor:
+        """One epoch's step; returns its loss."""
+        return rgcn_train_step(self.model, self.opt, self.x, self.rel_ops,
+                               self.first, self.metapath_length,
+                               self.train_idx, self.train_y, self.w)
+
+    @torch.no_grad()
+    def predict(self) -> torch.Tensor:
+        """[N] predicted classes."""
+        return self.model(self.x, self.rel_ops, self.metapath_length,
+                          first=self.first).argmax(dim=1)
+
+
+def setup_rgcn(graph: HeteroGraph, x: torch.Tensor, train_idx: torch.Tensor,
+               train_y: torch.Tensor, num_classes: int,
+               metapath_length: int = 3, cfg: Optional[MPGNNConfig] = None,
+               backend: str = "auto", model: Optional[RgcnNet] = None,
+               seed: int = 10, device=None) -> RgcnTraining:
+    """An ``RgcnTraining`` of ``graph``'s relations on ``device`` (the GPU
+    unless ``device='cpu'``): ``backend`` ('auto' resolved by
+    ``resolve_backend`` over every relation, as ``train_mpgnn`` resolves
+    it), the operands (``rgcn_operands``), the model (drawn by
+    ``init_rgcn_net`` from ``seed``, ``cfg.num_bases`` / ``cfg.num_blocks``
+    picking the decomposition, hidden and output widths ``cfg.hidden_dim``;
+    or ``model``, moved to ``device``), Adam (``make_optimizer``), layer
+    0's input and the balanced class weights of ``train_y``. ``x`` is the
+    [N, F] float32 features, on ``device`` or copied there."""
+    cfg = cfg or MPGNNConfig()
+    device = resolve_device(device)
+    relations = [[r] for r in range(graph.num_relations)]
+    if backend == "auto":
+        backend = resolve_backend(backend, graph, relations,
+                                  auto_dense_budget_bytes(device))
+        log.info("rgcn baseline: backend 'auto' -> %r (%d nodes, %d "
+                 "relations)", backend, graph.num_nodes,
+                 graph.num_relations)
+    rel_ops = rgcn_operands(graph, backend, device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if model is None:
+        model = init_rgcn_net(
+            x.shape[1], cfg.hidden_dim, graph.num_relations, cfg.hidden_dim,
+            num_classes, cfg.num_bases, cfg.num_blocks,
+            generator=torch.Generator().manual_seed(seed), device=device)
+    model = model.to(device)
+    opt = make_optimizer(model, cfg)
+    first = precompute_rgcn_input(x, rel_ops)
+    train_y = torch.as_tensor(train_y, device=device)
+    cw = balanced_class_weights(train_y.cpu().numpy(), num_classes)
+    return RgcnTraining(
+        model=model, opt=opt, x=x, rel_ops=rel_ops, first=first,
+        metapath_length=metapath_length,
+        train_idx=torch.as_tensor(train_idx, device=device), train_y=train_y,
+        w=torch.as_tensor(cw, device=device)[train_y], backend=backend)
 
 
 def train_rgcn_baseline(
@@ -61,52 +165,38 @@ def train_rgcn_baseline(
     x_override: Optional[np.ndarray] = None,
     device=None,
     model=None,
+    backend: str = "auto",
 ) -> dict:
     """Train the RGCN ``Net`` on every relation of ``graph`` for
     ``cfg.epochs`` epochs on ``device`` (the GPU unless ``device='cpu'``)
     and return {params, train_f1, val_f1, test_f1, final_loss}: the
     trained ``RgcnNet``, the last epoch's macro-F1s and the loss of the
-    last step. The parameters are drawn by ``init_rgcn_net`` from ``seed``
-    (``cfg.num_bases`` / ``cfg.num_blocks`` pick the decomposition), unless
-    ``model`` gives the initial ones; hidden and output widths are
-    ``cfg.hidden_dim``."""
+    last step. Set-up is ``setup_rgcn`` (``backend``, the parameters drawn
+    from ``seed`` unless ``model`` gives the initial ones); each epoch is
+    its ``step``."""
     cfg = cfg or MPGNNConfig()
     device = resolve_device(device)
-    x = torch.as_tensor(np.asarray(
-        graph.x if x_override is None else x_override, dtype=np.float32),
-        device=device)
-    edges = rgcn_edges(graph.sorted_src, graph.sorted_dst, graph.sorted_type,
-                       graph.num_nodes, graph.num_relations, device=device)
     train_idx, train_y, val_idx, val_y, test_idx, test_y = split_tensors(
         split, device)
-    weights = torch.as_tensor(balanced_class_weights(
-        np.asarray(split.train_y), num_classes), device=device)
-    if model is None:
-        model = init_rgcn_net(
-            x.shape[1], cfg.hidden_dim, graph.num_relations, cfg.hidden_dim,
-            num_classes, cfg.num_bases, cfg.num_blocks,
-            generator=torch.Generator().manual_seed(seed), device=device)
-    model = model.to(device)
-    opt = make_optimizer(model, cfg)
-    w = weights[train_y]
+    x = np.asarray(graph.x if x_override is None else x_override,
+                   dtype=np.float32)
+    run = setup_rgcn(graph, torch.from_numpy(x), train_idx, train_y,
+                     num_classes, metapath_length, cfg, backend, model, seed,
+                     device)
     loss = torch.zeros((), device=device)
     t0 = time.perf_counter()
     for _ in range(cfg.epochs):
-        opt.zero_grad(set_to_none=True)
-        loss = weighted_nll(model(x, edges, metapath_length), train_idx,
-                            train_y, w)
-        loss.backward()
-        opt.step()
-    with torch.no_grad():
-        preds = model(x, edges, metapath_length).argmax(dim=1)
-        f1s = [float(macro_f1(preds[i], y, num_classes))
-               for i, y in ((train_idx, train_y), (val_idx, val_y),
-                            (test_idx, test_y))]
+        loss = run.step()
+    preds = run.predict()
+    f1s = [float(macro_f1(preds[i], y, num_classes))
+           for i, y in ((train_idx, train_y), (val_idx, val_y),
+                        (test_idx, test_y))]
     seconds = time.perf_counter() - t0
     log.info("rgcn baseline: %d epochs in %.3f s (%.4f ms an epoch, the "
-             "final evaluation included) on %s", cfg.epochs, seconds,
-             seconds / max(cfg.epochs, 1) * 1e3, device)
-    return {"params": model, "train_f1": f1s[0], "val_f1": f1s[1],
+             "final evaluation included) on %s, backend %r", cfg.epochs,
+             seconds, seconds / max(cfg.epochs, 1) * 1e3, device,
+             run.backend)
+    return {"params": run.model, "train_f1": f1s[0], "val_f1": f1s[1],
             "test_f1": f1s[2], "final_loss": float(loss.detach())}
 
 
@@ -125,6 +215,10 @@ def main(argv=None):
     ap.add_argument("--num_blocks", type=int, default=None,
                     help="block-diagonal decomposition "
                          "(mp_rgcn_layer.py:125-131)")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto",) + RGCN_BACKENDS,
+                    help="each relation's aggregation (default auto: "
+                         "resolved as train_mpgnn resolves it)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda)")
     ap.add_argument("--platform", type=str, default=None,
@@ -166,7 +260,7 @@ def main(argv=None):
         graph, labels, split, num_classes, args.metapath_length,
         MPGNNConfig(epochs=args.epochs, hidden_dim=args.hidden_dim,
                     num_bases=args.num_bases, num_blocks=args.num_blocks),
-        x_override=x, device=device,
+        x_override=x, device=device, backend=args.backend,
     )
     print(f"train F1 {res['train_f1']:.4f} val F1 {res['val_f1']:.4f} "
           f"test F1 {res['test_f1']:.4f} loss {res['final_loss']:.4f}",

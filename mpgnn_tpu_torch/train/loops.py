@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from mpgnn_tpu_torch.models.mpgnn import (
     ROW_TAIL_MIN_DROP,
     ROW_TAIL_SHARE,
     MPNetm,
+    RgcnNet,
     init_mpgnn,
     precompute_first_hop,
 )
@@ -333,19 +334,40 @@ def compute_dtype(cfg: MPGNNConfig) -> torch.dtype:
     return dtypes[cfg.compute_dtype]
 
 
+def optimizer_step(opt: torch.optim.Optimizer,
+                   loss_of: Callable[[], torch.Tensor],
+                   after_backward: Optional[Callable[[], None]] = None
+                   ) -> torch.Tensor:
+    """One training step of any model, the skeleton every step shares:
+    zero the gradients, ``loss_of()`` (the forward with its loss), the
+    loss's backward (then ``after_backward()``), the optimizer's step.
+    Returns the loss. Timed as the span ``train.step`` around
+    ``train_step.forward``, ``train_step.backward`` (with
+    ``after_backward``) and ``train_step.optimizer`` (``utils.prof``)."""
+    with span("train.step"):
+        opt.zero_grad(set_to_none=True)
+        with span("train_step.forward"):
+            loss = loss_of()
+        with span("train_step.backward"):
+            loss.backward()
+            if after_backward is not None:
+                after_backward()
+        with span("train_step.optimizer"):
+            opt.step()
+    return loss
+
+
 def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
                hop_ops, first, train_idx: torch.Tensor,
                train_y: torch.Tensor, w: torch.Tensor, cfg: MPGNNConfig,
                generator: Optional[torch.Generator], dt: torch.dtype,
                rows=None) -> torch.Tensor:
-    """One epoch's step: the training forward, the weighted NLL, its
-    backward and Adam. With ``rows`` (``parallel.halo.HaloRows``) the model
-    runs on this rank's rows of a node-sharded run: the NLL is its share
-    and the gradients are summed across the ranks before the step. Returns
-    the loss (this rank's share with ``rows``). Timed as the span
-    ``train.step`` around ``train_step.forward`` (with the NLL),
-    ``train_step.backward`` (with the ranks' gradient sum) and
-    ``train_step.optimizer`` (``utils.prof``).
+    """One epoch's step of an MPNetm (``optimizer_step``): the training
+    forward, the weighted NLL, its backward and Adam. With ``rows``
+    (``parallel.halo.HaloRows``) the model runs on this rank's rows of a
+    node-sharded run: the NLL is its share and the gradients are summed
+    across the ranks before the step. Returns the loss (this rank's share
+    with ``rows``).
 
     Without ``rows``, where the loss reads at most ``ROW_TAIL_SHARE`` of
     the N rows and leaves at least ``ROW_TAIL_MIN_DROP`` of them out, the
@@ -354,27 +376,33 @@ def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
     t, n = train_idx.numel(), x.shape[0]
     tail = (rows is None and t <= ROW_TAIL_SHARE * n
             and n - t >= ROW_TAIL_MIN_DROP)
-    with span("train.step"):
-        opt.zero_grad(set_to_none=True)
-        with span("train_step.forward"):
-            logp = model(x, hop_ops, dropout_rate=cfg.dropout,
-                         generator=generator, train=True,
-                         first_hop_agg=first, compute_dtype=dt,
-                         shard_rows=None if rows is None
-                         else rows.shard_rows,
-                         rows=train_idx if tail else None)
-            if rows is not None:
-                loss = rows.nll(logp, train_idx, train_y, w)
-            else:
-                loss = weighted_nll(logp, None if tail else train_idx,
-                                    train_y, w)
-        with span("train_step.backward"):
-            loss.backward()
-            if rows is not None:
-                rows.sync_grads(list(model.parameters()))
-        with span("train_step.optimizer"):
-            opt.step()
-    return loss
+
+    def loss_of():
+        logp = model(x, hop_ops, dropout_rate=cfg.dropout,
+                     generator=generator, train=True, first_hop_agg=first,
+                     compute_dtype=dt,
+                     shard_rows=None if rows is None else rows.shard_rows,
+                     rows=train_idx if tail else None)
+        if rows is not None:
+            return rows.nll(logp, train_idx, train_y, w)
+        return weighted_nll(logp, None if tail else train_idx, train_y, w)
+
+    return optimizer_step(
+        opt, loss_of, None if rows is None
+        else lambda: rows.sync_grads(list(model.parameters())))
+
+
+def rgcn_train_step(model: RgcnNet, opt: torch.optim.Optimizer,
+                    x: torch.Tensor, rel_ops, first: torch.Tensor,
+                    metapath_length: int, train_idx: torch.Tensor,
+                    train_y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One epoch's step of the RGCN ``Net`` (``optimizer_step``): the
+    forward over every relation's operand ``rel_ops`` from layer 0's input
+    ``first`` (``precompute_rgcn_input``), the head on the train rows
+    alone, the weighted NLL, its backward and Adam. Returns the loss."""
+    return optimizer_step(opt, lambda: weighted_nll(
+        model(x, rel_ops, metapath_length, first=first, rows=train_idx),
+        None, train_y, w))
 
 
 def fit_mpgnn(

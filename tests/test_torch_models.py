@@ -41,7 +41,11 @@ from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.graph.io import split_nodes
 from mpgnn_tpu_torch.models import relconv as tr
-from mpgnn_tpu_torch.models.mpgnn import init_mpgnn, init_rgcn_net
+from mpgnn_tpu_torch.models.mpgnn import (
+    init_mpgnn,
+    init_rgcn_net,
+    precompute_rgcn_input,
+)
 from mpgnn_tpu_torch.serve import MetapathPredictor
 from mpgnn_tpu_torch.train import loops
 from mpgnn_tpu_torch.utils.checkpoint import restore_params, save_params
@@ -314,11 +318,15 @@ def test_rgcn_net_forward_matches_jax(planted, kw):
     np.testing.assert_allclose(
         _np(net.conv1.effective_weights()),
         _np(jm.rgcn_effective_weights(jp.conv1)), **TOL)
-    edges = tr.rgcn_edges(tg.sorted_src, tg.sorted_dst, tg.sorted_type,
-                          tg.num_nodes, 4)
+    x = torch.from_numpy(tg.x)
     with torch.no_grad():
-        got = net(torch.from_numpy(tg.x), edges, 3)
-    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        for backend in ("segment", "csr"):
+            ops = rgcn_baseline.rgcn_operands(tg, backend, "cpu")
+            got = net(x, ops, 3)
+            np.testing.assert_allclose(_np(got), _np(want), **TOL)
+            first = precompute_rgcn_input(x, ops)
+            np.testing.assert_allclose(_np(net(x, ops, 3, first=first)),
+                                       _np(want), **TOL)
 
 
 def test_rgcn_init_shapes_match_jax():
