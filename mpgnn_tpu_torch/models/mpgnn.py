@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -42,7 +42,7 @@ from mpgnn_tpu_torch.models.relconv import (
     uniform,
 )
 from mpgnn_tpu_torch.ops.conv import dense_conv, grouped_dense_aggregate
-from mpgnn_tpu_torch.ops.csr import csr_mean_aggregate
+from mpgnn_tpu_torch.ops.csr import csr_mean_aggregate, csr_scatter
 from mpgnn_tpu_torch.ops.onehot import onehot_spmm_mean
 from mpgnn_tpu_torch.ops.spmm import (
     Ell2Operand,
@@ -567,6 +567,24 @@ def init_metapath_net(input_dim: int, hidden_dim: int, output_dim: int,
 
 
 # ------------------------------------------------------------ the RGCN Net
+# The tag of a relation operand whose term runs on the rows the relation
+# reaches alone: ('csr_rows', blk.fwd, blk.bwd, blk), ``blk`` the
+# ``ops.csr.RowTermBlockings`` that every such relation of a graph shares
+# (``rgcn_baseline.rgcn_operands`` makes them).
+ROW_OPERAND = "csr_rows"
+
+
+class RgcnInput(NamedTuple):
+    """Layer 0's input where some relation's term runs on its rows alone:
+    ``stacked``, ``rgcn_input`` of the other relations (x itself where
+    there are none), and ``rows``, the row-compact relations' aggregations
+    of x on their rows, stacked as their ``RowTermBlockings`` stack them,
+    [M, F]."""
+
+    stacked: torch.Tensor
+    rows: torch.Tensor
+
+
 class RgcnNet(nn.Module):
     """The reference's plain RGCN ``Net`` (model.py:132-149): ``conv1``
     (input -> hidden) then ``conv2`` (hidden -> output) repeated, each
@@ -574,15 +592,22 @@ class RgcnNet(nn.Module):
     (eq. 2 of Schlichtkrull et al. 2018, 1/c_{i,r} the count of i's
     r-edges), a ``linear`` head and log_softmax.
 
-    Each relation's mean runs through ``hop_aggregate`` on its hop
-    operand (``rgcn_baseline.rgcn_operands``: the operands MPNetm's hops
-    use), before its product: the aggregations and ``h`` side by side
-    (``rgcn_input``) meet the relations' weights and the root stacked
-    (``rgcn_weight``) in one product. Layer 0's aggregations of the
-    constant features may be given once (``precompute_rgcn_input``). The
-    build is timed as the span ``model.init``, each layer's sum over
-    relations (aggregations, the product, the bias) as
-    ``rgcn.relations``."""
+    Relation r's mean writes its sources' rows (``out[s]`` over the edges
+    (s, d)), so its term is zero on every row without an r-edge. A
+    relation given as a ``'csr_rows'`` operand (``rgcn_baseline.
+    rgcn_operands``: every csr relation whose forward is K1's) runs its
+    term on the rows R_r it reaches alone (``rgcn_layer``): K1 on the
+    [sum_r |R_r|, N] blocking of all such relations, one product with W_r
+    on each relation's rows, one K1 pass that adds each node's terms.
+    Every other relation's mean runs through ``hop_aggregate`` on its hop
+    operand before its product: those aggregations and ``h`` side by side
+    (``rgcn_input``) meet their weights and the root stacked in one
+    product. Layer 0's aggregations of the constant features may be given
+    once (``precompute_rgcn_input``). The build is timed as the span
+    ``model.init``, each layer's sum over relations (aggregations,
+    products, bias) as ``rgcn.relations``, and in it the terms on
+    relations' rows, one call a layer that has any, as
+    ``rgcn.row_terms``."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_rel: int,
                  output_dim: int, num_classes: int,
@@ -601,7 +626,7 @@ class RgcnNet(nn.Module):
 
     def forward(self, x: torch.Tensor, rel_ops: Sequence[Optional[Tuple]],
                 metapath_length: int, *,
-                first: Optional[torch.Tensor] = None,
+                first: Union[torch.Tensor, RgcnInput, None] = None,
                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[N, C] log-probabilities after ``metapath_length`` layers;
         ``rel_ops[r]`` is relation r's operand, None for a relation
@@ -613,47 +638,144 @@ class RgcnNet(nn.Module):
         for layer in range(metapath_length):
             conv = self.conv1 if layer == 0 else self.conv2
             with span("rgcn.relations"):
-                inp = (first if layer == 0 and first is not None
-                       else rgcn_input(h, rel_ops))
-                z = torch.addmm(conv.bias, inp, rgcn_weight(conv, rel_ops))
+                z = rgcn_layer(conv, h, rel_ops,
+                               first if layer == 0 else None)
             h = torch.relu(z)
         if rows is not None:
             h = h.index_select(0, rows)
         return torch.log_softmax(self.linear(h), dim=1)
 
 
-def rgcn_input(h: torch.Tensor, rel_ops: Sequence[Optional[Tuple]]
+def _on_rows(op: Optional[Tuple]) -> bool:
+    return op is not None and op[0] == ROW_OPERAND
+
+
+def _stacked(op: Optional[Tuple]) -> bool:
+    return op is not None and op[0] != ROW_OPERAND
+
+
+def rgcn_layer(conv: RgcnConv, h: torch.Tensor,
+               rel_ops: Sequence[Optional[Tuple]],
+               given: Union[torch.Tensor, RgcnInput, None] = None
                ) -> torch.Tensor:
-    """[N, (R' + 1) F]: the mean aggregation of h over each of the R'
-    relations with an operand, in relation order, then h."""
-    n = h.shape[0]
-    return torch.cat([hop_aggregate(h, op, n) for op in rel_ops
-                      if op is not None] + [h], dim=1)
-
-
-def rgcn_weight(conv: RgcnConv, rel_ops: Sequence[Optional[Tuple]]
-                ) -> torch.Tensor:
-    """[(R' + 1) in, out]: the effective weights of the relations with an
-    operand, in relation order, then the root, the rows ``rgcn_input``'s
-    columns meet. Differentiable in every variant's parameters; each
+    """[N, out]: one layer's ``sum_r mean_r(h) @ W_r + h @ root + bias``
+    before its ReLU. The stacked relations' aggregations and h
+    (``rgcn_input``, or ``given``, ``precompute_rgcn_input(h, rel_ops)``)
+    meet their effective weights and the root in one ``addmm``; with
+    row-compact relations, that product adds into the sum of their terms
+    and the bias (``_RowTerms``, timed as ``rgcn.row_terms``).
+    Differentiable in h and in every variant's parameters; each
     relation's weight is taken by its host index, so no index goes to the
     device."""
     w = conv.effective_weights()
     if len(rel_ops) != w.shape[0]:
         raise ValueError(f"{len(rel_ops)} relation operands for a conv of "
                          f"{w.shape[0]} relations")
-    return torch.cat([w[r] for r, op in enumerate(rel_ops) if op is not None]
-                     + [conv.root])
+    stacked = [r for r, op in enumerate(rel_ops) if _stacked(op)]
+    compact = [(r, op[3]) for r, op in enumerate(rel_ops) if _on_rows(op)]
+    rows = None
+    if isinstance(given, RgcnInput):
+        inp, rows = given
+    elif given is not None:
+        if compact:
+            raise ValueError("layer 0's input holds no row-compact "
+                             "relation's aggregation: give an RgcnInput")
+        inp = given
+    else:
+        inp = rgcn_input(h, rel_ops) if stacked else h
+    weight = (torch.cat([w[r] for r in stacked] + [conv.root]) if stacked
+              else conv.root)
+    if not compact:
+        return torch.addmm(conv.bias, inp, weight)
+    blk = compact[0][1]
+    if tuple(r for r, _ in compact) != blk.rels or any(
+            b is not blk for _, b in compact):
+        raise ValueError("the row-compact relations' operands are not one "
+                         "RowTermBlockings of those relations")
+    with span("rgcn.row_terms"):
+        if stacked:
+            return _RowTerms.apply(h, w, conv.bias, None, blk,
+                                   rows).addmm_(inp, weight)
+        return _RowTerms.apply(h, w, conv.bias, conv.root, blk, rows)
+
+
+class _RowTerms(torch.autograd.Function):
+    """[N, out]: ``bias + h @ root + sum_r P_r (a_r @ W_r)`` over the
+    row-compact relations r of ``blk`` (``ops.csr.RowTermBlockings``),
+    without the root's product where ``root`` is None; a_r [|R_r|, F] is
+    the mean aggregation of h on the rows R_r relation r reaches and P_r
+    the placement of those rows among the N. K1 on ``blk.fwd`` gives every
+    a_r at once (or they are given: layer 0's), one product a relation
+    writes its terms into its stacked rows, and K1 on ``blk.place`` sums
+    each node's terms in relation order: no add is atomic, and the sums
+    repeat bitwise. The backward gathers ``grad[R_r]`` with K1 on
+    ``blk.take``, takes W_r's gradient ``a_r^T grad[R_r]`` and, where h
+    wants one, writes every relation's ``grad[R_r] W_r^T`` side by side
+    for one K1 pass on ``blk.bwd``, h's gradient through all their means,
+    to which the root's adds in place. The blockings get no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, w, bias, root, blk, given):
+        a = csr_scatter(blk.fwd, h) if given is None else given
+        o = blk.offsets
+        t = a.new_empty((a.shape[0], w.shape[2]))
+        for i, r in enumerate(blk.rels):
+            torch.mm(a[o[i]:o[i + 1]], w[r], out=t[o[i]:o[i + 1]])
+        ctx.save_for_backward(h, w, root)
+        ctx.blk, ctx.a = blk, a
+        z = csr_scatter(blk.place, t).add_(bias)
+        return z if root is None else z.addmm_(h, root)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w, root = ctx.saved_tensors
+        blk, a, o = ctx.blk, ctx.a, ctx.blk.offsets
+        g = csr_scatter(blk.take, grad.contiguous())
+        gw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
+        ga = g.new_empty(a.shape) if ctx.needs_input_grad[0] else None
+        for i, r in enumerate(blk.rels):
+            rows = slice(o[i], o[i + 1])
+            if gw is not None:
+                torch.mm(a[rows].t(), g[rows], out=gw[r])
+            if ga is not None:
+                torch.mm(g[rows], w[r].t(), out=ga[rows])
+        gh = None if ga is None else csr_scatter(blk.bwd, ga)
+        if gh is not None and root is not None:
+            gh.addmm_(grad, root.t())
+        gb = grad.sum(0) if ctx.needs_input_grad[2] else None
+        groot = h.t().mm(grad) if ctx.needs_input_grad[3] else None
+        return gh, gw, gb, groot, None, None
+
+
+def rgcn_input(h: torch.Tensor, rel_ops: Sequence[Optional[Tuple]]
+               ) -> torch.Tensor:
+    """[N, (R' + 1) F]: the mean aggregation of h over each of the R'
+    stacked relations (an operand that is not ``'csr_rows'``), in relation
+    order, then h. A row-compact relation has no block here: its term
+    lives on its own rows (``rgcn_layer``)."""
+    n = h.shape[0]
+    return torch.cat([hop_aggregate(h, op, n) for op in rel_ops
+                      if _stacked(op)] + [h], dim=1)
 
 
 @torch.no_grad()
 def precompute_rgcn_input(x: torch.Tensor,
-                          rel_ops: Sequence[Optional[Tuple]]) -> torch.Tensor:
-    """Layer 0's input, ``rgcn_input(x, rel_ops)``: x is constant for a
-    whole training run, so its aggregations are computed once, outside the
-    epoch loop. Timed as the span ``model.first_hop``."""
+                          rel_ops: Sequence[Optional[Tuple]]
+                          ) -> Union[torch.Tensor, RgcnInput]:
+    """Layer 0's input: x is constant for a whole training run, so its
+    aggregations are computed once, outside the epoch loop. Where every
+    relation is stacked, ``rgcn_input(x, rel_ops)``; else an ``RgcnInput``
+    of the stacked part (x where no relation is stacked) and the
+    row-compact relations' aggregations on their rows, [M, F] (K1 on
+    their ``RowTermBlockings``' forward). Timed as the span
+    ``model.first_hop``."""
     with span("model.first_hop"):
-        return rgcn_input(x, rel_ops)
+        compact = [op for op in rel_ops if _on_rows(op)]
+        if not compact:
+            return rgcn_input(x, rel_ops)
+        return RgcnInput(
+            rgcn_input(x, rel_ops) if any(map(_stacked, rel_ops)) else x,
+            csr_scatter(compact[0][3].fwd, x))
 
 
 @torch.no_grad()

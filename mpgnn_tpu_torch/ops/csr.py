@@ -272,6 +272,86 @@ def build_rect_csr_blocking(
             _build_one_direction(cols, rows, weights, num_cols, num_rows))
 
 
+@dataclasses.dataclass(frozen=True)
+class RowTermBlockings:
+    """K1 blockings of R-GCN relation terms on the rows each relation
+    reaches, for the relations ``rels`` side by side: relation
+    ``rels[i]``'s rows R_i, the rows of its square forward blocking that
+    have an edge (sorted), are the stacked rows ``offsets[i]`` ..
+    ``offsets[i + 1]`` of M = ``offsets[-1]``. On one device:
+
+    * ``fwd`` [M, N]: each relation's mean on its rows, all in one pass;
+    * ``take`` [M, N]: one edge a row, weight 1, its column the row's
+      node: gathers the rows of an [N, F] tensor that the stacked rows
+      belong to;
+    * ``place`` [N, M], ``take``'s transpose: sums each node's stacked
+      rows, in their order (relation order), into its row;
+    * ``bwd`` [N, M], ``fwd``'s transpose: the input gradient of every
+      relation's mean at once."""
+
+    fwd: CsrBlocking
+    take: CsrBlocking
+    place: CsrBlocking
+    bwd: CsrBlocking
+    rels: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+
+
+def transpose_blocking(blk: CsrBlocking) -> CsrBlocking:
+    """The transpose of a K1 blocking, built on its device: row c holds
+    the edges (r, c) with their weights, in ascending r."""
+    dev = blk.col.device
+    e = blk.col.numel()
+    rows = torch.repeat_interleave(
+        torch.arange(blk.num_rows, dtype=torch.int32, device=dev),
+        blk.row_ptr.diff().long(), output_size=e)
+    col = blk.col.long()
+    order = torch.sort(col, stable=True).indices
+    row_ptr = torch.zeros(blk.num_cols + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(col, minlength=blk.num_cols), 0,
+                 out=row_ptr[1:])
+    return CsrBlocking(row_ptr=row_ptr.int(), col=rows[order],
+                       weight=blk.weight[order], num_rows=blk.num_cols,
+                       num_cols=blk.num_rows)
+
+
+def row_term_blockings(rels, fwds) -> RowTermBlockings:
+    """``RowTermBlockings`` of the relations ``rels`` from their square
+    forward K1 blockings ``fwds`` ([N, N], ``build_csr_blocking``'s
+    forward), derived on their device: their edge arrays concatenated and
+    their row offsets renumbered to the rows with edges. K1 counts rows
+    plus edges in int32: M + N plus the edges must stay under 2^31."""
+    fwds = list(fwds)
+    if not fwds or not all(isinstance(b, CsrBlocking) for b in fwds):
+        raise TypeError("row_term_blockings takes one or more CsrBlockings")
+    n = fwds[0].num_rows
+    if any((b.num_rows, b.num_cols) != (n, n) for b in fwds):
+        raise ValueError("row_term_blockings takes square blockings of one "
+                         "size")
+    rows = [torch.nonzero(b.row_ptr.diff()).flatten() for b in fwds]
+    offsets = np.concatenate([[0], np.cumsum([r.numel() for r in rows])])
+    edges = np.concatenate([[0], np.cumsum([b.col.numel() for b in fwds])])
+    m = int(offsets[-1])
+    if m + n + int(edges[-1]) >= 2 ** 31:
+        raise ValueError(f"{len(fwds)} relations of {int(edges[-1])} edges "
+                         f"overflow K1's int32 items")
+    fwd = CsrBlocking(
+        row_ptr=torch.cat([b.row_ptr[r] + int(o) for b, r, o
+                           in zip(fwds, rows, edges)]
+                          + [fwds[0].row_ptr.new_tensor([int(edges[-1])])]),
+        col=torch.cat([b.col for b in fwds]),
+        weight=torch.cat([b.weight for b in fwds]), num_rows=m, num_cols=n)
+    dev = fwd.col.device
+    take = CsrBlocking(
+        row_ptr=torch.arange(m + 1, dtype=torch.int32, device=dev),
+        col=torch.cat(rows).int(), weight=torch.ones(m, device=dev),
+        num_rows=m, num_cols=n)
+    return RowTermBlockings(
+        fwd=fwd, take=take, place=transpose_blocking(take),
+        bwd=transpose_blocking(fwd), rels=tuple(int(r) for r in rels),
+        offsets=tuple(int(o) for o in offsets))
+
+
 def stack_blockings(blockings) -> CsrBlocking:
     """One block-diagonal ``CsrBlocking`` of C same-shaped K1 blockings:
     block c maps rows ``c*N + r`` to columns ``c*N + col``, so K1 on the

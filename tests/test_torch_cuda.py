@@ -1002,3 +1002,90 @@ def test_halo_aggregate_with_a_silent_rank_on_the_card(dev):
         assert res[1][key][2] == 0, key          # rank 1 sends no row
         np.testing.assert_allclose(out, want.detach().numpy(), **TOL)
         np.testing.assert_allclose(grad, x.grad.numpy(), **TOL)
+
+
+def _mag_slice(seed=0):
+    """A HeteroGraph shaped as ogbn-mag at 1/32 of its nodes: papers,
+    authors, institutions and fields in its proportions, its 4 relations
+    and their reverses (each relation's sources a type, each of its
+    destinations another), sources drawn from 90% of their type's rows."""
+    from mpgnn_tpu_torch.graph.hetero import HeteroGraph
+
+    rng = np.random.default_rng(seed)
+    sizes = {"paper": 23_012, "author": 35_458, "inst": 273, "field": 1_874}
+    start = dict(zip(sizes, np.cumsum([0] + list(sizes.values()))[:-1]))
+
+    def pick(t, e, share=1.0):
+        m = int(share * sizes[t])
+        return start[t] + rng.permutation(sizes[t])[:m][rng.integers(0, m, e)]
+
+    rels = [("author", "paper", 223_302), ("paper", "paper", 169_258),
+            ("paper", "field", 234_534), ("author", "inst", 32_625)]
+    src, dst, typ = [], [], []
+    for r, (a, b, e) in enumerate(rels):
+        s, d = pick(a, e, 0.9), pick(b, e, 0.9)
+        src += [s, d]
+        dst += [d, s]
+        typ += [np.full(e, r), np.full(e, r + 4)]
+    n = sum(sizes.values())
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    return HeteroGraph(x, np.concatenate(src), np.concatenate(dst),
+                       np.concatenate(typ), num_relations=8)
+
+
+def _rgcn_run(graph, ops, dev):
+    """logp and every gradient of one R-GCN step's loss."""
+    from mpgnn_tpu_torch.models.mpgnn import (
+        init_rgcn_net,
+        precompute_rgcn_input,
+    )
+
+    x = torch.from_numpy(graph.x).to(dev)
+    model = init_rgcn_net(16, 64, 8, 64, 5, generator=torch.Generator()
+                          .manual_seed(1), device=dev)
+    idx = torch.arange(0, graph.num_nodes, 3, device=dev)
+    logp = model(x, ops, 3, first=precompute_rgcn_input(x, ops), rows=idx)
+    (-logp[:, 0]).mean().backward()
+    return [logp.detach()] + [p.grad for p in model.parameters()]
+
+
+def test_rgcn_row_terms_match_the_stacked_product(dev, monkeypatch):
+    """The R-GCN step on a mag-shaped graph with every relation's term on
+    its rows (``'csr_rows'``) against every relation stacked (the hop
+    operands, ``'csr'``): log-probabilities and gradients within float32
+    rounding (the stacked product sums K = 9 x 64 in one GEMM, the row
+    terms 9 GEMMs of K = 64 added in turn: rtol 1e-4, atol 1e-5). Two
+    runs of the row terms, and each relation's term alone, repeat
+    bitwise. K1 runs both ways on every relation, as on ogbn-mag: at 1/32
+    of its nodes the few institutions and fields would route some
+    directions to K2."""
+    from mpgnn_tpu_torch import rgcn_baseline
+    from mpgnn_tpu_torch.models.mpgnn import ROW_OPERAND, rgcn_layer
+    from mpgnn_tpu_torch.models.relconv import RgcnConv
+    from mpgnn_tpu_torch.train import loops
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(csr, "DEDUP_MIN_RATIO", float("inf"))
+    graph = _mag_slice()
+    rows = rgcn_baseline.rgcn_operands(graph, "csr", dev)
+    assert all(op[0] == ROW_OPERAND for op in rows)
+    stacked = [hop[0] for hop in loops.build_hop_arrays(
+        graph, [[r] for r in range(8)], "csr", dev)]
+    got, again = _rgcn_run(graph, rows, dev), _rgcn_run(graph, rows, dev)
+    want = _rgcn_run(graph, stacked, dev)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+    conv = RgcnConv(64, 64, 8, device=dev).requires_grad_(False)
+    conv.init_(torch.Generator().manual_seed(2))
+    h = torch.randn(graph.num_nodes, 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    for r in range(8):
+        blk = csr.row_term_blockings([r], [stacked[r][1]])
+        alone = [None] * 8
+        alone[r] = (ROW_OPERAND, blk.fwd, blk.bwd, blk)
+        one = rgcn_layer(conv, h, alone)
+        assert torch.equal(one, rgcn_layer(conv, h, alone))
+        alone[r] = stacked[r]
+        torch.testing.assert_close(one, rgcn_layer(conv, h, alone),
+                                   rtol=1e-4, atol=1e-5)

@@ -9,16 +9,22 @@ skeleton.
 The graph is a seeded random typed graph of 4 relations whose sources are
 drawn from a part of the nodes only, so that some nodes have no edges in
 some relations (no term of theirs), with repeated edges (counted in
-1/c_{i,r}), and a fifth relation with no edge at all (no operand).
+1/c_{i,r}), and a fifth relation with no edge at all (no operand). On
+'csr' every relation's term runs on the rows it reaches ('csr_rows'
+operands, ``ops.csr.RowTermBlockings``); 'csr_stacked' holds the same
+blockings through the stacked product, and a layer where the two paths
+mix is held against both.
 
 Tolerances, with their reasons:
 * log-probabilities, the loss and the first gradients: the program sums
   and multiplies in float32 where the reference does in float64, in
-  another order (aggregate, then one stacked product, against a product
-  per edge); values of order 1 over sums of up to ~100 terms keep a
-  float32 error under 1e-6, so rtol 1e-5, atol 1e-6 (a float32 run of the
-  reference's equations with any term left out or any relation's
-  normalization changed misses by more than 1e-3).
+  another order (aggregate, then one product a relation or one stacked
+  product, against a product per edge); values of order 1 over sums of
+  up to ~100 terms keep a float32 error under 1e-6, so rtol 1e-5, atol
+  1e-6 (the row terms and the stacked product, both float32, are held to
+  each other the same way; a float32 run of the reference's equations
+  with any term left out or any relation's normalization changed misses
+  by more than 1e-3).
 * 3 Adam steps: the losses as above; each leaf's change atol 1e-4 (Adam
   divides a gradient by its running RMS, so an element that float32
   rounding dominates moves by up to lr a step: ``tests/test_torch_train.
@@ -43,6 +49,8 @@ from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.graph.io import split_nodes
 from mpgnn_tpu_torch.models.mpgnn import (
+    ROW_OPERAND,
+    RgcnInput,
     init_rgcn_net,
     precompute_first_hop,
     precompute_rgcn_input,
@@ -60,6 +68,9 @@ RTOL, ATOL = 1e-5, 1e-6
 DELTA_ATOL = 1e-4
 VARIANTS = [{}, dict(num_bases=2), dict(num_blocks=2)]
 BACKENDS = ("csr", "segment")
+# 'csr' runs every relation's term on its rows ('csr_rows' operands);
+# 'csr_stacked' the same blockings through the stacked product
+PATHS = BACKENDS + ("csr_stacked",)
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +106,20 @@ def _setup(g, rows, backend, kw, seed=5):
                                     device="cpu")
 
 
+def _path(backend, monkeypatch):
+    """The backend of a path of ``PATHS``; 'csr_stacked' keeps the csr
+    operands out of the row terms."""
+    if backend != "csr_stacked":
+        return backend
+    monkeypatch.setattr(rgcn_baseline, "row_term_operands",
+                        lambda ops, rels: ops)
+    return "csr"
+
+
+def _kinds(run):
+    return {op[0] for op in run.rel_ops if op is not None}
+
+
 def _params(model):
     return {k: v.detach().clone() for k, v in model.named_parameters()}
 
@@ -112,13 +137,16 @@ def _ref_loss(g, rows, p, precision="float64"):
     return logp, (per * w).sum() / w.sum()
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", PATHS)
 @pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
 def test_forward_loss_and_gradients_match_the_reference(graph, rows,
-                                                        backend, kw):
-    run = _setup(graph, rows, backend, kw)
+                                                        backend, kw,
+                                                        monkeypatch):
+    path = _path(backend, monkeypatch)
+    run = _setup(graph, rows, path, kw)
     assert run.rel_ops[R - 1] is None and all(run.rel_ops[:R - 1])
-    assert run.backend == backend
+    assert run.backend == path
+    assert _kinds(run) == {ROW_OPERAND if backend == "csr" else path}
     logp = run.model(run.x, run.rel_ops, LAYERS, first=run.first,
                      rows=run.train_idx)
     loss = loops.weighted_nll(logp, None, run.train_y, run.w)
@@ -136,10 +164,11 @@ def test_forward_loss_and_gradients_match_the_reference(graph, rows,
                                    RTOL, ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", PATHS)
 @pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
-def test_three_adam_steps_match_the_reference(graph, rows, backend, kw):
-    run = _setup(graph, rows, backend, kw)
+def test_three_adam_steps_match_the_reference(graph, rows, backend, kw,
+                                              monkeypatch):
+    run = _setup(graph, rows, _path(backend, monkeypatch), kw)
     p0 = _params(run.model)
     losses = []
     for t in range(3):
@@ -333,3 +362,109 @@ def test_the_reference_imports_nothing_of_either_package():
     text = (ROOT / "perfbench" / "reference" / "rgcn.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(mpgnn_tpu|jax)", text, re.M)
     assert "mpgnn_tpu" not in text
+
+
+def _grads(model, x, ops, idx):
+    """logp on ``idx`` and every gradient of the mean NLL of class 0."""
+    model.zero_grad(set_to_none=True)
+    logp = model(x, ops, LAYERS, first=precompute_rgcn_input(x, ops),
+                 rows=idx)
+    (-logp[:, 0]).mean().backward()
+    return [logp.detach()] + [p.grad.clone() for p in model.parameters()]
+
+
+@pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
+def test_row_terms_and_the_stacked_product_mix(kw):
+    """A layer whose relations take both paths: relation 0 reaches every
+    row and stays in the stacked product, relations 1-3 reach a few rows
+    each and run on them (``row_term_operands``); the log-probabilities
+    and gradients equal the all-stacked and the all-rows runs'."""
+    rng = np.random.default_rng(21)
+    src = [np.arange(N)] + [rng.integers(0, 6, 30) for _ in range(3)]
+    dst = [rng.integers(0, N, len(s)) for s in src]
+    g = HeteroGraph(rng.normal(size=(N, F)).astype(np.float32),
+                    np.concatenate(src), np.concatenate(dst),
+                    np.concatenate([np.full(len(s), r)
+                                    for r, s in enumerate(src)]),
+                    num_relations=4)
+    ops = [hop[0] for hop in loops.build_hop_arrays(
+        g, [[r] for r in range(4)], "csr", "cpu")]
+    mixed = rgcn_baseline.row_term_operands(ops, [1, 2, 3])
+    assert [op[0] for op in mixed] == ["csr"] + [ROW_OPERAND] * 3
+    model = init_rgcn_net(F, H, 4, H, C, generator=torch.Generator()
+                          .manual_seed(6), device="cpu", **kw)
+    x, idx = torch.from_numpy(g.x), torch.arange(0, N, 2)
+    want = _grads(model, x, ops, idx)
+    for got in (_grads(model, x, mixed, idx), _grads(
+            model, x, rgcn_baseline.row_term_operands(ops, [0, 1, 2, 3]),
+            idx)):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), RTOL, ATOL)
+
+
+@pytest.mark.parametrize("backend", ["csr", "segment", "dense"])
+def test_row_terms_span_counts_each_engaged_layer(graph, rows, backend):
+    """``rgcn.row_terms``: one call a layer with row terms, inside
+    ``rgcn.relations``; the segment and dense backends have none."""
+    run = _setup(graph, rows, backend, {})
+    prof.reset_spans()
+    try:
+        run.step()
+        got = prof.spans()
+    finally:
+        prof.reset_spans()
+    assert got["rgcn.relations"]["calls"] == LAYERS
+    if backend != "csr":
+        assert "rgcn.row_terms" not in got
+        return
+    assert got["rgcn.row_terms"]["calls"] == LAYERS
+    assert got["rgcn.row_terms"]["parent"] == "rgcn.relations"
+
+
+def test_layer_zero_input_holds_each_relations_rows(graph):
+    """With row terms, layer 0's input is x and the relations' means on
+    the rows they reach, side by side in relation order: each relation's
+    rows are its sources, ascending."""
+    ops = rgcn_baseline.rgcn_operands(graph, "csr", "cpu")
+    x = torch.from_numpy(graph.x)
+    first = precompute_rgcn_input(x, ops)
+    assert isinstance(first, RgcnInput) and first.stacked is x
+    blk = ops[0][3]
+    assert blk.rels == tuple(range(R - 1))
+    assert all(op[3] is blk for op in ops[:R - 1])
+    assert first.rows.shape == (blk.offsets[-1], F)
+    for i, r in enumerate(blk.rels):
+        s, d = graph.rel_edges(r)
+        rows = blk.take.col[blk.offsets[i]:blk.offsets[i + 1]].numpy()
+        np.testing.assert_array_equal(rows, np.unique(s))
+        np.testing.assert_allclose(
+            first.rows[blk.offsets[i]:blk.offsets[i + 1]].numpy(),
+            _mean(graph.x, s, d)[rows], rtol=RTOL, atol=ATOL)
+
+
+def _dense(blk):
+    """A K1 blocking as a dense float64 matrix (repeated edges summed)."""
+    rows = torch.repeat_interleave(torch.arange(blk.num_rows),
+                                   blk.row_ptr.diff().long())
+    return torch.zeros(blk.num_rows, blk.num_cols, dtype=torch.float64) \
+        .index_put_((rows, blk.col.long()), blk.weight.double(),
+                    accumulate=True)
+
+
+def test_row_term_blockings_transpose_and_place(graph):
+    """``take`` picks each stacked row's node (one 1 a row), ``place``
+    and ``bwd`` are the transposes of ``take`` and ``fwd``, and ``fwd`` is
+    each relation's square forward on its rows."""
+    ops = [hop[0] for hop in loops.build_hop_arrays(
+        graph, [[r] for r in range(R - 1)], "csr", "cpu")]
+    blk = rgcn_baseline.row_term_operands(ops, list(range(R - 1)))[0][3]
+    m = blk.offsets[-1]
+    want = torch.zeros(m, N, dtype=torch.float64)
+    want[torch.arange(m), blk.take.col.long()] = 1.0
+    assert torch.equal(_dense(blk.take), want)
+    assert torch.equal(_dense(blk.place), want.T)
+    assert torch.equal(_dense(blk.bwd), _dense(blk.fwd).T)
+    for i, op in enumerate(ops):
+        rows = slice(blk.offsets[i], blk.offsets[i + 1])
+        assert torch.equal(_dense(blk.fwd)[rows],
+                           _dense(op[1])[blk.take.col[rows].long()])
