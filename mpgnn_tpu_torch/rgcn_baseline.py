@@ -10,14 +10,11 @@ the baseline weighs each class by n / (C * count)), report macro-F1.
 
 It runs on the GPU unless ``--device cpu`` (or its alias ``--platform
 cpu``, for the JAX command lines) is given. It trains on the port's normal
-path: each relation's mean aggregation runs on the hop operands MPNetm's
-hops use (``train.loops.build_hop_arrays``, one relation a hop; with
-``--backend auto``, the default, resolved by ``resolve_backend`` as
-``train_mpgnn`` resolves it: the csr kernels K1/K2 on a large graph; a csr
-relation with a K1 forward runs its term on the rows it reaches alone,
-``rgcn_operands``), and every epoch is one
-``train.loops.rgcn_train_step``. ``setup_rgcn`` builds the run's objects;
-the benchmark calls it too.
+path: each relation's term runs on the rows it reaches, on K1 blockings
+derived from the csr hop operands MPNetm's hops use
+(``train.loops.build_hop_arrays``, one relation a hop; ``rgcn_operands``),
+and every epoch is one ``train.loops.rgcn_train_step``. ``setup_rgcn``
+builds the run's objects; the benchmark calls it too.
 """
 
 from __future__ import annotations
@@ -27,7 +24,7 @@ import dataclasses
 import logging
 import sys
 import time
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,18 +33,19 @@ from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.device import resolve_device
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.models.mpgnn import (
-    ROW_OPERAND,
-    RgcnInput,
     RgcnNet,
     init_rgcn_net,
-    precompute_rgcn_input,
+    precompute_rgcn_rows,
 )
-from mpgnn_tpu_torch.ops.csr import CsrBlocking, row_term_blockings
+from mpgnn_tpu_torch.ops.csr import (
+    CsrBlocking,
+    RowTermBlockings,
+    build_csr_blocking,
+    row_term_blockings,
+)
 from mpgnn_tpu_torch.train.loops import (
-    auto_dense_budget_bytes,
     build_hop_arrays,
     make_optimizer,
-    resolve_backend,
     rgcn_train_step,
     split_tensors,
 )
@@ -55,11 +53,6 @@ from mpgnn_tpu_torch.train.metrics import macro_f1
 from mpgnn_tpu_torch.utils.prof import span
 
 log = logging.getLogger("mpgnn_tpu_torch.rgcn_baseline")
-
-# the backends whose operands ``models.mpgnn.hop_aggregate`` takes alone:
-# 'pallas' fuses the aggregation into its conv's kernel, 'halo' shards
-# the rows over a mesh
-RGCN_BACKENDS = ("segment", "csr", "ell", "ell2", "dense", "onehot")
 
 
 def balanced_class_weights(y: np.ndarray, num_classes: int) -> np.ndarray:
@@ -72,67 +65,44 @@ def balanced_class_weights(y: np.ndarray, num_classes: int) -> np.ndarray:
     return (len(y) / (num_classes * counts)).astype(np.float32)
 
 
-def rgcn_operands(graph: HeteroGraph, backend: str, device
-                  ) -> List[Optional[Tuple]]:
-    """Each relation's aggregation operand on ``device``, None for a
-    relation without edges: ``build_hop_arrays`` of one-hop metapaths, so
-    from the graph's operand cache (``relation_operand``) that MPNetm's
-    hops share. ``backend`` is one of ``RGCN_BACKENDS``.
-
-    Relation r's term lives on the rows R_r with an r-edge, its sources.
-    Every 'csr' relation whose forward blocking is K1's runs its term on
-    those rows alone (``row_term_operands``); every other operand is the
-    hop's, whose term joins the stacked product. The row terms won at
+def rgcn_operands(graph: HeteroGraph, device
+                  ) -> Optional[RowTermBlockings]:
+    """The ``ops.csr.RowTermBlockings`` of every relation of ``graph`` with
+    edges, on ``device``; None for a graph without edges. Each relation's
+    'csr' hop operand comes from ``build_hop_arrays`` of one-hop
+    metapaths, so from the graph's operand cache (``relation_operand``)
+    that MPNetm's hops share; its forward blocking is the relation's K1
+    forward, or, where ``build_csr_blocking`` routed it to K2, the K1
+    forward is built from the relation's edges. The row terms won at
     every reach share measured, up to every row
-    (``benchmarks/bench_rgcn_rows.py`` at ogbn-mag's 1,939,743 rows, 64 ->
-    64, float32, 8 relations of 5M edges, on an NVIDIA H100 80GB HBM3 at
-    700.00 W, row terms over the stacked product, ms: each relation
-    reaching 5% of the rows 9.63 / 30.00, 25% 14.49 / 31.73, 50% 19.14 /
-    32.11, 75% 23.72 / 32.25, 90% 26.92 / 32.30, every row 28.56 / 32.32:
-    at every row they still skip the concatenation, its gradient's copies
-    and the 9-way gradient sum), so the reach does not choose the path.
-    The derivation is timed as a second call of the span
-    ``train.build_hop_arrays``; each relation's path (and |R_r|) is
-    logged."""
-    if backend not in RGCN_BACKENDS:
-        raise ValueError(f"the RGCN baseline takes a backend of "
-                         f"{RGCN_BACKENDS}, not {backend!r}")
+    (``RgcnNet``'s terms on each relation's rows against one stacked
+    [N, 9F] product of the aggregations and h, at ogbn-mag's 1,939,743
+    rows, 64 -> 64, float32, 8 relations of 5M edges, on an NVIDIA H100
+    80GB HBM3 at 700.00 W, ms: each relation reaching 5% of the rows
+    9.63 / 30.00, 25% 14.49 / 31.73, 50% 19.14 / 32.11, 75% 23.72 /
+    32.25, 90% 26.92 / 32.30, every row 28.56 / 32.32: at every row they
+    still skip the concatenation, its gradient's copies and the 9-way
+    gradient sum), so the reach does not choose the path. The derivation
+    is timed as a second call of the span ``train.build_hop_arrays``; each
+    relation's |R_r| is logged."""
     present = graph.present_relations()
-    ops = build_hop_arrays(graph, [[r] for r in present], backend=backend,
-                           device=device)
-    out: List[Optional[Tuple]] = [None] * graph.num_relations
-    for r, hop in zip(present, ops):
-        out[r] = hop[0]
-    rows = [r for r in present
-            if out[r][0] == "csr" and isinstance(out[r][1], CsrBlocking)]
-    if rows:
-        with span("train.build_hop_arrays"):
-            out = row_term_operands(out, rows)
+    hops = build_hop_arrays(graph, [[r] for r in present], backend="csr",
+                            device=device)
+    if not present:
+        return None
     n = graph.num_nodes
-    for r in present:
-        if out[r][0] != ROW_OPERAND:
-            log.info("rgcn baseline: relation %d: stacked (%r operand)", r,
-                     out[r][0])
-            continue
-        o, i = out[r][3].offsets, rows.index(r)
+    with span("train.build_hop_arrays"):
+        fwds = [hop[0][1] if isinstance(hop[0][1], CsrBlocking)
+                else build_csr_blocking(*graph.rel_edges(r), n,
+                                        dedup="never")[0].to(device)
+                for r, hop in zip(present, hops)]
+        blk = row_term_blockings(present, fwds)
+    o = blk.offsets
+    for i, r in enumerate(blk.rels):
         log.info("rgcn baseline: relation %d: row terms on %d of %d rows "
                  "(%.1f%%)", r, o[i + 1] - o[i], n,
                  100.0 * (o[i + 1] - o[i]) / n)
-    return out
-
-
-def row_term_operands(ops: List[Optional[Tuple]], rels: List[int]
-                      ) -> List[Optional[Tuple]]:
-    """``ops`` with each relation of ``rels`` (a 'csr' operand whose
-    forward blocking is K1's) turned to ``('csr_rows', blk.fwd, blk.bwd,
-    blk)``: ``blk``, the ``ops.csr.RowTermBlockings`` of those relations
-    that they all share, is derived on their device from their forward
-    blockings."""
-    blk = row_term_blockings(rels, [ops[r][1] for r in rels])
-    out = list(ops)
-    for r in rels:
-        out[r] = (ROW_OPERAND, blk.fwd, blk.bwd, blk)
-    return out
+    return blk
 
 
 @dataclasses.dataclass
@@ -142,24 +112,35 @@ class RgcnTraining:
     model: RgcnNet
     opt: torch.optim.Optimizer
     x: torch.Tensor
-    rel_ops: List[Optional[Tuple]]
-    first: Union[torch.Tensor, RgcnInput]  # precompute_rgcn_input
+    blk: Optional[RowTermBlockings]     # rgcn_operands
+    first: Optional[torch.Tensor]       # precompute_rgcn_rows
     metapath_length: int
+    num_relations: int
     train_idx: torch.Tensor
     train_y: torch.Tensor
     w: torch.Tensor                # [T] class weights of the train rows
-    backend: str
+    # every relation's term runs on K1 blockings
+    backend = "csr"
+
+    @property
+    def rel_ops(self) -> List[Optional[Tuple]]:
+        """Per relation, None for a relation without edges, else
+        ``('csr', blk.fwd, blk.bwd)``: the K1 blockings its term runs on,
+        which all relations share (the benchmark names the kernels)."""
+        rels = () if self.blk is None else self.blk.rels
+        return [(self.backend, self.blk.fwd, self.blk.bwd) if r in rels
+                else None for r in range(self.num_relations)]
 
     def step(self) -> torch.Tensor:
         """One epoch's step; returns its loss."""
-        return rgcn_train_step(self.model, self.opt, self.x, self.rel_ops,
+        return rgcn_train_step(self.model, self.opt, self.x, self.blk,
                                self.first, self.metapath_length,
                                self.train_idx, self.train_y, self.w)
 
     @torch.no_grad()
     def predict(self) -> torch.Tensor:
         """[N] predicted classes."""
-        return self.model(self.x, self.rel_ops, self.metapath_length,
+        return self.model(self.x, self.blk, self.metapath_length,
                           first=self.first).argmax(dim=1)
 
 
@@ -169,24 +150,22 @@ def setup_rgcn(graph: HeteroGraph, x: torch.Tensor, train_idx: torch.Tensor,
                backend: str = "auto", model: Optional[RgcnNet] = None,
                seed: int = 10, device=None) -> RgcnTraining:
     """An ``RgcnTraining`` of ``graph``'s relations on ``device`` (the GPU
-    unless ``device='cpu'``): ``backend`` ('auto' resolved by
-    ``resolve_backend`` over every relation, as ``train_mpgnn`` resolves
-    it), the operands (``rgcn_operands``), the model (drawn by
-    ``init_rgcn_net`` from ``seed``, ``cfg.num_bases`` / ``cfg.num_blocks``
-    picking the decomposition, hidden and output widths ``cfg.hidden_dim``;
-    or ``model``, moved to ``device``), Adam (``make_optimizer``), layer
-    0's input and the balanced class weights of ``train_y``. ``x`` is the
-    [N, F] float32 features, on ``device`` or copied there."""
+    unless ``device='cpu'``): the relations' row-term blockings
+    (``rgcn_operands``), the model (drawn by ``init_rgcn_net`` from
+    ``seed``, ``cfg.num_bases`` / ``cfg.num_blocks`` picking the
+    decomposition, hidden and output widths ``cfg.hidden_dim``; or
+    ``model``, moved to ``device``), Adam (``make_optimizer``), layer 0's
+    aggregations and the balanced class weights of ``train_y``. ``x`` is
+    the [N, F] float32 features, on ``device`` or copied there.
+    ``backend`` 'auto' and 'csr' both name the one path, K1 row terms;
+    any other is refused."""
+    if backend not in ("auto", "csr"):
+        raise ValueError(f"the RGCN baseline runs every relation's term on "
+                         f"K1 blockings of the rows it reaches: backend "
+                         f"'auto' or 'csr', not {backend!r}")
     cfg = cfg or MPGNNConfig()
     device = resolve_device(device)
-    relations = [[r] for r in range(graph.num_relations)]
-    if backend == "auto":
-        backend = resolve_backend(backend, graph, relations,
-                                  auto_dense_budget_bytes(device))
-        log.info("rgcn baseline: backend 'auto' -> %r (%d nodes, %d "
-                 "relations)", backend, graph.num_nodes,
-                 graph.num_relations)
-    rel_ops = rgcn_operands(graph, backend, device)
+    blk = rgcn_operands(graph, device)
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     if model is None:
         model = init_rgcn_net(
@@ -195,14 +174,15 @@ def setup_rgcn(graph: HeteroGraph, x: torch.Tensor, train_idx: torch.Tensor,
             generator=torch.Generator().manual_seed(seed), device=device)
     model = model.to(device)
     opt = make_optimizer(model, cfg)
-    first = precompute_rgcn_input(x, rel_ops)
+    first = precompute_rgcn_rows(x, blk)
     train_y = torch.as_tensor(train_y, device=device)
     cw = balanced_class_weights(train_y.cpu().numpy(), num_classes)
     return RgcnTraining(
-        model=model, opt=opt, x=x, rel_ops=rel_ops, first=first,
+        model=model, opt=opt, x=x, blk=blk, first=first,
         metapath_length=metapath_length,
+        num_relations=graph.num_relations,
         train_idx=torch.as_tensor(train_idx, device=device), train_y=train_y,
-        w=torch.as_tensor(cw, device=device)[train_y], backend=backend)
+        w=torch.as_tensor(cw, device=device)[train_y])
 
 
 def train_rgcn_baseline(
@@ -216,15 +196,14 @@ def train_rgcn_baseline(
     x_override: Optional[np.ndarray] = None,
     device=None,
     model=None,
-    backend: str = "auto",
 ) -> dict:
     """Train the RGCN ``Net`` on every relation of ``graph`` for
     ``cfg.epochs`` epochs on ``device`` (the GPU unless ``device='cpu'``)
     and return {params, train_f1, val_f1, test_f1, final_loss}: the
     trained ``RgcnNet``, the last epoch's macro-F1s and the loss of the
-    last step. Set-up is ``setup_rgcn`` (``backend``, the parameters drawn
-    from ``seed`` unless ``model`` gives the initial ones); each epoch is
-    its ``step``."""
+    last step. Set-up is ``setup_rgcn`` (the parameters drawn from ``seed``
+    unless ``model`` gives the initial ones); each epoch is its
+    ``step``."""
     cfg = cfg or MPGNNConfig()
     device = resolve_device(device)
     train_idx, train_y, val_idx, val_y, test_idx, test_y = split_tensors(
@@ -232,8 +211,8 @@ def train_rgcn_baseline(
     x = np.asarray(graph.x if x_override is None else x_override,
                    dtype=np.float32)
     run = setup_rgcn(graph, torch.from_numpy(x), train_idx, train_y,
-                     num_classes, metapath_length, cfg, backend, model, seed,
-                     device)
+                     num_classes, metapath_length, cfg, model=model, seed=seed,
+                     device=device)
     loss = torch.zeros((), device=device)
     t0 = time.perf_counter()
     for _ in range(cfg.epochs):
@@ -244,9 +223,8 @@ def train_rgcn_baseline(
                         (test_idx, test_y))]
     seconds = time.perf_counter() - t0
     log.info("rgcn baseline: %d epochs in %.3f s (%.4f ms an epoch, the "
-             "final evaluation included) on %s, backend %r", cfg.epochs,
-             seconds, seconds / max(cfg.epochs, 1) * 1e3, device,
-             run.backend)
+             "final evaluation included) on %s", cfg.epochs, seconds,
+             seconds / max(cfg.epochs, 1) * 1e3, device)
     return {"params": run.model, "train_f1": f1s[0], "val_f1": f1s[1],
             "test_f1": f1s[2], "final_loss": float(loss.detach())}
 
@@ -266,10 +244,6 @@ def main(argv=None):
     ap.add_argument("--num_blocks", type=int, default=None,
                     help="block-diagonal decomposition "
                          "(mp_rgcn_layer.py:125-131)")
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto",) + RGCN_BACKENDS,
-                    help="each relation's aggregation (default auto: "
-                         "resolved as train_mpgnn resolves it)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda)")
     ap.add_argument("--platform", type=str, default=None,
@@ -311,7 +285,7 @@ def main(argv=None):
         graph, labels, split, num_classes, args.metapath_length,
         MPGNNConfig(epochs=args.epochs, hidden_dim=args.hidden_dim,
                     num_bases=args.num_bases, num_blocks=args.num_blocks),
-        x_override=x, device=device, backend=args.backend,
+        x_override=x, device=device,
     )
     print(f"train F1 {res['train_f1']:.4f} val F1 {res['val_f1']:.4f} "
           f"test F1 {res['test_f1']:.4f} loss {res['final_loss']:.4f}",

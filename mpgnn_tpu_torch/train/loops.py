@@ -30,7 +30,7 @@ from mpgnn_tpu_torch.models.mpgnn import (
     precompute_first_hop,
 )
 from mpgnn_tpu_torch.ops.conv import build_dense_conv_operand
-from mpgnn_tpu_torch.ops.csr import build_csr_blocking
+from mpgnn_tpu_torch.ops.csr import RowTermBlockings, build_csr_blocking
 from mpgnn_tpu_torch.ops.onehot import build_spmm_blocking
 from mpgnn_tpu_torch.ops.spmm import build_ell2_operand, dense_adjacency
 from mpgnn_tpu_torch.parallel.halo import (
@@ -393,15 +393,17 @@ def train_step(model: MPNetm, opt: torch.optim.Optimizer, x: torch.Tensor,
 
 
 def rgcn_train_step(model: RgcnNet, opt: torch.optim.Optimizer,
-                    x: torch.Tensor, rel_ops, first: torch.Tensor,
+                    x: torch.Tensor, blk: Optional[RowTermBlockings],
+                    first: Optional[torch.Tensor],
                     metapath_length: int, train_idx: torch.Tensor,
                     train_y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One epoch's step of the RGCN ``Net`` (``optimizer_step``): the
-    forward over every relation's operand ``rel_ops`` from layer 0's input
-    ``first`` (``precompute_rgcn_input``), the head on the train rows
+    forward over the relations' row-term blockings ``blk``
+    (``rgcn_baseline.rgcn_operands``) from layer 0's aggregations
+    ``first`` (``precompute_rgcn_rows``), the head on the train rows
     alone, the weighted NLL, its backward and Adam. Returns the loss."""
     return optimizer_step(opt, lambda: weighted_nll(
-        model(x, rel_ops, metapath_length, first=first, rows=train_idx),
+        model(x, blk, metapath_length, first=first, rows=train_idx),
         None, train_y, w))
 
 

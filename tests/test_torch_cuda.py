@@ -1033,59 +1033,59 @@ def _mag_slice(seed=0):
                        np.concatenate(typ), num_relations=8)
 
 
-def _rgcn_run(graph, ops, dev):
-    """logp and every gradient of one R-GCN step's loss."""
+def _rgcn_run(graph, blk, dev):
+    """logp and every gradient of one R-GCN step's loss on ``dev``."""
     from mpgnn_tpu_torch.models.mpgnn import (
         init_rgcn_net,
-        precompute_rgcn_input,
+        precompute_rgcn_rows,
     )
 
     x = torch.from_numpy(graph.x).to(dev)
     model = init_rgcn_net(16, 64, 8, 64, 5, generator=torch.Generator()
                           .manual_seed(1), device=dev)
     idx = torch.arange(0, graph.num_nodes, 3, device=dev)
-    logp = model(x, ops, 3, first=precompute_rgcn_input(x, ops), rows=idx)
+    logp = model(x, blk, 3, first=precompute_rgcn_rows(x, blk), rows=idx)
     (-logp[:, 0]).mean().backward()
     return [logp.detach()] + [p.grad for p in model.parameters()]
 
 
-def test_rgcn_row_terms_match_the_stacked_product(dev, monkeypatch):
-    """The R-GCN step on a mag-shaped graph with every relation's term on
-    its rows (``'csr_rows'``) against every relation stacked (the hop
-    operands, ``'csr'``): log-probabilities and gradients within float32
-    rounding (the stacked product sums K = 9 x 64 in one GEMM, the row
-    terms 9 GEMMs of K = 64 added in turn: rtol 1e-4, atol 1e-5). Two
-    runs of the row terms, and each relation's term alone, repeat
-    bitwise. K1 runs both ways on every relation, as on ogbn-mag: at 1/32
-    of its nodes the few institutions and fields would route some
-    directions to K2."""
+def test_rgcn_step_on_the_card_matches_the_plain_versions(dev, monkeypatch):
+    """The R-GCN step on a mag-shaped graph, every relation's term on its
+    rows: K1 on the card against the plain versions on the CPU, each on
+    ``rgcn_operands``' blockings of its device: log-probabilities and
+    gradients within float32 rounding (the products and the sums of each
+    node's terms run in other orders on the two: rtol 1e-4, atol 1e-5).
+    Two runs on the card, and each relation's term alone, repeat bitwise.
+    K1 runs both ways on every relation, as on ogbn-mag: at 1/32 of its
+    nodes the few institutions and fields would route some directions to
+    K2."""
     from mpgnn_tpu_torch import rgcn_baseline
-    from mpgnn_tpu_torch.models.mpgnn import ROW_OPERAND, rgcn_layer
+    from mpgnn_tpu_torch.models.mpgnn import _RowTerms
     from mpgnn_tpu_torch.models.relconv import RgcnConv
     from mpgnn_tpu_torch.train import loops
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(csr, "DEDUP_MIN_RATIO", float("inf"))
     graph = _mag_slice()
-    rows = rgcn_baseline.rgcn_operands(graph, "csr", dev)
-    assert all(op[0] == ROW_OPERAND for op in rows)
-    stacked = [hop[0] for hop in loops.build_hop_arrays(
-        graph, [[r] for r in range(8)], "csr", dev)]
-    got, again = _rgcn_run(graph, rows, dev), _rgcn_run(graph, rows, dev)
-    want = _rgcn_run(graph, stacked, dev)
+    blk = rgcn_baseline.rgcn_operands(graph, dev)
+    assert blk.rels == tuple(range(8))
+    got, again = _rgcn_run(graph, blk, dev), _rgcn_run(graph, blk, dev)
+    want = _rgcn_run(graph, rgcn_baseline.rgcn_operands(graph, "cpu"), "cpu")
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
-        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-5)
     conv = RgcnConv(64, 64, 8, device=dev).requires_grad_(False)
     conv.init_(torch.Generator().manual_seed(2))
+    args = (conv.effective_weights(), conv.bias, conv.root)
     h = torch.randn(graph.num_nodes, 64, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(3))
+    fwds = [hop[0][1] for hop in loops.build_hop_arrays(
+        graph, [[r] for r in range(8)], "csr", dev)]
     for r in range(8):
-        blk = csr.row_term_blockings([r], [stacked[r][1]])
-        alone = [None] * 8
-        alone[r] = (ROW_OPERAND, blk.fwd, blk.bwd, blk)
-        one = rgcn_layer(conv, h, alone)
-        assert torch.equal(one, rgcn_layer(conv, h, alone))
-        alone[r] = stacked[r]
-        torch.testing.assert_close(one, rgcn_layer(conv, h, alone),
-                                   rtol=1e-4, atol=1e-5)
+        alone = csr.row_term_blockings([r], [fwds[r]])
+        one = _RowTerms.apply(h, *args, alone, None)
+        assert torch.equal(one, _RowTerms.apply(h, *args, alone, None))
+        plain = _RowTerms.apply(
+            h.cpu(), *(a.cpu() for a in args),
+            csr.row_term_blockings([r], [fwds[r].to("cpu")]), None)
+        torch.testing.assert_close(one.cpu(), plain, rtol=1e-4, atol=1e-5)

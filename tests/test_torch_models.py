@@ -44,7 +44,7 @@ from mpgnn_tpu_torch.models import relconv as tr
 from mpgnn_tpu_torch.models.mpgnn import (
     init_mpgnn,
     init_rgcn_net,
-    precompute_rgcn_input,
+    precompute_rgcn_rows,
 )
 from mpgnn_tpu_torch.serve import MetapathPredictor
 from mpgnn_tpu_torch.train import loops
@@ -320,13 +320,11 @@ def test_rgcn_net_forward_matches_jax(planted, kw):
         _np(jm.rgcn_effective_weights(jp.conv1)), **TOL)
     x = torch.from_numpy(tg.x)
     with torch.no_grad():
-        for backend in ("segment", "csr"):
-            ops = rgcn_baseline.rgcn_operands(tg, backend, "cpu")
-            got = net(x, ops, 3)
-            np.testing.assert_allclose(_np(got), _np(want), **TOL)
-            first = precompute_rgcn_input(x, ops)
-            np.testing.assert_allclose(_np(net(x, ops, 3, first=first)),
-                                       _np(want), **TOL)
+        blk = rgcn_baseline.rgcn_operands(tg, "cpu")
+        np.testing.assert_allclose(_np(net(x, blk, 3)), _np(want), **TOL)
+        first = precompute_rgcn_rows(x, blk)
+        np.testing.assert_allclose(_np(net(x, blk, 3, first=first)),
+                                   _np(want), **TOL)
 
 
 def test_rgcn_init_shapes_match_jax():

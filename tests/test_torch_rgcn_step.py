@@ -1,30 +1,30 @@
 """The R-GCN baseline on the port's normal path, on the CPU: ``RgcnNet`` on
-the relations' hop operands (``rgcn_baseline.rgcn_operands``) and the
-shared step skeleton (``train.loops.optimizer_step``) against the plain
-reference of the benchmark (``perfbench/reference/rgcn.py``, float64, per
-edge), the baseline's loss against the JAX-parity aggregation
-``rgcn_aggregate``, the CLI, and MPNetm's step unchanged by the shared
-skeleton.
+the relations' row-term blockings (``rgcn_baseline.rgcn_operands``,
+``ops.csr.RowTermBlockings``) and the shared step skeleton
+(``train.loops.optimizer_step``) against the plain reference of the
+benchmark (``perfbench/reference/rgcn.py``, float64, per edge), the
+baseline's loss against the JAX-parity aggregation ``rgcn_aggregate``, the
+CLI, and MPNetm's step unchanged by the shared skeleton.
 
-The graph is a seeded random typed graph of 4 relations whose sources are
-drawn from a part of the nodes only, so that some nodes have no edges in
-some relations (no term of theirs), with repeated edges (counted in
-1/c_{i,r}), and a fifth relation with no edge at all (no operand). On
-'csr' every relation's term runs on the rows it reaches ('csr_rows'
-operands, ``ops.csr.RowTermBlockings``); 'csr_stacked' holds the same
-blockings through the stacked product, and a layer where the two paths
-mix is held against both.
+The graphs are seeded random typed graphs of four kinds (``KINDS``):
+'partial', 4 relations whose sources are drawn from a part of the nodes
+only, so that some nodes have no edges in some relations (no term of
+theirs), with repeated edges (counted in 1/c_{i,r}), and a fifth relation
+with no edge at all (no blocking); 'every_row', a relation that reaches
+every row; 'hub_k2', a relation whose edges all point at a few hubs, so
+that ``build_csr_blocking`` routes its forward to K2 and ``rgcn_operands``
+builds its K1 forward from its edges; 'isolated', nodes with no edge at
+all and a relation of one edge. A graph with no edge at all has no
+blockings.
 
 Tolerances, with their reasons:
 * log-probabilities, the loss and the first gradients: the program sums
   and multiplies in float32 where the reference does in float64, in
-  another order (aggregate, then one product a relation or one stacked
-  product, against a product per edge); values of order 1 over sums of
-  up to ~100 terms keep a float32 error under 1e-6, so rtol 1e-5, atol
-  1e-6 (the row terms and the stacked product, both float32, are held to
-  each other the same way; a float32 run of the reference's equations
-  with any term left out or any relation's normalization changed misses
-  by more than 1e-3).
+  another order (aggregate, then one product a relation, against a
+  product per edge); values of order 1 over sums of up to ~100 terms keep
+  a float32 error under 1e-6, so rtol 1e-5, atol 1e-6 (a float32 run of
+  the reference's equations with any term left out or any relation's
+  normalization changed misses by more than 1e-3).
 * 3 Adam steps: the losses as above; each leaf's change atol 1e-4 (Adam
   divides a gradient by its running RMS, so an element that float32
   rounding dominates moves by up to lr a step: ``tests/test_torch_train.
@@ -49,14 +49,12 @@ from mpgnn_tpu_torch.config import MPGNNConfig
 from mpgnn_tpu_torch.graph.hetero import HeteroGraph
 from mpgnn_tpu_torch.graph.io import split_nodes
 from mpgnn_tpu_torch.models.mpgnn import (
-    ROW_OPERAND,
-    RgcnInput,
     init_rgcn_net,
     precompute_first_hop,
-    precompute_rgcn_input,
-    rgcn_input,
+    precompute_rgcn_rows,
 )
 from mpgnn_tpu_torch.models.relconv import rgcn_aggregate, rgcn_edges
+from mpgnn_tpu_torch.ops import csr
 from mpgnn_tpu_torch.train import loops
 from mpgnn_tpu_torch.utils import prof
 from perfbench.reference import rgcn as ref
@@ -67,24 +65,61 @@ LAYERS = 3
 RTOL, ATOL = 1e-5, 1e-6
 DELTA_ATOL = 1e-4
 VARIANTS = [{}, dict(num_bases=2), dict(num_blocks=2)]
-BACKENDS = ("csr", "segment")
-# 'csr' runs every relation's term on its rows ('csr_rows' operands);
-# 'csr_stacked' the same blockings through the stacked product
-PATHS = BACKENDS + ("csr_stacked",)
 
 
-@pytest.fixture(scope="module")
-def graph():
+def _typed(rng, src, dst, num_relations):
+    """A HeteroGraph of N nodes from per-relation edge arrays."""
+    return HeteroGraph(rng.normal(size=(N, F)).astype(np.float32),
+                       np.concatenate(src).astype(np.int64),
+                       np.concatenate(dst).astype(np.int64),
+                       np.concatenate([np.full(len(s), r)
+                                       for r, s in enumerate(src)]),
+                       num_relations=num_relations)
+
+
+def _partial():
     rng = np.random.default_rng(11)
-    src, dst, rel = [], [], []
+    src, dst = [], []
     for r in range(R - 1):               # relation R - 1 has no edge
         e = 40 + 15 * r
         src.append(rng.integers(0, 25 + 8 * r, e))
         dst.append(rng.integers(0, N, e))
-        rel.append(np.full(e, r))
-    x = rng.normal(size=(N, F)).astype(np.float32)
-    return HeteroGraph(x, np.concatenate(src), np.concatenate(dst),
-                       np.concatenate(rel), num_relations=R)
+    return _typed(rng, src, dst, R)
+
+
+def _every_row():
+    """Relation 0 reaches every row, 1 a few rows, 2 most rows."""
+    rng = np.random.default_rng(13)
+    src = [np.arange(N), rng.integers(0, 6, 20), rng.integers(0, N, 70)]
+    return _typed(rng, src, [rng.integers(0, N, len(s)) for s in src], 3)
+
+
+def _hub_k2():
+    """Relation 1's 150 edges point at 3 hubs: its forward routes to K2."""
+    rng = np.random.default_rng(14)
+    src = [rng.integers(0, 40, 50), rng.integers(0, N, 150),
+           rng.integers(10, N, 45)]
+    dst = [rng.integers(0, N, 50), rng.integers(0, 3, 150),
+           rng.integers(0, N, 45)]
+    return _typed(rng, src, dst, 3)
+
+
+def _isolated():
+    """Nodes 30-59 have no edge; relation 1 has one edge, relation 2
+    none."""
+    rng = np.random.default_rng(15)
+    src = [rng.integers(0, 30, 40), np.array([4]), np.zeros(0, np.int64)]
+    dst = [rng.integers(0, 30, 40), np.array([17]), np.zeros(0, np.int64)]
+    return _typed(rng, src, dst, 3)
+
+
+KINDS = {"partial": _partial, "every_row": _every_row, "hub_k2": _hub_k2,
+         "isolated": _isolated}
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return _partial()
 
 
 @pytest.fixture(scope="module")
@@ -96,28 +131,15 @@ def rows():
 
 def _edges(g):
     return {r: tuple(torch.from_numpy(a.astype(np.int64))
-                     for a in g.rel_edges(r)) for r in range(R)}
+                     for a in g.rel_edges(r))
+            for r in range(g.num_relations)}
 
 
-def _setup(g, rows, backend, kw, seed=5):
+def _setup(g, rows, kw, backend="auto"):
     cfg = MPGNNConfig(hidden_dim=H, lr=0.01, weight_decay=5e-4, **kw)
     return rgcn_baseline.setup_rgcn(g, torch.from_numpy(g.x), *rows, C,
-                                    LAYERS, cfg, backend, seed=seed,
+                                    LAYERS, cfg, backend, seed=5,
                                     device="cpu")
-
-
-def _path(backend, monkeypatch):
-    """The backend of a path of ``PATHS``; 'csr_stacked' keeps the csr
-    operands out of the row terms."""
-    if backend != "csr_stacked":
-        return backend
-    monkeypatch.setattr(rgcn_baseline, "row_term_operands",
-                        lambda ops, rels: ops)
-    return "csr"
-
-
-def _kinds(run):
-    return {op[0] for op in run.rel_ops if op is not None}
 
 
 def _params(model):
@@ -137,17 +159,16 @@ def _ref_loss(g, rows, p, precision="float64"):
     return logp, (per * w).sum() / w.sum()
 
 
-@pytest.mark.parametrize("backend", PATHS)
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
-def test_forward_loss_and_gradients_match_the_reference(graph, rows,
-                                                        backend, kw,
-                                                        monkeypatch):
-    path = _path(backend, monkeypatch)
-    run = _setup(graph, rows, path, kw)
-    assert run.rel_ops[R - 1] is None and all(run.rel_ops[:R - 1])
-    assert run.backend == path
-    assert _kinds(run) == {ROW_OPERAND if backend == "csr" else path}
-    logp = run.model(run.x, run.rel_ops, LAYERS, first=run.first,
+def test_forward_loss_and_gradients_match_the_reference(rows, kind, kw):
+    graph = KINDS[kind]()
+    run = _setup(graph, rows, kw)
+    present = graph.present_relations()
+    assert run.backend == "csr" and run.blk.rels == tuple(present)
+    assert [op is not None for op in run.rel_ops] == [
+        r in present for r in range(graph.num_relations)]
+    logp = run.model(run.x, run.blk, LAYERS, first=run.first,
                      rows=run.train_idx)
     loss = loops.weighted_nll(logp, None, run.train_y, run.w)
     loss.backward()
@@ -164,11 +185,11 @@ def test_forward_loss_and_gradients_match_the_reference(graph, rows,
                                    RTOL, ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("backend", PATHS)
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
-def test_three_adam_steps_match_the_reference(graph, rows, backend, kw,
-                                              monkeypatch):
-    run = _setup(graph, rows, _path(backend, monkeypatch), kw)
+def test_three_adam_steps_match_the_reference(rows, kind, kw):
+    graph = KINDS[kind]()
+    run = _setup(graph, rows, kw)
     p0 = _params(run.model)
     losses = []
     for t in range(3):
@@ -189,7 +210,7 @@ def test_the_reference_tells_a_wrong_step(graph, rows):
     """The comparison above is tight enough: the reference's equations in
     float32 are within it, with a relation left out or a mean taken over
     all of a node's edges (not its r-edges) they are not."""
-    run = _setup(graph, rows, "segment", {})
+    run = _setup(graph, rows, {})
     p = {k: v.double() for k, v in _params(run.model).items()}
     _, good = _ref_loss(graph, rows, p)
     p32 = {k: v.float() for k, v in p.items()}
@@ -226,7 +247,7 @@ def _plain32(graph, rels, p, idx):
 
 
 def test_each_layer_sums_its_relations_under_one_span(graph, rows):
-    run = _setup(graph, rows, "csr", {})
+    run = _setup(graph, rows, {})
     prof.reset_spans()
     try:
         run.step()
@@ -238,20 +259,6 @@ def test_each_layer_sums_its_relations_under_one_span(graph, rows):
     for name in ("train.step", "train_step.forward", "train_step.backward",
                  "train_step.optimizer"):
         assert got[name]["calls"] == 1, name
-
-
-def test_layer_zero_input_is_the_aggregations_then_x(graph):
-    ops = rgcn_baseline.rgcn_operands(graph, "segment", "cpu")
-    x = torch.from_numpy(graph.x)
-    first = precompute_rgcn_input(x, ops)
-    assert first.shape == (N, R * F)          # 4 relations with edges, x
-    np.testing.assert_array_equal(rgcn_input(x, ops).numpy(),
-                                  first.numpy())
-    np.testing.assert_array_equal(first[:, -F:].numpy(), graph.x)
-    for r in range(R - 1):
-        np.testing.assert_allclose(first[:, r * F:(r + 1) * F].numpy(),
-                                   _mean(graph.x, *graph.rel_edges(r)),
-                                   rtol=RTOL, atol=ATOL)
 
 
 def _mean(x, s, d):
@@ -286,24 +293,21 @@ def test_baseline_loss_matches_rgcn_aggregate(graph, kw):
         w = torch.from_numpy(rgcn_baseline.balanced_class_weights(
             np.asarray(split.train_y), C))[y]
         want = float(loops.weighted_nll(logp, idx, y, w))
-    for backend in BACKENDS:
-        got = rgcn_baseline.train_rgcn_baseline(
-            graph, labels, split, C, LAYERS, cfg, device="cpu",
-            model=init_rgcn_net(F, H, R, H, C, generator=torch.Generator()
-                                .manual_seed(4), device="cpu", **kw),
-            backend=backend)
-        assert abs(got["final_loss"] - want) <= ATOL, backend
+    got = rgcn_baseline.train_rgcn_baseline(
+        graph, labels, split, C, LAYERS, cfg, device="cpu",
+        model=init_rgcn_net(F, H, R, H, C, generator=torch.Generator()
+                            .manual_seed(4), device="cpu", **kw))
+    assert abs(got["final_loss"] - want) <= ATOL
 
 
-@pytest.mark.parametrize("backend", ["auto", "csr", "segment"])
-def test_cli_on_a_tiny_dat_folder(backend, capsys):
+def test_cli_on_a_tiny_dat_folder(capsys):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         res = rgcn_baseline.main([
             "--folder", str(ROOT / "data" / "synthetic_multiclass"),
             "--metapath_length", "2", "--hidden_dim", "8", "--epochs", "3",
-            "--backend", backend, "--platform", "cpu"])
+            "--platform", "cpu"])
     finally:
         torch.set_num_threads(n)
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
@@ -311,10 +315,12 @@ def test_cli_on_a_tiny_dat_folder(backend, capsys):
     assert np.isfinite(res["final_loss"])
 
 
-def test_backends_without_a_separate_aggregation_are_refused(graph, rows):
-    for backend in ("pallas", "halo"):
-        with pytest.raises(ValueError, match="RGCN baseline takes"):
-            _setup(graph, rows, backend, {})
+def test_set_up_refuses_a_backend_other_than_the_row_terms(graph, rows):
+    """'auto' and 'csr' name the one path; the benchmark passes 'auto'."""
+    for backend in ("segment", "pallas", "halo"):
+        with pytest.raises(ValueError, match="not '" + backend):
+            _setup(graph, rows, {}, backend=backend)
+    assert _setup(graph, rows, {}, backend="csr").backend == "csr"
 
 
 def _old_train_step(model, opt, x, hop_ops, first, train_idx, train_y, w,
@@ -364,81 +370,79 @@ def test_the_reference_imports_nothing_of_either_package():
     assert "mpgnn_tpu" not in text
 
 
-def _grads(model, x, ops, idx):
-    """logp on ``idx`` and every gradient of the mean NLL of class 0."""
-    model.zero_grad(set_to_none=True)
-    logp = model(x, ops, LAYERS, first=precompute_rgcn_input(x, ops),
-                 rows=idx)
-    (-logp[:, 0]).mean().backward()
-    return [logp.detach()] + [p.grad.clone() for p in model.parameters()]
+@pytest.mark.parametrize("kind", KINDS)
+def test_operands_are_the_row_terms_of_the_k1_forwards(kind):
+    """``rgcn_operands`` equals, bitwise, ``row_term_blockings`` of every
+    relation's K1 forward built from its edges; a forward routed to K2 is
+    built anew as K1's."""
+    g = KINDS[kind]()
+    present = g.present_relations()
+    fwds = [hop[0][1] for hop in loops.build_hop_arrays(
+        g, [[r] for r in present], "csr", "cpu")]
+    assert any(isinstance(b, csr.DedupCsrBlocking) for b in fwds) == (
+        kind == "hub_k2")
+    got = rgcn_baseline.rgcn_operands(g, "cpu")
+    want = csr.row_term_blockings(present, [
+        csr.build_csr_blocking(*g.rel_edges(r), N, dedup="never")[0]
+        for r in present])
+    assert (got.rels, got.offsets) == (want.rels, want.offsets)
+    for name in ("fwd", "take", "place", "bwd"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a.num_rows, a.num_cols) == (b.num_rows, b.num_cols)
+        for (field, t), (_, u) in zip(a.tensors(), b.tensors()):
+            assert t.dtype == u.dtype and torch.equal(t, u), (name, field)
+    reach = np.diff(got.offsets)
+    if kind == "every_row":
+        assert reach[0] == N
+    if kind == "isolated":
+        assert list(reach[1:]) == [1]
 
 
-@pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
-def test_row_terms_and_the_stacked_product_mix(kw):
-    """A layer whose relations take both paths: relation 0 reaches every
-    row and stays in the stacked product, relations 1-3 reach a few rows
-    each and run on them (``row_term_operands``); the log-probabilities
-    and gradients equal the all-stacked and the all-rows runs'."""
-    rng = np.random.default_rng(21)
-    src = [np.arange(N)] + [rng.integers(0, 6, 30) for _ in range(3)]
-    dst = [rng.integers(0, N, len(s)) for s in src]
-    g = HeteroGraph(rng.normal(size=(N, F)).astype(np.float32),
-                    np.concatenate(src), np.concatenate(dst),
-                    np.concatenate([np.full(len(s), r)
-                                    for r, s in enumerate(src)]),
-                    num_relations=4)
-    ops = [hop[0] for hop in loops.build_hop_arrays(
-        g, [[r] for r in range(4)], "csr", "cpu")]
-    mixed = rgcn_baseline.row_term_operands(ops, [1, 2, 3])
-    assert [op[0] for op in mixed] == ["csr"] + [ROW_OPERAND] * 3
-    model = init_rgcn_net(F, H, 4, H, C, generator=torch.Generator()
-                          .manual_seed(6), device="cpu", **kw)
-    x, idx = torch.from_numpy(g.x), torch.arange(0, N, 2)
-    want = _grads(model, x, ops, idx)
-    for got in (_grads(model, x, mixed, idx), _grads(
-            model, x, rgcn_baseline.row_term_operands(ops, [0, 1, 2, 3]),
-            idx)):
-        for a, b in zip(got, want):
-            np.testing.assert_allclose(a.numpy(), b.numpy(), RTOL, ATOL)
-
-
-@pytest.mark.parametrize("backend", ["csr", "segment", "dense"])
-def test_row_terms_span_counts_each_engaged_layer(graph, rows, backend):
-    """``rgcn.row_terms``: one call a layer with row terms, inside
-    ``rgcn.relations``; the segment and dense backends have none."""
-    run = _setup(graph, rows, backend, {})
-    prof.reset_spans()
-    try:
-        run.step()
-        got = prof.spans()
-    finally:
-        prof.reset_spans()
-    assert got["rgcn.relations"]["calls"] == LAYERS
-    if backend != "csr":
-        assert "rgcn.row_terms" not in got
-        return
-    assert got["rgcn.row_terms"]["calls"] == LAYERS
-    assert got["rgcn.row_terms"]["parent"] == "rgcn.relations"
+def test_a_graph_without_edges_is_its_roots_and_biases(rows):
+    """No relation has an edge: no blockings, every layer ``h @ root +
+    bias``; the log-probabilities, the loss and the gradients match the
+    reference's (the relations' weights get none), and the step takes
+    that loss."""
+    rng = np.random.default_rng(16)
+    none = np.zeros(0, np.int64)
+    g = HeteroGraph(rng.normal(size=(N, F)).astype(np.float32), none, none,
+                    none, num_relations=2)
+    assert rgcn_baseline.rgcn_operands(g, "cpu") is None
+    run = _setup(g, rows, {})
+    assert run.blk is None and run.first is None
+    assert run.rel_ops == [None, None]
+    logp = run.model(run.x, None, LAYERS, rows=run.train_idx)
+    loss = loops.weighted_nll(logp, None, run.train_y, run.w)
+    loss.backward()
+    p = {k: v.double().requires_grad_(True)
+         for k, v in _params(run.model).items()}
+    want_logp, want = _ref_loss(g, rows, p)
+    want.backward()
+    np.testing.assert_allclose(logp.detach().numpy(),
+                               want_logp.detach().numpy(), RTOL, ATOL)
+    for k, q in run.model.named_parameters():
+        if p[k].grad is None:
+            assert q.grad is None or not q.grad.any(), k
+        else:
+            np.testing.assert_allclose(q.grad.numpy(), p[k].grad.numpy(),
+                                       RTOL, ATOL, err_msg=k)
+    assert float(run.step().detach()) == float(loss.detach())
 
 
 def test_layer_zero_input_holds_each_relations_rows(graph):
-    """With row terms, layer 0's input is x and the relations' means on
-    the rows they reach, side by side in relation order: each relation's
-    rows are its sources, ascending."""
-    ops = rgcn_baseline.rgcn_operands(graph, "csr", "cpu")
-    x = torch.from_numpy(graph.x)
-    first = precompute_rgcn_input(x, ops)
-    assert isinstance(first, RgcnInput) and first.stacked is x
-    blk = ops[0][3]
+    """Layer 0's input is the relations' means of x on the rows they
+    reach, side by side in relation order: each relation's rows are its
+    sources, ascending."""
+    blk = rgcn_baseline.rgcn_operands(graph, "cpu")
+    first = precompute_rgcn_rows(torch.from_numpy(graph.x), blk)
     assert blk.rels == tuple(range(R - 1))
-    assert all(op[3] is blk for op in ops[:R - 1])
-    assert first.rows.shape == (blk.offsets[-1], F)
+    assert first.shape == (blk.offsets[-1], F)
     for i, r in enumerate(blk.rels):
         s, d = graph.rel_edges(r)
         rows = blk.take.col[blk.offsets[i]:blk.offsets[i + 1]].numpy()
         np.testing.assert_array_equal(rows, np.unique(s))
         np.testing.assert_allclose(
-            first.rows[blk.offsets[i]:blk.offsets[i + 1]].numpy(),
+            first[blk.offsets[i]:blk.offsets[i + 1]].numpy(),
             _mean(graph.x, s, d)[rows], rtol=RTOL, atol=ATOL)
 
 
@@ -457,7 +461,7 @@ def test_row_term_blockings_transpose_and_place(graph):
     each relation's square forward on its rows."""
     ops = [hop[0] for hop in loops.build_hop_arrays(
         graph, [[r] for r in range(R - 1)], "csr", "cpu")]
-    blk = rgcn_baseline.row_term_operands(ops, list(range(R - 1)))[0][3]
+    blk = csr.row_term_blockings(range(R - 1), [op[1] for op in ops])
     m = blk.offsets[-1]
     want = torch.zeros(m, N, dtype=torch.float64)
     want[torch.arange(m), blk.take.col.long()] = 1.0
