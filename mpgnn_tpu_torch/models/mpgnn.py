@@ -585,7 +585,9 @@ class RgcnNet(nn.Module):
     (``rgcn_baseline.rgcn_operands``): K1 on their [sum_r |R_r|, N]
     blocking, one product with W_r on each relation's rows, one K1 pass
     that adds each node's terms. Layer 0's aggregations of the constant
-    features may be given once (``precompute_rgcn_rows``). The build is
+    features may be given once (``precompute_rgcn_rows``). A training
+    step whose loss reads T rows runs its last layer on those rows alone,
+    on blockings derived for them (``ops.csr.row_term_tail``). The build is
     timed as the span ``model.init``, each layer's sum over relations
     (aggregations, products, root, bias) as ``rgcn.relations``."""
 
@@ -606,26 +608,40 @@ class RgcnNet(nn.Module):
 
     def forward(self, x: torch.Tensor, blk: Optional[RowTermBlockings],
                 metapath_length: int, *, first: Optional[torch.Tensor] = None,
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rows: Optional[torch.Tensor] = None,
+                tail: Optional[RowTermBlockings] = None,
+                tail_first: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[N, C] log-probabilities after ``metapath_length`` layers;
         ``blk`` holds every relation with edges (None where the graph has
         none: each layer is then its root and bias). ``first`` is
         ``precompute_rgcn_rows(x, blk)``, layer 0's aggregations, or None
         to compute them. ``rows`` (a 1-D index tensor) gives
         [len(rows), C], the head on those rows alone: every layer runs on
-        all rows."""
+        all rows, unless ``tail`` (``ops.csr.row_term_tail(blk, rows)``)
+        is given: the last layer then runs on ``rows`` alone, its relation
+        terms, root, bias and ReLU, timed as the span ``model.row_tail``
+        inside that layer's ``rgcn.relations``. Where the last layer is
+        layer 0, ``tail_first`` is ``precompute_rgcn_rows(x, tail)``, or
+        None to compute it."""
+        if tail is not None and (rows is None or blk is None):
+            raise ValueError("tail blockings are derived from blk for rows")
+        cut = tail is not None and metapath_length > 0
         h = x
         for layer in range(metapath_length):
             conv = self.conv1 if layer == 0 else self.conv2
-            with span("rgcn.relations"):
+            last = cut and layer == metapath_length - 1
+            with span("rgcn.relations"), (span("model.row_tail") if last
+                                           else contextlib.nullcontext()):
                 if blk is None:
                     z = torch.addmm(conv.bias, h, conv.root)
                 else:
+                    given = (tail_first if last else first) if layer == 0 \
+                        else None
                     z = _RowTerms.apply(h, conv.effective_weights(),
-                                        conv.bias, conv.root, blk,
-                                        first if layer == 0 else None)
+                                        conv.bias, conv.root,
+                                        tail if last else blk, given)
             h = torch.relu(z)
-        if rows is not None:
+        if rows is not None and not cut:
             h = h.index_select(0, rows)
         return torch.log_softmax(self.linear(h), dim=1)
 
@@ -644,18 +660,25 @@ class _RowTerms(torch.autograd.Function):
     for one K1 pass on ``blk.bwd``, h's gradient through all their means,
     to which the root's adds in place. Each relation's weight is taken by
     its host index, so no index goes to the device; the blockings get no
-    gradient."""
+    gradient.
+
+    Blockings with ``root`` (``ops.csr.row_term_tail``) give [T, out],
+    their T rows alone: the root's term is their last block, whose
+    aggregation is h at those rows, so its product, its weight's gradient
+    and its input gradient ride in the same passes and products as the
+    relations'."""
 
     @staticmethod
     def forward(ctx, h, w, bias, root, blk, given):
         a = csr_scatter(blk.fwd, h) if given is None else given
         o = blk.offsets
         t = a.new_empty((a.shape[0], w.shape[2]))
-        for i, r in enumerate(blk.rels):
-            torch.mm(a[o[i]:o[i + 1]], w[r], out=t[o[i]:o[i + 1]])
+        for i, wi in enumerate(_blocks(w, root, blk)):
+            torch.mm(a[o[i]:o[i + 1]], wi, out=t[o[i]:o[i + 1]])
         ctx.save_for_backward(h, w, root)
         ctx.blk, ctx.a = blk, a
-        return csr_scatter(blk.place, t).add_(bias).addmm_(h, root)
+        out = csr_scatter(blk.place, t).add_(bias)
+        return out if blk.root else out.addmm_(h, root)
 
     @staticmethod
     def backward(ctx, grad):
@@ -663,18 +686,32 @@ class _RowTerms(torch.autograd.Function):
         blk, a, o = ctx.blk, ctx.a, ctx.blk.offsets
         g = csr_scatter(blk.take, grad.contiguous())
         gw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
+        groot = (torch.empty_like(root) if ctx.needs_input_grad[3]
+                 and blk.root else None)
         ga = g.new_empty(a.shape) if ctx.needs_input_grad[0] else None
-        for i, r in enumerate(blk.rels):
+        for i, (wi, into) in enumerate(zip(_blocks(w, root, blk),
+                                           _blocks(gw, groot, blk))):
             rows = slice(o[i], o[i + 1])
-            if gw is not None:
-                torch.mm(a[rows].t(), g[rows], out=gw[r])
+            if into is not None:
+                torch.mm(a[rows].t(), g[rows], out=into)
             if ga is not None:
-                torch.mm(g[rows], w[r].t(), out=ga[rows])
-        gh = (None if ga is None
-              else csr_scatter(blk.bwd, ga).addmm_(grad, root.t()))
+                torch.mm(g[rows], wi.t(), out=ga[rows])
+        gh = None if ga is None else csr_scatter(blk.bwd, ga)
+        if not blk.root:
+            if gh is not None:
+                gh.addmm_(grad, root.t())
+            if ctx.needs_input_grad[3]:
+                groot = h.t().mm(grad)
         gb = grad.sum(0) if ctx.needs_input_grad[2] else None
-        groot = h.t().mm(grad) if ctx.needs_input_grad[3] else None
         return gh, gw, gb, groot, None, None
+
+
+def _blocks(w, root, blk):
+    """The weight (or its gradient) of each block of ``blk``'s stacked
+    rows, in order: the relations' ``w[r]``, then ``root`` where
+    ``blk.root``; None for a ``w`` of None."""
+    return ([None if w is None else w[r] for r in blk.rels]
+            + ([root] if blk.root else []))
 
 
 @torch.no_grad()

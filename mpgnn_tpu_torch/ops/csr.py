@@ -287,7 +287,16 @@ class RowTermBlockings:
     * ``place`` [N, M], ``take``'s transpose: sums each node's stacked
       rows, in their order (relation order), into its row;
     * ``bwd`` [N, M], ``fwd``'s transpose: the input gradient of every
-      relation's mean at once."""
+      relation's mean at once.
+
+    A last layer read at T rows alone (``row_term_tail``) has ``root``
+    set: its outputs are those T rows, in their order, so ``take`` is
+    [M, T] and ``place`` [T, M]; each relation keeps the rows of R_i among
+    them, and one more block, the stacked rows ``offsets[-2]`` ..
+    ``offsets[-1]``, is the root's: its row k gathers output k's node
+    (weight 1), so that the root's product is one more block's product,
+    ``place`` adds it to the relations' terms and ``bwd`` carries its input
+    gradient."""
 
     fwd: CsrBlocking
     take: CsrBlocking
@@ -295,6 +304,7 @@ class RowTermBlockings:
     bwd: CsrBlocking
     rels: Tuple[int, ...]
     offsets: Tuple[int, ...]
+    root: bool = False
 
 
 def transpose_blocking(blk: CsrBlocking) -> CsrBlocking:
@@ -350,6 +360,57 @@ def row_term_blockings(rels, fwds) -> RowTermBlockings:
         fwd=fwd, take=take, place=transpose_blocking(take),
         bwd=transpose_blocking(fwd), rels=tuple(int(r) for r in rels),
         offsets=tuple(int(o) for o in offsets))
+
+
+def row_term_tail(blk: RowTermBlockings, rows: torch.Tensor
+                  ) -> RowTermBlockings:
+    """The ``RowTermBlockings`` of a last layer read at ``rows`` (T
+    distinct nodes) alone, derived on ``blk``'s device from ``blk``, the
+    same layer's blockings at every row: relation i's rows are its rows
+    in ``blk`` whose node is among ``rows``, in the same order, each with
+    all its edges in their order; a relation that reaches none of them is
+    left out; the root's block follows (``root``). Output k is node
+    ``rows[k]``."""
+    fwd = blk.fwd
+    n, dev = fwd.num_cols, fwd.col.device
+    rows = rows.to(dev, torch.int64)
+    t = rows.numel()
+    at = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    at[rows] = torch.arange(t, device=dev)
+    if not torch.equal(at[rows], torch.arange(t, device=dev)):
+        raise ValueError("row_term_tail takes distinct rows")
+    at = at[blk.take.col.long()]           # each stacked row's output
+    keep = torch.nonzero(at >= 0).flatten()
+    o = torch.tensor(blk.offsets, device=dev)
+    counts = torch.searchsorted(keep, o).diff().tolist()
+    ptr = fwd.row_ptr.long()
+    deg = ptr.diff()[keep]
+    row_ptr = torch.zeros(keep.numel() + t + 1, dtype=torch.int64,
+                          device=dev)
+    torch.cumsum(deg, 0, out=row_ptr[1:keep.numel() + 1])
+    e = int(row_ptr[keep.numel()])
+    row_ptr[keep.numel() + 1:] = e + torch.arange(1, t + 1, device=dev)
+    m = keep.numel() + t
+    if m + n + e + t >= 2 ** 31:
+        raise ValueError(f"a tail of {e + t} edges overflows K1's int32 "
+                         f"items")
+    edge = torch.repeat_interleave(ptr[keep] - row_ptr[:keep.numel()], deg,
+                                   output_size=e)
+    edge += torch.arange(e, device=dev)
+    tail = CsrBlocking(
+        row_ptr=row_ptr.int(), col=torch.cat([fwd.col[edge], rows.int()]),
+        weight=torch.cat([fwd.weight[edge], torch.ones(t, device=dev)]),
+        num_rows=m, num_cols=n)
+    take = CsrBlocking(
+        row_ptr=torch.arange(m + 1, dtype=torch.int32, device=dev),
+        col=torch.cat([at[keep], torch.arange(t, device=dev)]).int(),
+        weight=torch.ones(m, device=dev), num_rows=m, num_cols=t)
+    reached = [(r, c) for r, c in zip(blk.rels, counts) if c]
+    offsets = np.cumsum([0] + [c for _, c in reached] + [t])
+    return RowTermBlockings(
+        fwd=tail, take=take, place=transpose_blocking(take),
+        bwd=transpose_blocking(tail), rels=tuple(r for r, _ in reached),
+        offsets=tuple(int(x) for x in offsets), root=True)
 
 
 def stack_blockings(blockings) -> CsrBlocking:

@@ -42,6 +42,7 @@ from mpgnn_tpu_torch.ops.csr import (
     RowTermBlockings,
     build_csr_blocking,
     row_term_blockings,
+    row_term_tail,
 )
 from mpgnn_tpu_torch.train.loops import (
     build_hop_arrays,
@@ -105,6 +106,33 @@ def rgcn_operands(graph: HeteroGraph, device
     return blk
 
 
+def rgcn_tail_operands(blk: Optional[RowTermBlockings], rows: torch.Tensor
+                       ) -> Optional[RowTermBlockings]:
+    """The last layer's blockings at the loss's ``rows`` alone
+    (``ops.csr.row_term_tail`` of ``blk``); None where ``blk`` is. The
+    derivation is timed as one more call of the span
+    ``train.build_hop_arrays``; each relation's rows and edges there are
+    logged."""
+    if blk is None:
+        return None
+    # The cut won at every share of rows measured, so no share gates it:
+    # one training step, all rows against the last layer at T random rows,
+    # 3 layers 128 -> 64 -> 64 -> 64 on ogbn-mag's 1,939,743 nodes and 8
+    # relations, float32, NVIDIA H100 80GB HBM3 at 700.00 W, ms: T at 5%
+    # 43.94 / 28.08, 32.5% 48.42 / 36.91, 60% 52.70 / 45.09, 90% 57.53 /
+    # 54.64, every row 59.21 / 57.82; the 629,571 train papers 48.38 /
+    # 39.17.
+    with span("train.build_hop_arrays"):
+        tail = row_term_tail(blk, rows)
+    o = tail.offsets
+    ptr = tail.fwd.row_ptr[list(o)].tolist()
+    for i, r in enumerate(tail.rels):
+        log.info("rgcn baseline: relation %d: last layer on %d of %d rows, "
+                 "%d edges", r, o[i + 1] - o[i], rows.numel(),
+                 ptr[i + 1] - ptr[i])
+    return tail
+
+
 @dataclasses.dataclass
 class RgcnTraining:
     """One RGCN baseline run's objects on the device, and its epoch."""
@@ -114,6 +142,8 @@ class RgcnTraining:
     x: torch.Tensor
     blk: Optional[RowTermBlockings]     # rgcn_operands
     first: Optional[torch.Tensor]       # precompute_rgcn_rows
+    tail: Optional[RowTermBlockings]    # rgcn_tail_operands
+    tail_first: Optional[torch.Tensor]  # tail's layer 0, when it is last
     metapath_length: int
     num_relations: int
     train_idx: torch.Tensor
@@ -135,7 +165,8 @@ class RgcnTraining:
         """One epoch's step; returns its loss."""
         return rgcn_train_step(self.model, self.opt, self.x, self.blk,
                                self.first, self.metapath_length,
-                               self.train_idx, self.train_y, self.w)
+                               self.train_idx, self.train_y, self.w,
+                               tail=self.tail, tail_first=self.tail_first)
 
     @torch.no_grad()
     def predict(self) -> torch.Tensor:
@@ -175,14 +206,17 @@ def setup_rgcn(graph: HeteroGraph, x: torch.Tensor, train_idx: torch.Tensor,
     model = model.to(device)
     opt = make_optimizer(model, cfg)
     first = precompute_rgcn_rows(x, blk)
+    train_idx = torch.as_tensor(train_idx, device=device)
+    tail = rgcn_tail_operands(blk, train_idx)
     train_y = torch.as_tensor(train_y, device=device)
     cw = balanced_class_weights(train_y.cpu().numpy(), num_classes)
     return RgcnTraining(
-        model=model, opt=opt, x=x, blk=blk, first=first,
+        model=model, opt=opt, x=x, blk=blk, first=first, tail=tail,
+        tail_first=(precompute_rgcn_rows(x, tail) if metapath_length == 1
+                    else None),
         metapath_length=metapath_length,
-        num_relations=graph.num_relations,
-        train_idx=torch.as_tensor(train_idx, device=device), train_y=train_y,
-        w=torch.as_tensor(cw, device=device)[train_y])
+        num_relations=graph.num_relations, train_idx=train_idx,
+        train_y=train_y, w=torch.as_tensor(cw, device=device)[train_y])
 
 
 def train_rgcn_baseline(

@@ -396,14 +396,21 @@ def rgcn_train_step(model: RgcnNet, opt: torch.optim.Optimizer,
                     x: torch.Tensor, blk: Optional[RowTermBlockings],
                     first: Optional[torch.Tensor],
                     metapath_length: int, train_idx: torch.Tensor,
-                    train_y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                    train_y: torch.Tensor, w: torch.Tensor, *,
+                    tail: Optional[RowTermBlockings] = None,
+                    tail_first: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """One epoch's step of the RGCN ``Net`` (``optimizer_step``): the
     forward over the relations' row-term blockings ``blk``
     (``rgcn_baseline.rgcn_operands``) from layer 0's aggregations
-    ``first`` (``precompute_rgcn_rows``), the head on the train rows
-    alone, the weighted NLL, its backward and Adam. Returns the loss."""
+    ``first`` (``precompute_rgcn_rows``), the last layer on the train rows
+    alone where their blockings ``tail`` are given
+    (``rgcn_baseline.rgcn_tail_operands``; ``tail_first`` its layer 0's
+    aggregations), else the head on them alone, the weighted NLL, its
+    backward and Adam. Returns the loss."""
     return optimizer_step(opt, lambda: weighted_nll(
-        model(x, blk, metapath_length, first=first, rows=train_idx),
+        model(x, blk, metapath_length, first=first, rows=train_idx,
+              tail=tail, tail_first=tail_first),
         None, train_y, w))
 
 

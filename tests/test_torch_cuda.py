@@ -1033,8 +1033,10 @@ def _mag_slice(seed=0):
                        np.concatenate(typ), num_relations=8)
 
 
-def _rgcn_run(graph, blk, dev):
-    """logp and every gradient of one R-GCN step's loss on ``dev``."""
+def _rgcn_run(graph, blk, dev, tail=None):
+    """logp and every gradient of one R-GCN step's loss on ``dev``, at
+    every third node, the last layer on those rows alone where their
+    ``tail`` blockings are given."""
     from mpgnn_tpu_torch.models.mpgnn import (
         init_rgcn_net,
         precompute_rgcn_rows,
@@ -1044,7 +1046,8 @@ def _rgcn_run(graph, blk, dev):
     model = init_rgcn_net(16, 64, 8, 64, 5, generator=torch.Generator()
                           .manual_seed(1), device=dev)
     idx = torch.arange(0, graph.num_nodes, 3, device=dev)
-    logp = model(x, blk, 3, first=precompute_rgcn_rows(x, blk), rows=idx)
+    logp = model(x, blk, 3, first=precompute_rgcn_rows(x, blk), rows=idx,
+                 tail=tail)
     (-logp[:, 0]).mean().backward()
     return [logp.detach()] + [p.grad for p in model.parameters()]
 
@@ -1089,3 +1092,29 @@ def test_rgcn_step_on_the_card_matches_the_plain_versions(dev, monkeypatch):
             h.cpu(), *(a.cpu() for a in args),
             csr.row_term_blockings([r], [fwds[r].to("cpu")]), None)
         torch.testing.assert_close(one.cpu(), plain, rtol=1e-4, atol=1e-5)
+
+
+def test_rgcn_cut_step_on_the_card_matches_the_all_row_step(dev,
+                                                           monkeypatch):
+    """The R-GCN step with its last layer on the loss's rows alone
+    (``row_term_tail`` of ``rgcn_operands``' blockings) on the mag-shaped
+    graph: on the card against the all-row step on the card and against
+    the cut step's plain versions on the CPU, within float32 rounding as
+    above (rtol 1e-4, atol 1e-5); two cut runs on the card repeat
+    bitwise."""
+    from mpgnn_tpu_torch import rgcn_baseline
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(csr, "DEDUP_MIN_RATIO", float("inf"))
+    graph = _mag_slice()
+    idx = torch.arange(0, graph.num_nodes, 3)
+    blk, cblk = (rgcn_baseline.rgcn_operands(graph, d) for d in (dev, "cpu"))
+    tail = csr.row_term_tail(blk, idx.to(dev))
+    assert tail.root and tail.rels == tuple(range(8))
+    got, again = (_rgcn_run(graph, blk, dev, tail) for _ in range(2))
+    full = _rgcn_run(graph, blk, dev)
+    plain = _rgcn_run(graph, cblk, "cpu", csr.row_term_tail(cblk, idx))
+    for a, b, c, d in zip(got, again, full, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a.cpu(), d, rtol=1e-4, atol=1e-5)

@@ -472,3 +472,147 @@ def test_row_term_blockings_transpose_and_place(graph):
         rows = slice(blk.offsets[i], blk.offsets[i + 1])
         assert torch.equal(_dense(blk.fwd)[rows],
                            _dense(op[1])[blk.take.col[rows].long()])
+
+
+def _step_pair(g, rows, kw, layers=LAYERS):
+    """Two runs from the same parameters: the set-up's (its last layer on
+    the train rows alone, ``tail``) and one whose step runs every layer on
+    every row (``tail`` None)."""
+    cfg = MPGNNConfig(hidden_dim=H, lr=0.01, weight_decay=5e-4, **kw)
+    return [rgcn_baseline.setup_rgcn(g, torch.from_numpy(g.x), *rows, C,
+                                     layers, cfg, seed=5, device="cpu")
+            for _ in range(2)]
+
+
+def _all_rows(run):
+    return loops.rgcn_train_step(run.model, run.opt, run.x, run.blk,
+                                 run.first, run.metapath_length,
+                                 run.train_idx, run.train_y, run.w)
+
+
+def _assert_cut_is_all_rows(cut, full):
+    """The cut step's log-probabilities at the train rows, loss and every
+    gradient, then 3 Adam steps, against the all-row step's."""
+    assert cut.tail is not None and cut.tail.root
+    logps = []
+    for run, tail in ((cut, cut.tail), (full, None)):
+        logp = run.model(run.x, run.blk, run.metapath_length,
+                         first=run.first, rows=run.train_idx, tail=tail,
+                         tail_first=run.tail_first)
+        loops.weighted_nll(logp, None, run.train_y, run.w).backward()
+        logps.append(logp.detach())
+    torch.testing.assert_close(logps[0], logps[1], rtol=RTOL, atol=ATOL)
+    for (k, p), q in zip(cut.model.named_parameters(),
+                         full.model.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, rtol=RTOL, atol=ATOL,
+                                   msg=k)
+        p.grad = q.grad = None
+    p0 = _params(cut.model)
+    got = [float(cut.step().detach()) for _ in range(3)]
+    want = [float(_all_rows(full).detach()) for _ in range(3)]
+    np.testing.assert_allclose(got, want, RTOL, ATOL)
+    for (k, p), q in zip(cut.model.named_parameters(),
+                         full.model.parameters()):
+        assert abs(float((p.detach() - p0[k]).norm())
+                   - float((q.detach() - p0[k]).norm())) <= DELTA_ATOL, k
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "bases", "blocks"])
+def test_the_cut_step_equals_the_all_row_step(rows, kind, kw):
+    """The last layer on the train rows alone (``tail``) gives what every
+    layer on every row gives there: the log-probabilities, the loss, every
+    gradient and 3 Adam steps, within float32 rounding (the root's term is
+    summed with the relations' in another order)."""
+    _assert_cut_is_all_rows(*_step_pair(KINDS[kind](), rows, kw))
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+def test_the_cut_step_on_rows_some_relations_miss(layers):
+    """Train rows among relation 0's none (its sources are 0-24) and
+    among the others' some: relation 0 drops out of the last layer, a
+    train row without an r-edge has no r-term, and the cut step still
+    equals the all-row step, also where the last layer is layer 0 (its
+    aggregations given once, ``tail_first``)."""
+    g = _partial()
+    rng = np.random.default_rng(21)
+    idx = torch.from_numpy(rng.permutation(np.arange(25, N))[:30])
+    rows = idx, torch.from_numpy(rng.integers(0, C, 30))
+    cut, full = _step_pair(g, rows, {}, layers)
+    assert 0 not in cut.tail.rels and cut.blk.rels[0] == 0
+    for i, r in enumerate(cut.tail.rels):
+        assert cut.tail.offsets[i + 1] - cut.tail.offsets[i] < 30, r
+    assert (cut.tail_first is None) == (layers != 1)
+    if layers == 1:
+        torch.testing.assert_close(
+            cut.tail_first, precompute_rgcn_rows(cut.x, cut.tail))
+    _assert_cut_is_all_rows(cut, full)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_tail_blockings_hold_the_full_rows_of_the_train_nodes(rows, kind):
+    """``row_term_tail``: each relation keeps, in order, the full
+    blockings' rows whose node is a train row, each with its edges in
+    order (bitwise); a relation reaching none drops out; the root's block
+    gathers each train row's node; ``place`` puts output k at
+    ``rows[k]``'s terms, ``take`` and ``bwd`` are the transposes of
+    ``place`` and ``fwd``."""
+    g = KINDS[kind]()
+    blk = rgcn_baseline.rgcn_operands(g, "cpu")
+    idx = rows[0]
+    tail = csr.row_term_tail(blk, idx)
+    assert tail.root and not blk.root
+    wanted = np.isin(blk.take.col.numpy(), idx.numpy())
+    ptr, tptr = blk.fwd.row_ptr.long(), tail.fwd.row_ptr.long()
+    got_rels, j = [], 0
+    for i, r in enumerate(blk.rels):
+        full = [k for k in range(blk.offsets[i], blk.offsets[i + 1])
+                if wanted[k]]
+        if not full:
+            continue
+        got_rels.append(r)
+        for k in full:
+            assert int(tail.take.col[j]) == int(
+                (idx == blk.take.col[k]).nonzero())
+            a, b = slice(ptr[k], ptr[k + 1]), slice(tptr[j], tptr[j + 1])
+            assert torch.equal(tail.fwd.col[b], blk.fwd.col[a])
+            assert torch.equal(tail.fwd.weight[b], blk.fwd.weight[a])
+            j += 1
+    assert tail.rels == tuple(got_rels)
+    t = idx.numel()
+    assert tail.offsets[-2:] == (j, j + t) and tail.fwd.num_rows == j + t
+    root = slice(tptr[j], tptr[j + t])
+    assert torch.equal(tptr[j:].diff(), torch.ones(t, dtype=torch.int64))
+    assert torch.equal(tail.fwd.col[root].long(), idx)
+    assert torch.equal(tail.fwd.weight[root], torch.ones(t))
+    assert torch.equal(tail.take.col[j:].long(), torch.arange(t))
+    node = torch.cat([blk.take.col[torch.from_numpy(wanted)].long(), idx])
+    want = (node[None, :] == idx[:, None]).double()
+    assert torch.equal(_dense(tail.place), want)
+    assert torch.equal(_dense(tail.take), want.T)
+    assert torch.equal(_dense(tail.bwd), _dense(tail.fwd).T)
+    with pytest.raises(ValueError, match="distinct"):
+        csr.row_term_tail(blk, torch.cat([idx, idx[:1]]))
+
+
+def test_the_row_tail_span_counts_the_cut_steps(graph, rows):
+    """``model.row_tail`` opens once a training step, inside the last
+    layer's ``rgcn.relations``, and never in ``predict``; each layer
+    keeps its one ``rgcn.relations``."""
+    run = _setup(graph, rows, {})
+    prof.reset_spans()
+    try:
+        run.step()
+        run.step()
+        got = prof.spans()
+        prof.reset_spans()
+        run.predict()
+        pred = prof.spans()
+    finally:
+        prof.reset_spans()
+    assert got["train.step"]["calls"] == 2
+    assert got["model.row_tail"]["calls"] == 2
+    assert got["model.row_tail"]["parent"] == "rgcn.relations"
+    assert got["rgcn.relations"]["calls"] == 2 * LAYERS
+    assert "model.row_tail" not in pred
+    assert pred["rgcn.relations"]["calls"] == LAYERS
