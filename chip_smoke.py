@@ -6,6 +6,7 @@
     python3 chip_smoke.py --search-only
     python3 chip_smoke.py --ooc-only
     python3 chip_smoke.py --parallel-only
+    python3 chip_smoke.py --attention-only
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -210,7 +211,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    CLI: the same selections and F1s; (f) the same line started without
    torchrun, ``--mesh 2 --retries 1``, rank 1 failing on its first attempt
    (``bench_parallel.RANK_SITE``): rc 0, one attempt logged, the same
-   summary.
+   summary;
+11. K6 (``csr_attention``, HGT's attention) on the mag_hgt.train cell's
+   graph (``perfbench/graphgen.py`` under ``K6_SEED``), on the blockings
+   the program derives (``hgt_baseline.attention_operands``): every row
+   (1,939,743 rows, 42,222,014 edges: layers 0 and 1) and the train-row
+   tail (629,571 rows: layer 2). Each pass (forward, the backward's row
+   pass and column pass) runs twice (bitwise), is held against its plain
+   version (``K6_TOL``, ``K6_EDGE_TOL``) on sampled target rows and
+   stacked source rows (random ones, rows of several chunks, the longest
+   row, rows without edges), beside a control that leaves out each row's
+   last edge and must fail, and is timed beside its byte bound
+   (``k6_bytes``) and by kernel; then the graph cut by ``K6_CUT``, every
+   row held and the plain versions timed; then one training step there
+   through ``setup_hgt``, which must launch K6 three times forward and six
+   times backward.
 
 The launch counts of the kernels are set to 0 just before phase 3 and read
 just after phase 4 (K1 and K2 must have launched there), set to 0 again
@@ -227,7 +242,9 @@ where a candidate's relation routes to it, and K4 in (e). Phase 9 (b)
 sets them to 0 before each clustered run and reads them after it; their
 sum is the kernels line's ``launches_ooc``. Phase 10 (b)'s ranks set
 theirs to 0 before each halo run and read them after it; their sum is
-``launches_halo``. K5's probe
+``launches_halo``. Phase 11 sets K6's counts to 0 just before it and
+holds them to the calls it made (the kernels line's ``launches``). K5's
+probe
 counts its own in its child process, which starts at 0, and phase 1's
 warmed child the K1 launches of its warm threads (``launches_warm``).
 The last lines are the card's name and power limit, one JSON line with a
@@ -243,7 +260,8 @@ holds them to the ones an earlier run wrote there: the parent's package
 first, then this one's, in one call, and the kernels must give the
 parent's bits.
 ``--search-only`` runs phases 1 and 8 alone, ``--ooc-only`` phases 1
-and 9, ``--parallel-only`` phases 1 and 10.
+and 9, ``--parallel-only`` phases 1 and 10, ``--attention-only`` the
+build and phase 11 (and prints K6's record of the kernels line).
 """
 
 from __future__ import annotations
@@ -3211,6 +3229,296 @@ def parallel_phase(torch, csr, HeteroGraph) -> dict:
     return out
 
 
+# Phase 11: K6 (csr_attention) against its plain versions (float64 sums,
+# one rounding) at the mag_hgt.train cell's shapes. The kernel sums in
+# float32 (the online softmax over chunks of at most 256 edges, their
+# partials folded in order): values of order 1 at rtol = atol = 1e-5, p and
+# ds per edge (under 1) at atol 1e-6, as tests/test_torch_hgt_cuda.py holds
+# them. A kernel that left out one edge of every row misses by 1e-2 and
+# more (the control: the plain forward without each row's last edge).
+K6_TOL = dict(rtol=1e-5, atol=1e-5)
+K6_EDGE_TOL = dict(rtol=1e-5, atol=1e-6)
+K6_SEED = 2750000031           # the cell's graph under this seed
+K6_CUT = 20.0                  # the cut graph: nodes and edges / 20
+K6_SAMPLE = 4096               # random rows held at the full shapes
+K6_LONG = 64                   # and rows of several chunks among them
+K6_LONGEST = 2 ** 20           # the longest row too, up to this many edges
+
+
+def k6_bytes(t: int, m: int, e: int) -> dict:
+    """Each K6 pass's least bytes over ``t`` target rows, ``m`` stacked
+    source rows and ``e`` edges at width 256 in 8 heads (float32 rows,
+    int32 CSRs): the forward reads q, kt, vt and the CSR and writes out
+    and lse; the row pass reads q, out, dout, kt, vt, lse and the CSR and
+    writes p, ds and dq; the column pass reads q, dout, p, ds and the
+    transposed CSR and writes dkt and dvt."""
+    row, lse, pe = 4 * 256, 4 * 8, 4 * 8
+    csr = 4 * (e + t + 1)
+    return {"fwd": 2 * t * row + 2 * m * row + csr + t * lse,
+            "bwd_rows": 4 * t * row + 2 * m * row + t * lse + csr
+            + 2 * pe * e,
+            "bwd_cols": 2 * t * row + 2 * pe * e + 4 * (2 * e + m + 1)
+            + 2 * m * row}
+
+
+def _edge_ranges(torch, ptr, rows):
+    """(the positions of rows ``rows``' edges in the CSR ``ptr``, row by
+    row; the rows' offsets among them)."""
+    start = ptr.long()[rows]
+    deg = ptr.long()[rows + 1] - start
+    off = torch.zeros(rows.numel() + 1, dtype=torch.long, device=ptr.device)
+    torch.cumsum(deg, 0, out=off[1:])
+    e = int(off[-1])
+    return (torch.arange(e, device=ptr.device) + torch.repeat_interleave(
+        start - off[:-1], deg, output_size=e)), off
+
+
+def _k6_sample(torch, ptr, gen, chunk):
+    """Ascending rows of the CSR ``ptr`` to hold at full size:
+    ``K6_SAMPLE`` at random, ``K6_LONG`` of those longer than a chunk, the
+    longest row (up to ``K6_LONGEST`` edges) and up to 64 rows without
+    edges."""
+    deg = ptr.long().diff()
+    dev = ptr.device
+    pick = [torch.randint(deg.numel(), (K6_SAMPLE,), generator=gen,
+                          device=dev),
+            (deg == 0).nonzero().flatten()[:64]]
+    long = ((deg > chunk) & (deg <= 2 ** 16)).nonzero().flatten()
+    if long.numel():
+        pick.append(long[torch.randint(long.numel(), (K6_LONG,),
+                                       generator=gen, device=dev)])
+    top = deg.argmax()
+    if int(deg[top]) <= K6_LONGEST:
+        pick.append(top.view(1))
+    return torch.unique(torch.cat(pick))
+
+
+def _hold(torch, got, want, tol, what) -> float:
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    ok = torch.allclose(got.double(), want.double(), **tol)
+    check(ok, f"K6 {what}: max abs err {err:.3g} against the plain version")
+    return err
+
+
+def attention_case(torch, A, tag, blk, gen, calls, plain_whole=False):
+    """K6's three passes on ``blk``: a second launch of each against the
+    first (bitwise); each against its plain version on sampled rows (on
+    every row with ``plain_whole``), beside the control that must fail;
+    each timed (device time behind a GPU spin, and by kernel) beside its
+    byte bound, the plain versions' time with ``plain_whole``. ``calls``
+    counts the wrappers' calls on the card."""
+    import dataclasses
+
+    dev, h, d = blk.col.device, A.KERNEL_HEADS, A.KERNEL_WIDTH
+    t, m, e = blk.num_rows, blk.num_sources, blk.num_edges
+
+    def randn(rows):
+        return 0.3 * torch.randn(rows, d, generator=gen, device=dev)
+
+    q, dout, kt, vt = randn(t), randn(t), randn(m), randn(m)
+
+    def fwd():
+        calls["fwd"] += 1
+        return A.csr_attention(blk, q, kt, vt, h)
+
+    def rows_pass():
+        calls["bwd"] += 1
+        return A.csr_attention_bwd_rows(blk, q, kt, vt, out, dout, lse, h)
+
+    def cols_pass():
+        calls["bwd"] += 1
+        return A.csr_attention_bwd_cols(blk, q, dout, p, ds, h)
+
+    out, lse = fwd()
+    dq, p, ds = rows_pass()
+    dkt, dvt = cols_pass()
+    for got, want in zip(fwd(), (out, lse)):
+        check(torch.equal(got, want), f"K6 {tag}: forward repeat differs")
+        del got
+    for got, want in zip(rows_pass(), (dq, p, ds)):
+        check(torch.equal(got, want), f"K6 {tag}: row pass repeat differs")
+        del got
+    for got, want in zip(cols_pass(), (dkt, dvt)):
+        check(torch.equal(got, want), f"K6 {tag}: column pass repeat "
+              "differs")
+        del got
+    rec = {"case": tag, "rows": t, "stacked_sources": m, "edges": e,
+           "max_row_edges": int(blk.row_ptr.long().diff().max()),
+           "max_source_edges": int(blk.t_row_ptr.long().diff().max())}
+    # the plain versions on sampled target rows, then on sampled sources
+    rows = (torch.arange(t, device=dev) if plain_whole
+            else _k6_sample(torch, blk.row_ptr, gen, A.CHUNK))
+    eid, off = _edge_ranges(torch, blk.row_ptr, rows)
+    view = dataclasses.replace(blk, row_ptr=off.int(), col=blk.col[eid],
+                               rows=None)
+    w_out, w_lse = A.attention_plain(view, q[rows], kt, vt, h)
+    err = {"fwd": max(_hold(torch, out[rows], w_out, K6_TOL, f"{tag} out"),
+                      _hold(torch, lse[rows], w_lse, K6_TOL, f"{tag} lse"))}
+    # the control: every row's last edge left out must fail the tolerance
+    deg = off.diff()
+    keep = torch.ones(eid.numel(), dtype=torch.bool, device=dev)
+    keep[(off[1:] - 1)[deg > 0]] = False
+    coff = torch.zeros_like(off)
+    torch.cumsum((deg - 1).clamp_min(0), 0, out=coff[1:])
+    c_out, _ = A.attention_plain(dataclasses.replace(
+        view, row_ptr=coff.int(), col=view.col[keep]), q[rows], kt, vt, h)
+    control = float((out[rows].double() - c_out.double()).abs().max())
+    check(not torch.allclose(out[rows].double(), c_out.double(), **K6_TOL),
+          f"K6 {tag}: the control (each row's last edge left out) passed")
+    del c_out, w_out, w_lse
+    w_dq, w_p, w_ds = A.attention_bwd_rows_plain(
+        view, q[rows], kt, vt, out[rows], dout[rows], lse[rows], h)
+    err["bwd_rows"] = max(
+        _hold(torch, dq[rows], w_dq, K6_TOL, f"{tag} dq"),
+        _hold(torch, p[eid], w_p, K6_EDGE_TOL, f"{tag} p"),
+        _hold(torch, ds[eid], w_ds, K6_EDGE_TOL, f"{tag} ds"))
+    rec.update(sampled_rows=rows.numel(), sampled_edges=eid.numel())
+    del w_dq, w_p, w_ds, view, eid
+    srcs = (torch.arange(m, device=dev) if plain_whole
+            else _k6_sample(torch, blk.t_row_ptr, gen, A.CHUNK))
+    teid, toff = _edge_ranges(torch, blk.t_row_ptr, srcs)
+    # col: the column pass's plain version reads only its length, the
+    # view's edge count
+    cview = dataclasses.replace(
+        blk, t_row_ptr=toff.int(), t_col=blk.t_col[teid],
+        t_eid=blk.t_eid[teid], src_node=blk.src_node[srcs],
+        col=blk.t_eid[teid])
+    w_dkt, w_dvt = A.attention_bwd_cols_plain(cview, q, dout, p, ds, h)
+    err["bwd_cols"] = max(
+        _hold(torch, dkt[srcs], w_dkt, K6_TOL, f"{tag} dkt"),
+        _hold(torch, dvt[srcs], w_dvt, K6_TOL, f"{tag} dvt"))
+    rec.update(sampled_sources=srcs.numel(), sampled_source_edges=
+               teid.numel(), control_max_abs_err=control)
+    del w_dkt, w_dvt, cview, teid
+    torch.cuda.empty_cache()
+    least = k6_bytes(t, m, e)
+    plain = {"fwd": lambda: A.attention_plain(blk, q, kt, vt, h),
+             "bwd_rows": lambda: A.attention_bwd_rows_plain(
+                 blk, q, kt, vt, out, dout, lse, h),
+             "bwd_cols": lambda: A.attention_bwd_cols_plain(
+                 blk, q, dout, p, ds, h)}
+    for name, fn in (("fwd", fwd), ("bwd_rows", rows_pass),
+                     ("bwd_cols", cols_pass)):
+        r = {"ms": cuda_ms(torch, fn, 10),
+             "bound_ms": bound(least[name], 0.0)[0],
+             "kernels_us": kernel_us(torch, fn, 5),
+             "max_abs_err": err[name]}
+        if plain_whole:
+            r["plain_ms"] = cuda_ms(torch, plain[name], 2, spin=False)
+        rec[name] = r
+    log(phase="attention_kernels", **rec)
+    return rec
+
+
+def attention_phase(torch) -> dict:
+    """Phase 11: K6 on the mag_hgt.train cell's graph
+    (``perfbench/graphgen.py`` under ``K6_SEED``), on the blockings the
+    program derives for it (``hgt_baseline.attention_operands``): every
+    row (layer 0 and 1) and the train-row tail (layer 2), each pass held
+    against its plain version on sampled rows, repeated bitwise and timed
+    beside its bound; the graph cut by ``K6_CUT``, every row held and the
+    plain versions timed; one training step there through ``setup_hgt``
+    launching K6 three times forward and six times backward. The launch
+    counts are set to 0 just before the phase and must equal the calls it
+    made."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from perfbench import graphgen, harness
+    from perfbench.drivers.train import hetero_graph
+    from mpgnn_tpu_torch.config import MPGNNConfig
+    from mpgnn_tpu_torch.hgt_baseline import attention_operands, setup_hgt, \
+        type_order
+    from mpgnn_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    bench = harness.load_benchmark(harness.ROOT.parent)
+    cfg = harness.config_of(bench, "mag_hgt_h256", harness.ROOT.parent)
+    types = len(cfg["graph"]["node_types"])
+    A.ATTENTION_LAUNCHES = A.ATTENTION_BACKWARD_LAUNCHES = 0
+    calls = {"fwd": 0, "bwd": 0}
+    gen = torch.Generator(device=dev).manual_seed(K6_SEED)
+
+    def operands(gcfg):
+        g = graphgen.generate(gcfg, K6_SEED, dev)
+        het = hetero_graph(g)
+        _, relabel, _ = type_order(g.node_type, types, dev)
+        rows = torch.sort(relabel[g.labeled[g.split["train"]]]).values
+        return g, het, attention_operands(het, relabel, rows, dev)
+
+    out = {}
+    t0 = time.perf_counter()
+    g, het, (blk, tail) = operands(cfg["graph"])
+    log(phase="attention_operands", seconds=time.perf_counter() - t0)
+    del g, het
+    out["mag_layer0"] = attention_case(torch, A, "mag_layer0", blk, gen,
+                                       calls)
+    del blk
+    torch.cuda.empty_cache()
+    out["mag_tail"] = attention_case(torch, A, "mag_tail", tail, gen, calls)
+    del tail
+    torch.cuda.empty_cache()
+    g, het, (blk, _) = operands(graphgen.scaled(cfg["graph"], K6_CUT))
+    out["cut"] = attention_case(torch, A, f"cut_{K6_CUT:g}", blk, gen, calls,
+                                plain_whole=True)
+    del blk
+    check((A.ATTENTION_LAUNCHES, A.ATTENTION_BACKWARD_LAUNCHES)
+          == (calls["fwd"], calls["bwd"]),
+          f"K6 launches {A.ATTENTION_LAUNCHES} forward, "
+          f"{A.ATTENTION_BACKWARD_LAUNCHES} backward, against the phase's "
+          f"calls {calls}")
+    out["launches"] = {"fwd": calls["fwd"], "bwd": calls["bwd"]}
+    # the program's own step on the cut graph: 3 layers, each one forward
+    # and a row and a column pass backward
+    m = cfg["model"]
+    tr = g.split["train"]
+    prog = setup_hgt(het, g.x, g.node_type, g.labeled[tr], g.labels[tr],
+                     int(cfg["graph"]["num_classes"]), m["layers"],
+                     MPGNNConfig(lr=m["lr"], weight_decay=m["weight_decay"],
+                                 hidden_dim=m["hidden_dim"]),
+                     heads=m["heads"], device=dev)
+    prog.step()
+    before = (A.ATTENTION_LAUNCHES, A.ATTENTION_BACKWARD_LAUNCHES)
+    loss = float(prog.step().detach())
+    step = (A.ATTENTION_LAUNCHES - before[0],
+            A.ATTENTION_BACKWARD_LAUNCHES - before[1])
+    check(step == (m["layers"], 2 * m["layers"]) and np.isfinite(loss),
+          f"an HGT step launched K6 {step} (forward, backward), loss {loss}")
+    out["launches"]["train_step"] = list(step)
+    out["launches"]["total"] = (A.ATTENTION_LAUNCHES
+                                + A.ATTENTION_BACKWARD_LAUNCHES)
+    log(phase="attention_done", launches=out["launches"],
+        seconds=time.perf_counter() - t_phase)
+    del prog, g, het
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_kernel_record(att: dict) -> dict:
+    """The kernels line's K6 record: the forward at mag's layer 0, the
+    backward's passes beside it, the tail and the cut graph (with the
+    plain versions' times), the launches of phase 11."""
+    full, cut = att["mag_layer0"], att["cut"]
+    rec = dict(name="csr_attention", route="cuda",
+               source="mpgnn_tpu_torch/csrc/csr_attention.cu",
+               replaces=None, launches=att["launches"]["total"],
+               launches_attention=att["launches"],
+               max_abs_err=max(c[p]["max_abs_err"] for c in (
+                   full, att["mag_tail"], cut)
+                   for p in ("fwd", "bwd_rows", "bwd_cols")),
+               rows=full["rows"], edges=full["edges"],
+               ms=full["fwd"]["ms"], bound_ms=full["fwd"]["bound_ms"])
+    for p in ("bwd_rows", "bwd_cols"):
+        rec.update({f"{p}_ms": full[p]["ms"],
+                    f"{p}_bound_ms": full[p]["bound_ms"]})
+    for tag in ("mag_tail", "cut"):
+        c = att[tag]
+        rec[tag] = {"rows": c["rows"], "edges": c["edges"], **{
+            f"{p}_{k}": c[p][k] for p in ("fwd", "bwd_rows", "bwd_cols")
+            for k in ("ms", "bound_ms", "plain_ms") if k in c[p]}}
+    return rec
+
+
 def wide_shapes(recs: list, name: str) -> dict:
     """The kernels line's record of phase 6's wide K3 shapes of kernel
     ``name``: each shape's time, bound, plain and library times and
@@ -3259,6 +3567,8 @@ def main() -> int:
                     help="run phases 1 and 9 alone")
     ap.add_argument("--parallel-only", action="store_true",
                     help="run phases 1 and 10 alone")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="build the kernels and run phase 11 alone")
     ap.add_argument("--package-root", default=ROOT,
                     help="checkout whose mpgnn_tpu_torch is driven")
     ap.add_argument("--bits-file", default=None,
@@ -3300,6 +3610,12 @@ def main() -> int:
         for line in _kernels.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[{name}] {line.strip()}")
+    if args.attention_only:
+        att = attention_phase(torch)
+        log(phase="done", seconds=time.perf_counter() - t_start)
+        print(smi)
+        print(json.dumps({"kernels": [attention_kernel_record(att)]}))
+        return 0
     graph_s, labels_s, _ = load_dat_files(
         *(os.path.join(SYNTH, f) for f in ("node.dat", "link.dat",
                                            "label.dat")))
@@ -3419,6 +3735,9 @@ def main() -> int:
 
     # 10. multi-rank: node-sharded, sharded, elastic, the search fan-out
     par = parallel_phase(torch, csr, HeteroGraph)
+
+    # 11. K6, HGT's attention, at the mag_hgt.train cell's shapes
+    att = attention_phase(torch)
 
     meta = {
         "csr_scatter": ("mpgnn_tpu_torch/csrc/csr_scatter.cu",
@@ -3548,6 +3867,7 @@ def main() -> int:
         r64_ms=at[64]["ms"], r64_plain_ms=at[64]["plain_ms"],
         r64_bound_ms=at[64]["bound_ms"], r64_library_ms=at[64]["library_ms"],
         dma_run1_vs_torch=probe["dma_run1_vs_torch"]))
+    kernels.append(attention_kernel_record(att))
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))

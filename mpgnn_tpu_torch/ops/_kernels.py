@@ -27,7 +27,8 @@ from mpgnn_tpu_torch.utils.prof import span
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("csr_scatter", "csr_dedup", "dense_matmul", "dma_gather")
+SOURCES = ("csr_scatter", "csr_dedup", "dense_matmul", "dma_gather",
+           "csr_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -52,6 +53,12 @@ _SIGNATURES = {
                      [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "dma_gather": ("dma_gather", "mpgnn_dma_gather",
                    [_P, _P, _P, _L, _I, _I, _I, _P]),
+    "attn_fwd": ("csr_attention", "mpgnn_attn_fwd",
+                 [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] * 9),
+    "attn_bwd_rows": ("csr_attention", "mpgnn_attn_bwd_rows",
+                      [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] * 12),
+    "attn_bwd_cols": ("csr_attention", "mpgnn_attn_bwd_cols",
+                      [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] * 10),
 }
 
 _LOCK = threading.Lock()

@@ -251,6 +251,24 @@ def build_csr_blocking(
     return fwd, bwd
 
 
+def build_csr_forward(src, dst, num_nodes: int, device=None) -> CsrBlocking:
+    """``build_csr_blocking(src, dst, num_nodes, dedup='never')[0]``,
+    bitwise, built on ``device`` alone: the forward K1 blocking (rows the
+    edge sources, each row's edges by destination, stable; weight 1/deg),
+    with no backward and no routing. For a model that reads the forward's
+    CSR and never aggregates backward through it (HGT's attention)."""
+    src = torch.as_tensor(np.asarray(src, dtype=np.int64), device=device)
+    dst = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=device)
+    n = num_nodes
+    deg = torch.bincount(src, minlength=n)
+    inv = (1.0 / deg.clamp_min(1).double()).float()
+    order = torch.sort(src * n + dst, stable=True).indices
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+    torch.cumsum(deg, 0, out=row_ptr[1:])
+    return CsrBlocking(row_ptr=row_ptr.int(), col=dst[order].int(),
+                       weight=inv[src[order]], num_rows=n, num_cols=n)
+
+
 def build_rect_csr_blocking(
     rows: np.ndarray, cols: np.ndarray, weights: np.ndarray,
     num_rows: int, num_cols: int,

@@ -414,6 +414,20 @@ def rgcn_train_step(model: RgcnNet, opt: torch.optim.Optimizer,
         None, train_y, w))
 
 
+def hgt_train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor,
+                   blks: Sequence, offsets: Sequence[int],
+                   row_offsets: Sequence[int], train_y: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """One epoch's step of an ``models.hgt.HgtNet`` (``optimizer_step``):
+    the forward over one ``ops.attention.AttentionBlockings`` a layer, the
+    last at the train rows (``hgt_baseline.setup_hgt``; ``row_offsets``
+    their types' ranges), the NLL of their log-probabilities in their
+    order against ``train_y`` with the per-row weights ``w``, its backward
+    and Adam. Returns the loss."""
+    return optimizer_step(opt, lambda: weighted_nll(
+        model(x, blks, offsets, row_offsets), None, train_y, w))
+
+
 def fit_mpgnn(
     model: MPNetm,
     hop_ops,
